@@ -3,6 +3,7 @@
 Usage:
     python -m rpcc_tpu_torch.cli.compress --input frame.bin --output frame.rpcc \
         --lidar Velodyne64E --device cuda [--accuracy 0.02 --seed 0]
+        [--segment_method DBSCAN --model_method plane --nonuniform ...]
 
 ``frame.bin`` is KITTI layout: float32 (x, y, z, intensity) rows.
 """

@@ -2,7 +2,7 @@
 
 Usage:
     python -m rpcc_tpu_torch.cli.decompress --input frame.rpcc --output rec.bin \
-        --lidar Velodyne64E --device cuda [--accuracy 0.02]
+        --lidar Velodyne64E --device cuda [--accuracy 0.02 ...]
 
 The configuration flags must match the ones the frame was compressed with
 (the bitstream does not describe itself).  ``rec.bin`` holds float32

@@ -1,11 +1,12 @@
 """The decoder graph (port of ``rpcc_tpu/models/decoder.py``, the range-image
 path): recover the seg map from the contour code, rebuild the stream
-order (a function of the seg map alone), predict, dequantize, and place
-the stream back in pixel order."""
+order (a function of the seg map alone), predict, dequantize with the
+uniform step or each cluster's salience-level step, and place the stream
+back in pixel order."""
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional, Sequence, Union
 
 import torch
 from torch import nn
@@ -13,7 +14,13 @@ from torch import nn
 from rpcc_tpu.config import CodecConfig, LidarConfig
 from rpcc_tpu_torch.models.encoder import check_supported, num_model_rows
 from rpcc_tpu_torch.ops.contour import recover_map, unpack_bits_msb
-from rpcc_tpu_torch.ops.stream import predict_stream, rays_from_perm, stream_sort, stream_to_pixel
+from rpcc_tpu_torch.ops.stream import (
+    expand_per_cluster,
+    predict_stream,
+    rays_from_perm,
+    stream_sort,
+    stream_to_pixel,
+)
 
 
 class DecoderOutput(NamedTuple):
@@ -38,7 +45,8 @@ class Decoder(nn.Module):
         sequence: torch.Tensor,  # (<= HW,) int run values
         stream: torch.Tensor,  # (<= HW,) int residuals; the tail is the zero class
         model_param: torch.Tensor,  # (M, 4) f32
-        step: float,
+        step: Union[float, Sequence[float]],  # uniform step, or per-level steps
+        salience: Optional[torch.Tensor] = None,  # (M,) int levels; non-uniform mode
     ) -> DecoderOutput:
         H, W = self.lidar.height, self.lidar.width
         hw = H * W
@@ -50,5 +58,9 @@ class Decoder(nn.Module):
         order, _ = stream_sort(seg.reshape(-1), [], self.num_models)
         pred_s = predict_stream(model_param, order, rays_from_perm(order, self.lidar))
         step_t = torch.tensor(step, dtype=torch.float32, device=dev)
+        if not self.cfg.uniform:
+            # Out-of-range levels clamp, as the reference's gather does.
+            level = torch.clamp(salience.to(torch.int64), 0, step_t.shape[0] - 1)
+            step_t = expand_per_cluster(step_t[level], order)
         ri_s = pred_s + s32.to(torch.float32) * step_t
         return DecoderOutput(stream_to_pixel(ri_s, order).reshape(H, W), seg)

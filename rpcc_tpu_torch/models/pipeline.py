@@ -1,7 +1,8 @@
 """Single-frame codec: host projection -> encoder -> entropy -> ``.rpcc``
 and back (port of ``rpcc_tpu/models/pipeline.py::RPCCCodec``).
 
-The ``.rpcc`` byte layout, the field dtypes and the timing keys are the
+The ``.rpcc`` byte layout (with the u8 ``salience_level`` field first in
+non-uniform mode), the field dtypes and the timing keys are the
 reference's, so blobs cross-decode between the two packages.
 """
 
@@ -42,6 +43,12 @@ class RPCCCodec:
         self.decoder = Decoder(lidar, cfg).to(self.device)
         self.entropy = BasicCompressor(method_name=cfg.basic_compressor, contour_shape=(self.H, self.W))
 
+    @property
+    def _step_arg(self):
+        """The uniform step, or in non-uniform mode the step of each
+        salience level (the reference's ``_step_arg``)."""
+        return self.cfg.step if self.cfg.uniform else self.cfg.level_acc
+
     # ------------------------------------------------------------- encode
     def project(self, points: np.ndarray) -> Tuple[np.ndarray, np.float32]:
         """Host projection to the u16 snap grid: ``(q (H, W) u16, delta)``;
@@ -55,18 +62,21 @@ class RPCCCodec:
         q_t = torch.from_numpy(q.astype(np.int32)).to(self.device)
         d_t = torch.tensor(d, dtype=torch.float32, device=self.device)
         seed = self.cfg.seed if seed is None else seed
-        return self.encoder(q_t, d_t, seed, self.cfg.step)
+        return self.encoder(q_t, d_t, seed, self._step_arg)
 
     def fields_from_device(self, out: EncoderOutput) -> Dict[str, np.ndarray]:
         """Trim fixed-shape encoder outputs into bitstream field arrays."""
         stream_len = int(out.stream_len)
         seq_len = int(out.seq_len)
-        return {
+        fields = {
             "residual_quantized": out.stream[:stream_len].cpu().numpy(),
             "contour_map": out.contour_packed.cpu().numpy(),
             "idx_sequence": out.sequence[:seq_len].cpu().numpy(),
             "plane_param": out.model_param.cpu().numpy().astype(np.float32),
         }
+        if out.salience is not None:
+            fields["salience_level"] = out.salience.cpu().numpy().astype(np.uint8)
+        return fields
 
     def compress(
         self, points: np.ndarray, seed: Optional[int] = None
@@ -101,7 +111,10 @@ class RPCCCodec:
         stream = up(np.frombuffer(fields["residual_quantized"], np.int16).astype(np.int32))
         # True model count from the field length, not cluster_num.
         model_param = up(np.frombuffer(fields["plane_param"], np.float32).reshape(-1, 4).copy())
-        return contour, seq, stream, model_param
+        salience = None
+        if "salience_level" in fields:
+            salience = up(np.frombuffer(fields["salience_level"], np.uint8).astype(np.int32))
+        return contour, seq, stream, model_param, salience
 
     def decompress(self, blob: bytes) -> Tuple[np.ndarray, np.ndarray, Dict[str, float]]:
         """.rpcc payload -> ((H, W, 3) cloud, (H, W) range image, timings)."""
@@ -109,7 +122,8 @@ class RPCCCodec:
         compressed = unpack_bitstream(blob, uniform=self.cfg.uniform)
         fields = self.entropy.decompress_dict(compressed)
         t1 = time.perf_counter()
-        dec = self.decoder(*self.fields_to_device(fields), self.cfg.step)
+        contour, seq, stream, model_param, salience = self.fields_to_device(fields)
+        dec = self.decoder(contour, seq, stream, model_param, self._step_arg, salience)
         ri = dec.range_image.cpu().numpy()  # waits for the device
         pc = ri[..., None] * self.transform_map
         t2 = time.perf_counter()

@@ -1,12 +1,16 @@
 """Ground + cluster segmentation of a range image (port of
-``rpcc_tpu/ops/segment.py``, FPS mode over the zero-masked grid).
+``rpcc_tpu/ops/segment.py``: FPS mode over the zero-masked grid, and
+DBSCAN mode).
 
   * ground plane: z < -1.5 filter, random <= 5000 subsample, seeded RANSAC;
-  * FPS cluster centres over the non-ground pixels (ground and zero pixels
-    zeroed), through :func:`rpcc_tpu_torch.ops.fps.furthest_point_sample`;
-  * per-pixel argmin over |ground depth residual| and the Euclidean
-    distances to the K centres;
-  * ids: 0 = ground, 1 = zero pixels, 2..K+1 = clusters.
+  * FPS mode: cluster centres over the non-ground pixels (ground and zero
+    pixels zeroed), through :func:`rpcc_tpu_torch.ops.fps.furthest_point_sample`;
+    per-pixel argmin over |ground depth residual| and the Euclidean
+    distances to the K centres; ids 0 = ground, 1 = zero pixels,
+    2..K+1 = clusters;
+  * DBSCAN mode: range-image DBSCAN (:mod:`rpcc_tpu_torch.ops.dbscan`) over
+    the pixels more than 0.5 m off the ground plane's depth; ids 0 =
+    ground, 1 = zero pixels, 2 = noise, 3..K+2 = clusters.
 
 The (K, HW) centre-pixel inner product is written elementwise
 (``cx*x + cy*y + cz*z``), not as a matmul: the same three f32 products
@@ -20,6 +24,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from rpcc_tpu_torch.ops import prng
+from rpcc_tpu_torch.ops.dbscan import dbscan_range_image
 from rpcc_tpu_torch.ops.fps import furthest_point_sample
 from rpcc_tpu_torch.ops.ransac import (
     compact_random_subset_planar,
@@ -104,6 +109,42 @@ def segment_range_image(
     centers = torch.stack([ngx[center_idx], ngy[center_idx], ngz[center_idx]], -1)
     seg = assign_clusters(point_planes, range_image, tm_planes, ground_model, centers)
     return SegmentResult(seg, ground_model, centers)
+
+
+def segment_range_image_dbscan(
+    point_planes: torch.Tensor,  # (3, H, W)
+    range_image: torch.Tensor,  # (H, W)
+    tm_planes: torch.Tensor,  # (3, H, W)
+    key: torch.Tensor,
+    eps: float,
+    max_clusters: int,
+) -> SegmentResult:
+    """DBSCAN-mode segmentation: the seeded ground plane, then
+    :func:`dbscan_segment`.  ``centers`` is all zeros, as in the reference."""
+    xs, ys, zs = (point_planes[i].reshape(-1) for i in range(3))
+    ground_model = fit_ground_plane_planar(xs, ys, zs, key, valid=range_image.reshape(-1) > 0.0)
+    seg = dbscan_segment(point_planes, range_image, tm_planes, ground_model, eps, max_clusters)
+    centers = torch.zeros((max_clusters, 3), dtype=range_image.dtype, device=range_image.device)
+    return SegmentResult(seg, ground_model, centers)
+
+
+def dbscan_segment(
+    point_planes: torch.Tensor,  # (3, H, W)
+    range_image: torch.Tensor,  # (H, W)
+    tm_planes: torch.Tensor,  # (3, H, W)
+    ground_model: torch.Tensor,  # (4,)
+    eps: float,
+    max_clusters: int,
+) -> torch.Tensor:
+    """(H, W) int32 ids from a ground plane: pixels within 0.5 m of the
+    plane's depth are ground (0), zero pixels 1, DBSCAN noise 2 and
+    clusters 3.. over the rest."""
+    g_res = ground_depth_residual(range_image, ground_model, tm_planes)
+    nonzero = range_image > 0.0
+    active = (torch.abs(g_res) > 0.5) & nonzero
+    seg = dbscan_range_image(point_planes, active, eps, max_clusters)
+    seg = torch.where(nonzero, seg, 1)
+    return torch.where(nonzero & ~active, 0, seg).to(torch.int32)
 
 
 def assign_clusters(

@@ -51,37 +51,67 @@ def stream_sort(
     return order, tuple(p[perm] for p in payloads)
 
 
-_SCAN_BLOCK = 1024
+_SCAN_BLOCK = 16  # XLA's CPU cumsum scans 16-element blocks, recursively
+
+
+def _sequential_scan(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive left-to-right scan along a short last dim, one f32 add at a
+    time."""
+    cols = [x[..., 0]]
+    for k in range(1, x.shape[-1]):
+        cols.append(cols[-1] + x[..., k])
+    return torch.stack(cols, -1)
 
 
 def fixed_order_cumsum(x: torch.Tensor) -> torch.Tensor:
-    """Inclusive cumsum of a 1-D float tensor whose summation order does not
-    depend on scheduling, so a GPU run gives the same bits every time.
+    """Inclusive cumsum along the last dim of a float tensor, in the
+    association of XLA's CPU cumsum, so a CPU run equals ``rpcc_tpu``'s
+    ``jnp.cumsum`` bit for bit and a GPU run repeats bit for bit.
 
-    torch's CUDA cumsum of a 1-D tensor runs a decoupled look-back scan:
-    whether a tile adds its predecessors' aggregates or their prefixes
-    depends on timing, so f32 results change run to run.  Scans along a
-    dimension of a 2-D tensor use fixed-order kernels instead: blocks of
-    1024 are scanned along rows (at least two rows, so the 1-D path is never
-    taken), then the row carries along a column.
+    XLA rewrites a cumsum as 16-element blocks, each scanned left to right,
+    plus the exclusive scan of the block totals (the same rewrite, one
+    level up) added to every element.  Neither torch scan gives that: the
+    CPU one accumulates in double, and the CUDA one of a 1-D tensor is a
+    decoupled look-back scan whose f32 result changes run to run.  Here
+    every step is an elementwise f32 add, ~20 launches per level and
+    log16(n) levels.
     """
-    n = x.shape[0]
-    rows = max(2, -(-n // _SCAN_BLOCK))
-    blocks = torch.nn.functional.pad(x, (0, rows * _SCAN_BLOCK - n)).reshape(rows, _SCAN_BLOCK)
-    inner = torch.cumsum(blocks, 1)
-    carry = torch.zeros((rows, 2), dtype=x.dtype, device=x.device)
-    carry[1:, 0] = inner[:-1, -1]
-    carry = torch.cumsum(carry, 0)[:, :1]
-    return (inner + carry).reshape(-1)[:n]
+    n = x.shape[-1]
+    if n <= _SCAN_BLOCK:
+        return _sequential_scan(x)
+    lead = x.shape[:-1]
+    nb = -(-n // _SCAN_BLOCK)
+    blocks = torch.nn.functional.pad(x, (0, nb * _SCAN_BLOCK - n)).reshape(*lead, nb, _SCAN_BLOCK)
+    inner = _sequential_scan(blocks)
+    totals = fixed_order_cumsum(inner[..., -1])
+    carry = torch.cat([torch.zeros((*lead, 1), dtype=x.dtype, device=x.device), totals[..., :-1]], -1)
+    return (carry[..., None] + inner).reshape(*lead, nb * _SCAN_BLOCK)[..., :n]
 
 
 def per_cluster_sums(values_s: torch.Tensor, order: StreamOrder) -> torch.Tensor:
     """(M,) per-cluster sums: one cumsum and boundary differences (no float
     atomics, and a fixed-order scan, so a GPU run repeats bit for bit)."""
-    zero = torch.zeros((1,), dtype=values_s.dtype, device=values_s.device)
-    csum = torch.cat([zero, fixed_order_cumsum(values_s)])
+    return per_cluster_sums_multi(values_s[None], order)[0]
+
+
+def per_cluster_sums_multi(values_s: torch.Tensor, order: StreamOrder) -> torch.Tensor:
+    """(C, HW) stream-order rows -> (C, M) per-cluster sums, through one
+    fixed-order scan along the rows."""
+    zero = torch.zeros((values_s.shape[0], 1), dtype=values_s.dtype, device=values_s.device)
+    csum = torch.cat([zero, fixed_order_cumsum(values_s)], -1)
     starts = order.starts.to(torch.int64)
-    return csum[starts + order.counts] - csum[starts]
+    return csum[:, starts + order.counts] - csum[:, starts]
+
+
+def expand_per_cluster(values: torch.Tensor, order: StreamOrder) -> torch.Tensor:
+    """(M,) per-cluster values -> (HW,) per stream slot: a plain gather, so
+    every slot holds its cluster's value bit for bit."""
+    return values[order.seg]
+
+
+def expand_per_cluster_multi(values: torch.Tensor, order: StreamOrder) -> torch.Tensor:
+    """(C, M) -> (C, HW): the row-stacked :func:`expand_per_cluster`."""
+    return values[:, order.seg]
 
 
 def point_means_stream(ri_s: torch.Tensor, order: StreamOrder) -> torch.Tensor:

@@ -101,6 +101,29 @@ def test_basic_compressor_dict_roundtrip(frame_fields, method):
     assert back == {k: v.tobytes() for k, v in fields.items()}
 
 
+@pytest.fixture(scope="module")
+def nonuniform_fields():
+    """Fields of one non-uniform frame from the reference encoder."""
+    from rpcc_tpu.models.pipeline import RPCCCodec
+
+    codec = RPCCCodec(SMALL, CodecConfig(cluster_num=16, compress_framework="non-uniform"))
+    return codec.fields_from_device(codec.encode_device(synth_scene(seed=1)))
+
+
+@pytest.mark.parametrize("method", ["rans", "bzip2", "lz4", "deflate"])
+def test_salience_field_byte_equal(nonuniform_fields, method):
+    """The u8 salience_level field is coded as the reference codes it."""
+    from rpcc_tpu.codec.entropy import BasicCompressor as RefCompressor
+
+    fields = nonuniform_fields
+    assert fields["salience_level"].dtype == np.uint8 and fields["salience_level"].size == 18
+    shape = (SMALL.height, SMALL.width)
+    comp = BasicCompressor(method_name=method, contour_shape=shape).compress_dict(fields)
+    assert comp == RefCompressor(method_name=method, contour_shape=shape).compress_dict(fields)
+    back = BasicCompressor(method_name=method, contour_shape=shape).decompress_dict(comp)
+    assert back["salience_level"] == fields["salience_level"].tobytes()
+
+
 def test_escape_heavy_stream_roundtrips():
     rng = np.random.default_rng(5)
     arr = (rng.standard_normal(40000) * 3000).astype(np.int16)  # many |delta| escapes
@@ -119,12 +142,16 @@ from rpcc_tpu.config import CodecConfig, LidarConfig
 from rpcc_tpu_torch.data.synth import synth_cloud_for
 small = LidarConfig(name="small64", horizontal_fov_deg=360.0, vertical_angle_max_deg=2.0,
                     vertical_angle_min_deg=-24.9, height=16, width=256)
-codec = pipeline.RPCCCodec(small, CodecConfig(cluster_num=16), "cpu")
 pc = synth_cloud_for(small, 2)
-blob, fields, times = codec.compress(pc)
-_, ri, _ = codec.decompress(blob)
-q, d = codec.project(pc)
-assert np.abs(ri - q.astype(np.float32) * d).max() <= 0.04 + 1e-5
+for mode in ({}, dict(segment_method="DBSCAN"), dict(modeling_method="plane"),
+             dict(compress_framework="non-uniform")):
+    cfg = CodecConfig(cluster_num=16, **mode)
+    codec = pipeline.RPCCCodec(small, cfg, "cpu")
+    blob, fields, times = codec.compress(pc)
+    _, ri, _ = codec.decompress(blob)
+    q, d = codec.project(pc)
+    bound = cfg.step if cfg.uniform else cfg.step + max(cfg.level_delta_acc)
+    assert np.abs(ri - q.astype(np.float32) * d).max() <= bound + 1e-5
 assert not any(m == "jax" or m.startswith("jax.") for m, v in sys.modules.items() if v is not None)
 print("ok", len(blob))
 """

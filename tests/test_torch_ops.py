@@ -9,9 +9,8 @@ Tolerances and why:
     port does not;
   * planes from the closed-form eigenvector: rtol 1e-5 (f32 sums in
     another order, and arccos/cos from another math library);
-  * point means: 4 ulps of the running f32 cumsum at the cluster's end,
-    divided by the cluster count (JAX sums left to right in f32, the port
-    in fixed blocks).
+  * point means and cumsums: bit-equal (``fixed_order_cumsum`` sums in
+    the order of XLA's CPU cumsum).
 """
 
 import jax
@@ -167,13 +166,10 @@ def test_stream_order_means_and_residuals(frame):
     assert int(order.stream_len) == int(j_order.stream_len)
     np.testing.assert_array_equal(ri_s.numpy(), np.asarray(j_ri_s))
 
-    # point means: 4 ulps of the running f32 sum at the cluster end / count
+    # point means: bit-equal (the cumsum follows XLA's summation order)
     j_means = np.asarray(jax.jit(j_stream.point_means_stream)(j_ri_s, j_order))
     means = stream.point_means_stream(ri_s, order).numpy()
-    cnt = order.counts.numpy().astype(np.int64)
-    ends = np.cumsum(ri_s.numpy().astype(np.float64))[np.maximum(order.starts.numpy() + cnt - 1, 0)]
-    bound = 4 * np.spacing(np.abs(ends).astype(np.float32)) / np.maximum(cnt, 1)
-    assert (np.abs(means - j_means) <= np.maximum(bound, np.spacing(np.abs(j_means)))).all()
+    np.testing.assert_array_equal(means, j_means)
 
     # quantized residuals from the reference's model table: element-identical
     table = jnp.asarray(np.stack([np.zeros_like(j_means)] * 3 + [j_means], 1)).at[0].set(frame["ground"])
@@ -184,6 +180,15 @@ def test_stream_order_means_and_residuals(frame):
     q = rounding.round_half_away((ri_s - pred) / torch.tensor(CFG.step, dtype=torch.float32))
     live = int(order.stream_len)
     np.testing.assert_array_equal(q.to(torch.int32).numpy()[:live], j_q[:live])
+
+
+@pytest.mark.parametrize("shape", [(1,), (16,), (17,), (257,), (4097,), (128000,), (3, 260), (10, 5000)])
+def test_fixed_order_cumsum_matches_jnp_cumsum(shape):
+    """Bit-equal to ``jnp.cumsum`` along the last axis on the CPU: XLA scans
+    16-element blocks left to right and adds the scanned block totals."""
+    x = np.random.default_rng(len(shape) * 7 + shape[-1]).normal(20.0, 15.0, shape).astype(np.float32)
+    ref = np.asarray(jax.jit(lambda a: jnp.cumsum(a, axis=-1))(x))
+    np.testing.assert_array_equal(stream.fixed_order_cumsum(T(x)).numpy(), ref)
 
 
 @pytest.mark.parametrize("n", [1, 7, 1023, 1024, 1025, 2048, 128000])
