@@ -25,9 +25,27 @@ Phases (each raises on failure, and the process then exits nonzero):
      multi-object frames: error bound (step, or step + max level delta),
      exact zero pixels, one DBSCAN (or FPS) launch per encode,
      byte-identical repeat encodes, GPU-vs-CPU bpp within 0.5%;
-  5. the compress/decompress CLIs with ``--device cuda`` in subprocesses.
+  5. the compress/decompress CLIs with ``--device cuda`` in subprocesses;
+  3c. (run after 3b) the batched DBSCAN kernel at (4, 64, 2000) on four
+     street scenes: labels equal the batched plain version and four
+     single-frame kernel runs; both versions timed with CUDA events;
+  6. the batch engine on the main path: ``BatchEngine(Velodyne64E,
+     CodecConfig(), "cuda", batch_size=8)`` encodes 20 frames through
+     ``encode_pipeline`` (batches of 8, 8, 4) and decodes them through
+     ``decode_pipeline``: blobs equal phase 4's single-frame blobs byte for
+     byte, points within bound with zero pixels dropped, a repeat run
+     byte-identical, one FPS launch per batch; the DBSCAN mode at B = 4
+     equals its single-frame blobs with one DBSCAN launch per batch; encode
+     and decode frames/s at B = 1 and B = 8 (median, min and max of five
+     passes), the stage stats, and one profiled B = 8 encode (launches,
+     summed device time);
+  7. the datalist CLIs in subprocesses: ``compress_datalist --batch 4
+     --device cuda`` on 10 frames equals the single-frame codec per seed,
+     ``decompress_datalist`` on the host and the device backend within
+     bound and equal to each other.
 
-The line before the last is a JSON object describing each kernel; the last
+The line before the last is a JSON object describing each kernel, timed at
+the engine's batch shape (``shape``) and at one frame; the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 without the package beside this script, it exits nonzero and prints no
 result.
@@ -49,8 +67,12 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 LIDAR = "Velodyne64E"
 SEEDS = (0, 1, 2, 3)
 MODE_SEEDS = (10, 11)
+BATCH_SEEDS = tuple(range(20))  # phase 6: batches of 8, 8 and 4
+STREET_SEEDS = (10, 11, 12, 13)  # phases 3c and 6 (DBSCAN at B = 4)
+CLI_FRAMES = 10  # phase 7: batches of 4, 4 and 2
 FPS_SHAPES = ((1, 128000, 100), (4, 128000, 100), (2, 4133, 32))
 TIMED_RUNS = 21
+RATE_PASSES = 5  # phase 6: timed pipeline passes per batch size
 BPP_TOL = 0.005  # GPU vs CPU encode of the same frame
 
 
@@ -424,6 +446,269 @@ def phase_cli(np, codec, frames):
         shutil.rmtree(work, ignore_errors=True)
 
 
+def street_active(np, segment, torch, tm, r):
+    """Active pixels of a street scene: off the z = -1.8 ground plane's depth
+    by more than 0.5 m, and nonzero."""
+    res = segment.ground_depth_residual(
+        torch.from_numpy(r), torch.tensor([0.0, 0.0, 1.0, 1.8]),
+        torch.from_numpy(np.ascontiguousarray(np.transpose(tm, (2, 0, 1)))),
+    ).numpy()
+    return (np.abs(res) > 0.5) & (r > 0)
+
+
+def phase_dbscan_batch(torch, np, dev, card, lidar):
+    """3c: the kernel on a (4, 64, 2000) batch against the batched plain
+    version and four single-frame launches."""
+    from rpcc_tpu_torch.ops import dbscan, segment
+    from rpcc_tpu_torch.ops.projection_host import build_transform_map
+
+    tm = build_transform_map(lidar)
+    rs = [scene_ranges(np, tm, s) for s in STREET_SEEDS]
+    planes = np.stack([np.transpose(tm * r[..., None], (2, 0, 1)) for r in rs])
+    active = np.stack([street_active(np, segment, torch, tm, r) for r in rs])
+    p = torch.from_numpy(np.ascontiguousarray(planes)).to(dev)
+    a = torch.from_numpy(active).to(dev)
+    eps = 1.5
+    got = dbscan.dbscan_labels_cuda(p, a, eps)
+    ref = dbscan.dbscan_labels_planar(p, a, eps)
+    single = torch.stack([dbscan.dbscan_labels_cuda(p[i].contiguous(), a[i], eps) for i in range(len(rs))])
+    torch.cuda.synchronize()
+    err = max(int((got.long() - ref.long()).abs().max()), int((got.long() - single.long()).abs().max()))
+    check(err == 0, "batched DBSCAN kernel labels differ from the plain version or the per-frame kernel")
+    ids = dbscan._compact_labels(got, a, 1 << 20)
+    n_cl = [int(ids[i].max()) - dbscan.FIRST_CLUSTER_ID + 1 for i in range(len(rs))]
+    print(f"[phase 3c] dbscan kernel (B={len(rs)}, 64, 2000) == batched plain == per-frame kernel: "
+          f"{[int(x) for x in a.sum((1, 2))]} active px, {n_cl} clusters")
+    ms = median_ms(torch, lambda: dbscan.dbscan_labels_cuda(p, a, eps))
+    plain_ms = median_ms(torch, lambda: dbscan.dbscan_labels_planar(p, a, eps))
+    print(f"[phase 3c] [{card}] dbscan (B={len(rs)}, 64, 2000) median of {TIMED_RUNS}: "
+          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    return err, ms, plain_ms
+
+
+def _frames_per_s(engine, run, n_frames):
+    """frames/s of RATE_PASSES timed pipeline runs after a warm-up run ->
+    (median, min, max)."""
+    import torch
+
+    run(engine)
+    torch.cuda.synchronize()
+    rates = []
+    for _ in range(RATE_PASSES):
+        t = time.perf_counter()
+        run(engine)
+        torch.cuda.synchronize()
+        rates.append(n_frames / (time.perf_counter() - t))
+    rates.sort()
+    return rates[len(rates) // 2], rates[0], rates[-1]
+
+
+def _batches(items, size):
+    return [items[i : i + size] for i in range(0, len(items), size)]
+
+
+def _device_profile(torch, fn):
+    """One torch.profiler window around ``fn``: (device events (kernels and
+    copies), host kernel-launch calls, summed device ms, wall ms)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    events = prof.events()
+    kernels = [e for e in events if str(e.device_type).endswith("CUDA")]
+    calls = sum(1 for e in events if e.name.startswith(("cudaLaunchKernel", "cuLaunchKernel")))
+    return len(kernels), calls, sum(e.time_range.elapsed_us() for e in kernels) / 1e3, wall
+
+
+def phase_engine(torch, np, dev, card, lidar, codec):
+    """6: the batch engine on the main path at full width."""
+    from rpcc_tpu.config import CodecConfig
+    from rpcc_tpu_torch.data.synth import synth_cloud_for
+    from rpcc_tpu_torch.models.pipeline import RPCCCodec
+    from rpcc_tpu_torch.ops import dbscan, fps
+    from rpcc_tpu_torch.ops.projection_host import build_transform_map
+    from rpcc_tpu_torch.parallel.engine import BatchEngine
+
+    cfg = CodecConfig()
+    bound = cfg.step + 1e-5
+    B = 8
+    frames = [synth_cloud_for(lidar, s) for s in BATCH_SEEDS]
+    singles = [codec.compress(pc, seed=s)[0] for pc, s in zip(frames, BATCH_SEEDS)]
+
+    # The FPS kernel at the engine's shape, against its plain version.
+    rng = np.random.default_rng(1)
+    xs, ys, zs = (torch.from_numpy(rng.uniform(-40, 40, (B, lidar.height * lidar.width)).astype(np.float32)).to(dev)
+                  for _ in range(3))
+    got = fps.furthest_point_sample_cuda(xs, ys, zs, cfg.cluster_num)
+    ref = fps.furthest_point_sample_planar(xs, ys, zs, cfg.cluster_num)
+    torch.cuda.synchronize()
+    fps_err = int((got.long() - ref.long()).abs().max())
+    check(fps_err == 0, f"FPS kernel differs from the plain version at (B={B}, 128000, 100)")
+    fps_ms = median_ms(torch, lambda: fps.furthest_point_sample_cuda(xs, ys, zs, cfg.cluster_num))
+    fps_plain_ms = median_ms(torch, lambda: fps.furthest_point_sample_planar(xs, ys, zs, cfg.cluster_num))
+    print(f"[phase 6] [{card}] fps (B={B}, 128000, 100) kernel == plain; median of {TIMED_RUNS}: "
+          f"kernel {fps_ms:.4f} ms, plain {fps_plain_ms:.4f} ms")
+
+    engine = BatchEngine(lidar, cfg, dev, batch_size=B)
+    work = [(b, range(i * B, i * B + len(b))) for i, b in enumerate(_batches(frames, B))]
+    list(engine.encode_pipeline(work))  # warm-up
+    torch.cuda.synchronize()
+    fps.LAUNCHES = dbscan.LAUNCHES = 0
+    stats = {}
+    blobs = [b for res in engine.encode_pipeline(work, stats=stats) for b, _ in res]
+    launches = {"fps": fps.LAUNCHES, "dbscan": dbscan.LAUNCHES}
+    check(launches == {"fps": len(work), "dbscan": 0},
+          f"engine launches {launches} for {len(work)} batches, expected one FPS launch per batch")
+    mism = [s for s, a, b in zip(BATCH_SEEDS, blobs, singles) if a != b]
+    check(not mism, f"engine blobs differ from single-frame RPCCCodec blobs for seeds {mism}")
+    again = [b for res in engine.encode_pipeline(work) for b, _ in res]
+    check(again == blobs, "a repeat engine run gave different bytes")
+    print(f"[phase 6] engine (B={B}) encoded {len(blobs)} frames in batches "
+          f"{[len(b) for b, _ in work]}: launches {launches}, blobs == single-frame RPCCCodec, "
+          f"repeat run byte-identical")
+
+    tm = build_transform_map(lidar)
+    dec = [p for pts in engine.decode_pipeline(_batches(blobs, B)) for p in pts]
+    err_max = 0.0
+    for pc, pts in zip(frames, dec):
+        q, d = codec.project(pc)
+        ri = q.astype(np.float32) * d
+        keep = ri.reshape(-1) > 0
+        check(pts.shape == (int(keep.sum()), 4), f"decoded {pts.shape[0]} rows for {int(keep.sum())} nonzero pixels")
+        rec = np.linalg.norm(pts[:, :3].astype(np.float64), axis=1)
+        ray = np.linalg.norm(tm.reshape(-1, 3)[keep].astype(np.float64), axis=1)
+        err = float(np.abs(rec / ray - ri.reshape(-1)[keep]).max())
+        err_max = max(err_max, err)
+        check(err <= bound, f"engine decode: max_err {err} > {bound}")
+    print(f"[phase 6] engine decode_pipeline: {len(dec)} frames, rows = nonzero pixels, max_err {err_max:.6f} "
+          f"(bound {bound:.5f})")
+    print(f"[phase 6] [{card}] stage stats (B={B}, {len(blobs)} frames): "
+          + json.dumps({k: round(v, 6) if isinstance(v, float) else v for k, v in stats.items()}))
+    print(f"[phase 6] [{card}] dispatch-bound encode cap: {len(blobs)} frames / {stats['dispatch_s']:.6f} s "
+          f"summed dispatch = {len(blobs) / stats['dispatch_s']:.3f} frames/s")
+
+    for b in (1, B):
+        eng = engine if b == B else BatchEngine(lidar, cfg, dev, batch_size=b)
+        w = [(c, range(i * b, i * b + len(c))) for i, c in enumerate(_batches(frames, b))]
+        enc = _frames_per_s(eng, lambda e, w=w: [r for r in e.encode_pipeline(w)], len(frames))
+        dec_r = _frames_per_s(eng, lambda e, b=b: [r for r in e.decode_pipeline(_batches(blobs, b))], len(frames))
+        print(f"[phase 6] [{card}] pipeline B={b}, {len(frames)} frames, median (min-max) of {RATE_PASSES} passes: "
+              f"encode {enc[0]:.3f} ({enc[1]:.3f}-{enc[2]:.3f}) frames/s, "
+              f"decode {dec_r[0]:.3f} ({dec_r[1]:.3f}-{dec_r[2]:.3f}) frames/s")
+        # The encoder graph alone: upload + launches + device, projection done before the window.
+        prepared = eng._prepare_batch(frames[:b], BATCH_SEEDS[:b])
+        n_ev, n_calls, dev_ms, wall_ms = _device_profile(torch, lambda: eng._dispatch_prepared(prepared))
+        print(f"[phase 6] [{card}] one B={b} encoder graph under torch.profiler: {n_ev} device events, "
+              f"{n_calls} kernel launch calls, summed device time {dev_ms:.3f} ms, wall {wall_ms:.3f} ms, "
+              f"idle share {1.0 - dev_ms / wall_ms:.3f}")
+        if eng is not engine:
+            eng.close()
+
+    n_ev, n_calls, dev_ms, wall_ms = _device_profile(
+        torch, lambda: engine.encode_frames(frames[:B], BATCH_SEEDS[:B]))
+    print(f"[phase 6] [{card}] one B={B} encode_frames under torch.profiler: {n_ev} device events, "
+          f"{n_calls} kernel launch calls, summed device time {dev_ms:.3f} ms, wall {wall_ms:.3f} ms")
+    engine.close()
+
+    # DBSCAN at B = 4 on the street scenes.
+    dcfg = CodecConfig(segment_method="DBSCAN")
+    street = [scene_cloud(np, tm, s) for s in STREET_SEEDS]
+    dcodec = RPCCCodec(lidar, dcfg, dev)
+    dsingles = [dcodec.compress(pc, seed=s)[0] for pc, s in zip(street, STREET_SEEDS)]
+    deng = BatchEngine(lidar, dcfg, dev, batch_size=len(street))
+    deng.encode_frames(street, STREET_SEEDS)  # warm-up
+    torch.cuda.synchronize()
+    fps.LAUNCHES = dbscan.LAUNCHES = 0
+    dblobs = [b for b, _ in deng.encode_frames(street, STREET_SEEDS)]
+    db_launches = {"fps": fps.LAUNCHES, "dbscan": dbscan.LAUNCHES}
+    check(db_launches == {"fps": 0, "dbscan": 1}, f"DBSCAN engine launches {db_launches} for one batch")
+    check(dblobs == dsingles, "DBSCAN engine blobs differ from single-frame blobs")
+    deng.close()
+    print(f"[phase 6] DBSCAN engine (B={len(street)}): launches {db_launches}, blobs == single-frame RPCCCodec")
+    return dict(fps_err=fps_err, fps_ms=fps_ms, fps_plain_ms=fps_plain_ms,
+                fps_shape=f"B={B} N={lidar.height * lidar.width} K={cfg.cluster_num}",
+                fps_launches=launches["fps"], db_launches=db_launches["dbscan"])
+
+
+def phase_datalist(np, codec, lidar):
+    """7: the datalist CLIs in subprocesses, on the card."""
+    from rpcc_tpu.config import CodecConfig
+    from rpcc_tpu_torch.data.synth import synth_cloud_for
+    from rpcc_tpu_torch.models.host_decoder import HostDecoder
+
+    cfg = CodecConfig()
+    bound = cfg.step + 1e-5
+    work = tempfile.mkdtemp(prefix=".chip_smoke_", dir=ROOT)
+    try:
+        src_dir = os.path.join(work, "bin", "seq")
+        os.makedirs(src_dir)
+        frames = [synth_cloud_for(lidar, i) for i in range(CLI_FRAMES)]
+        srcs = []
+        for i, pc in enumerate(frames):
+            srcs.append(os.path.join(src_dir, f"{i:06d}.bin"))
+            np.concatenate([pc, np.zeros((pc.shape[0], 1), np.float32)], 1).tofile(srcs[-1])
+        lst = os.path.join(work, "list.txt")
+        with open(lst, "w") as f:
+            f.write("\n".join(srcs) + "\n")
+        common = ["--lidar", LIDAR, "--device", "cuda", "--batch", "4"]
+
+        def run(mod, *args):
+            t = time.perf_counter()
+            proc = subprocess.run([sys.executable, "-m", f"rpcc_tpu_torch.cli.{mod}", *args, *common],
+                                  cwd=ROOT, capture_output=True, text=True, timeout=600)
+            check(proc.returncode == 0, f"cli.{mod} failed:\n{proc.stdout}\n{proc.stderr}")
+            tail = proc.stdout.strip().splitlines()[-1]
+            print(f"[phase 7] cli.{mod} {' '.join(args[-2:])}: {tail} ({time.perf_counter() - t:.1f} s with start-up)")
+
+        out_dir = os.path.join(work, "rpcc")
+        run("compress_datalist", "--datalist", lst, "--output_dir", out_dir)
+        from rpcc_tpu_torch.cli.compress_datalist import _mirror_path
+
+        outs = [_mirror_path(p, out_dir, "rpcc") for p in srcs]
+        blobs = []
+        for i, (pc, path) in enumerate(zip(frames, outs)):
+            with open(path, "rb") as f:
+                blobs.append(f.read())
+            check(blobs[-1] == codec.compress(pc, seed=i)[0], f"datalist blob {i} != single-frame codec, seed {i}")
+        single = os.path.join(work, "single.rpcc")
+        proc = subprocess.run([sys.executable, "-m", "rpcc_tpu_torch.cli.compress", "--input", srcs[3],
+                               "--output", single, "--lidar", LIDAR, "--device", "cuda", "--seed", "3"],
+                              cwd=ROOT, capture_output=True, text=True, timeout=600)
+        check(proc.returncode == 0, f"cli.compress failed:\n{proc.stdout}\n{proc.stderr}")
+        with open(single, "rb") as f:
+            check(f.read() == blobs[3], "datalist blob 3 != single-frame CLI --seed 3")
+        print(f"[phase 7] {len(blobs)} datalist blobs == single-frame codec per seed; "
+              f"frame 3 == single-frame CLI --seed 3")
+
+        lst2 = os.path.join(work, "list2.txt")
+        with open(lst2, "w") as f:
+            f.write("\n".join(outs) + "\n")
+        pts = {}
+        for backend in ("host", "device"):
+            rec_dir = os.path.join(work, "rec_" + backend)
+            run("decompress_datalist", "--datalist", lst2, "--output_dir", rec_dir, "--decode_backend", backend)
+            pts[backend] = [np.fromfile(_mirror_path(p, rec_dir, "bin"), np.float32).reshape(-1, 4) for p in outs]
+        ref = HostDecoder(lidar, cfg).decode_blobs(blobs)
+        diff = 0.0
+        for i, pc in enumerate(frames):
+            q, d = codec.project(pc)
+            ri = q.astype(np.float32) * d
+            err = float(np.abs(ref[i] - ri).max())
+            check(err <= bound, f"host decode of datalist blob {i}: max_err {err} > {bound}")
+            h, g = pts["host"][i], pts["device"][i]
+            check(h.shape == g.shape == (int((ri > 0).sum()), 4), f"frame {i}: row counts differ")
+            diff = max(diff, float(np.abs(h - g).max()))
+        check(diff <= 1e-5, f"host and device backends differ by {diff}")
+        print(f"[phase 7] both backends within bound; host vs device max |diff| {diff:.3g} "
+              f"(identical: {all(np.array_equal(a, b) for a, b in zip(pts['host'], pts['device']))})")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -454,31 +739,44 @@ def main() -> int:
     phase_prng(torch, dev)  # 2
     fps_err, fps_ms, fps_plain_ms = phase_fps(torch, np, dev, card)  # 3
     db_err, db_ms, db_plain_ms = phase_dbscan(torch, np, dev, card, lidar)  # 3b
-    codec, frames, fps_launches = phase_main(torch, np, dev, card, lidar)  # 4
-    db_launches = phase_modes(torch, np, dev, card, lidar)  # 4b
+    db3c_err, db3c_ms, db3c_plain_ms = phase_dbscan_batch(torch, np, dev, card, lidar)  # 3c
+    codec, frames, _ = phase_main(torch, np, dev, card, lidar)  # 4
+    phase_modes(torch, np, dev, card, lidar)  # 4b
     phase_cli(np, codec, frames)  # 5
+    eng = phase_engine(torch, np, dev, card, lidar, codec)  # 6
+    phase_datalist(np, codec, lidar)  # 7
     check("jax" not in sys.modules, "the port imported jax")
 
+    # ``ms``/``plain_ms`` are timed at the engine's shape (``shape``); the
+    # single-frame times of phases 3 and 3b stand beside them.
     print(json.dumps({"kernels": [
         {
             "name": "fps",
             "route": "cuda",
             "source": "rpcc_tpu_torch/csrc/fps.cu",
             "replaces": "rpcc_tpu/ops/fps_pallas.py:31",
-            "launches": fps_launches,
-            "max_abs_err": fps_err,
-            "ms": fps_ms,
-            "plain_ms": fps_plain_ms,
+            "launches": eng["fps_launches"],
+            "max_abs_err": max(fps_err, eng["fps_err"]),
+            "shape": eng["fps_shape"],
+            "ms": eng["fps_ms"],
+            "plain_ms": eng["fps_plain_ms"],
+            "single_frame_shape": "B=1 N=128000 K=100",
+            "single_frame_ms": fps_ms,
+            "single_frame_plain_ms": fps_plain_ms,
         },
         {
             "name": "dbscan",
             "route": "cuda",
             "source": "rpcc_tpu_torch/csrc/dbscan.cu",
             "replaces": "rpcc_tpu/ops/dbscan_pallas.py:42",
-            "launches": db_launches,
-            "max_abs_err": db_err,
-            "ms": db_ms,
-            "plain_ms": db_plain_ms,
+            "launches": eng["db_launches"],
+            "max_abs_err": max(db_err, db3c_err),
+            "shape": f"B={len(STREET_SEEDS)} H=64 W=2000",
+            "ms": db3c_ms,
+            "plain_ms": db3c_plain_ms,
+            "single_frame_shape": "B=1 H=64 W=2000",
+            "single_frame_ms": db_ms,
+            "single_frame_plain_ms": db_plain_ms,
         },
     ]}))
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,7 @@
-"""Shared single-frame CLI flags (the subset of ``rpcc_tpu/cli/common.py``
-the port carries), mapped onto :class:`CodecConfig` as the reference maps
-them, with its defaults."""
+"""Shared CLI flags (the subset of ``rpcc_tpu/cli/common.py`` the port
+carries), mapped onto :class:`CodecConfig` as the reference maps them, with
+its defaults.  ``datalist=True`` gives the datalist CLIs' flags in place of
+``--input``/``--output``."""
 
 from __future__ import annotations
 
@@ -10,9 +11,20 @@ from rpcc_tpu.config import CodecConfig, LidarConfig
 from rpcc_tpu_torch.data import lidar_config
 
 
-def add_codec_args(parser: argparse.ArgumentParser) -> None:
-    parser.add_argument("--input", required=True, help="input file.")
-    parser.add_argument("--output", required=True, help="output file.")
+def add_codec_args(parser: argparse.ArgumentParser, datalist: bool = False) -> None:
+    if datalist:
+        parser.add_argument("--datalist", required=True, help="txt file listing input frames.")
+        parser.add_argument("--output_dir", required=True, help="output directory mirroring input paths.")
+        parser.add_argument("--workers", type=int, default=4, help="IO/entropy worker threads.")
+        parser.add_argument("--batch", type=int, default=8, help="frames per device batch.")
+        parser.add_argument("--output", action="store_true", help="verbose per-frame reports.")
+        parser.add_argument("--skip_existing", action="store_true",
+                            help="resume: skip frames whose output file already exists.")
+        parser.add_argument("--keep_going", action="store_true",
+                            help="failure isolation: log per-frame errors and continue.")
+    else:
+        parser.add_argument("--input", required=True, help="input file.")
+        parser.add_argument("--output", required=True, help="output file.")
     parser.add_argument("--lidar", required=True, help="lidar type, e.g. Velodyne64E.")
     parser.add_argument("--accuracy", type=float, default=None,
                         help="max reconstruction error (default 0.02; step = 2 * accuracy).")

@@ -3,11 +3,16 @@
 ``rans`` goes to this package's JAX-free copy of the container code
 (:mod:`rpcc_tpu_torch.codec.rans_codec`); ``lz4``/``bzip2``/``gzip``/
 ``deflate`` are ``rpcc_tpu.codec.entropy``'s own coders, which need no jax.
+
+The ``*_dict_batch`` methods code a batch of frames' fields with the big
+fields (residual stream, contour plane) batched through the native coder;
+each frame's bytes equal :meth:`compress_dict` / :meth:`decompress_dict`
+of that frame alone.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Callable, Dict, List, Optional, Sequence
 
 from rpcc_tpu.codec import entropy as _ref
 from rpcc_tpu_torch.codec import rans_codec
@@ -26,6 +31,40 @@ class BasicCompressor(_ref.BasicCompressor):
             else:
                 out[k] = rans_codec.compress(v)
         return out
+
+    def compress_dict_batch(
+        self, dicts: Sequence[Dict[str, object]], pool_map: Optional[Callable] = None
+    ) -> List[Dict[str, bytes]]:
+        """:meth:`compress_dict` of each frame's fields, byte for byte.
+        ``pool_map(fn, n)`` (default: in order on this thread) runs the
+        per-frame remainder, e.g. on a thread pool."""
+        pool_map = pool_map or (lambda fn, n: [fn(i) for i in range(n)])
+        if self.method_name != "rans" or not dicts:
+            return pool_map(lambda i: self.compress_dict(dicts[i]), len(dicts))
+        big = {"residual_quantized": rans_codec.compress_batch([d["residual_quantized"] for d in dicts])}
+        if self.contour_shape is not None:
+            big["contour_map"] = rans_codec.compress_contour_batch(
+                [d["contour_map"] for d in dicts], *self.contour_shape
+            )
+        return pool_map(
+            lambda i: {k: big[k][i] if k in big else rans_codec.compress(v) for k, v in dicts[i].items()},
+            len(dicts),
+        )
+
+    def decompress_dict_batch(
+        self, dicts: Sequence[Dict[str, bytes]], pool_map: Optional[Callable] = None
+    ) -> List[Dict[str, bytes]]:
+        """:meth:`decompress_dict` of each frame's fields, the big rans
+        fields of the whole batch decoded in one native call each."""
+        pool_map = pool_map or (lambda fn, n: [fn(i) for i in range(n)])
+        if self.method_name != "rans" or not dicts:
+            return pool_map(lambda i: self.decompress_dict(dicts[i]), len(dicts))
+        resid, contour = rans_codec.batch_decode_big_fields(dicts)
+        big = {k: v for k, v in (("residual_quantized", resid), ("contour_map", contour)) if v is not None}
+        return pool_map(
+            lambda i: {k: big[k][i] if k in big else self.decompress(v) for k, v in dicts[i].items()},
+            len(dicts),
+        )
 
     def compress(self, np_array) -> bytes:
         if self.method_name == "rans":

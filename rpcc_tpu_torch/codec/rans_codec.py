@@ -1,10 +1,15 @@
 """The ``rans`` entropy containers, JAX-free (native C++ coder only).
 
-A copy of the native-library paths of ``rpcc_tpu/codec/rans_codec.py``
-for the single-frame fields; containers are byte-identical to that
-module's.  That module imports jax for its fallback kernels; this one uses
-only the native library shared with it (``codec/native/rans.cpp``) and
-raises if the library cannot be built.
+A copy of the native-library paths of ``rpcc_tpu/codec/rans_codec.py``,
+single-frame and batch entry points; for the same inputs every container
+is byte-identical to that module's.  That module imports jax for its
+fallback kernels; this one uses only the native library shared with it
+(``codec/native/rans.cpp``) and raises if the library cannot be built.
+
+The batch coders size a batch's lanes from its longest frame, as the
+reference's do, so a frame's container can depend on its neighbours;
+:func:`compress_batch` groups frames by their own lane geometry first,
+which makes each frame's bytes those of :func:`compress` alone.
 
 Containers (little-endian):
   'C' residual: delta + zigzag + 4-context rANS over 32 interleaved lanes
@@ -23,7 +28,7 @@ import bz2
 import struct
 import time
 import zlib
-from typing import List
+from typing import List, Sequence
 
 import numpy as np
 
@@ -97,20 +102,48 @@ def compress_seq_u16(data: np.ndarray) -> bytes:
     return bytes([MAGIC_BZ]) + bz2.compress(data.tobytes())
 
 
+def _pick(data: np.ndarray, delta: bytes) -> bytes:
+    """:func:`compress`'s choice for an int16/uint16 array given its delta
+    container: only the delta container above 64 KB, else the smallest of
+    it, plain bzip2 and (u16) the sequence coder."""
+    if data.nbytes > BIG_FIELD_BYTES:
+        return delta
+    candidates = [delta, bytes([MAGIC_BZ]) + bz2.compress(data.tobytes())]
+    if data.dtype == np.uint16:
+        candidates.append(compress_seq_u16(data))
+    return min(candidates, key=len)
+
+
 def compress(data) -> bytes:
     """int16/uint16 arrays: the smallest of the delta container, plain bzip2
     and (u16) the sequence coder — only the delta container above 64 KB.
     Anything else: plain bzip2."""
     if isinstance(data, np.ndarray) and data.dtype in (np.int16, np.uint16):
-        delta = compress_delta(data)
-        if data.nbytes > BIG_FIELD_BYTES:
-            return delta
-        candidates = [delta, bytes([MAGIC_BZ]) + bz2.compress(data.tobytes())]
-        if data.dtype == np.uint16:
-            candidates.append(compress_seq_u16(data))
-        return min(candidates, key=len)
+        return _pick(data, compress_delta(data))
     raw = data.tobytes() if isinstance(data, np.ndarray) else bytes(data)
     return bytes([MAGIC_BZ]) + bz2.compress(raw)
+
+
+def _delta_geometry(n: int):
+    """(coder path, lanes, T) of an n-symbol delta container coded alone."""
+    lanes = _lanes_for(max(n, 1))
+    T = -(-max(1, -(-n // lanes)) // T_BUCKET) * T_BUCKET
+    return n > BZD_TRY_MAX_SYMBOLS, lanes, T
+
+
+def compress_batch(arrays: Sequence[np.ndarray]) -> List[bytes]:
+    """:func:`compress` of each int16/uint16 array, byte for byte, with the
+    delta containers coded by one native call per group of frames that
+    share a lane geometry (one group for a batch of similar frames)."""
+    arrays = [np.ascontiguousarray(a) for a in arrays]
+    groups: dict = {}
+    for i, a in enumerate(arrays):
+        groups.setdefault(_delta_geometry(a.size), []).append(i)
+    deltas: List[bytes] = [b""] * len(arrays)
+    for ix in groups.values():
+        for i, blob in zip(ix, compress_delta_batch([arrays[i] for i in ix])):
+            deltas[i] = blob
+    return [_pick(a, d) for a, d in zip(arrays, deltas)]
 
 
 def decompress(blob: bytes) -> bytes:
@@ -120,9 +153,7 @@ def decompress(blob: bytes) -> bytes:
         return np.frombuffer(zlib.decompress(blob[1:]), np.uint8).astype(np.uint16).tobytes()
     if blob[0] == MAGIC_BITS:
         return decompress_contour(blob)
-    if blob[0] == MAGIC_BZD:
-        return _decompress_bzd(blob)
-    if blob[0] == MAGIC_CTX:
+    if blob[0] in (MAGIC_CTX, MAGIC_BZD):
         return decompress_delta(blob)
     raise ValueError("unknown rans container magic")
 
@@ -186,46 +217,93 @@ def _lane_words(words: np.ndarray, counts: np.ndarray) -> np.ndarray:
 def compress_contour(packed: np.ndarray, H: int, W: int) -> bytes:
     """'N' container of the packed contour bits; small planes (<= 64K
     pixels) keep plain bzip2 when that is smaller."""
-    packed = np.asarray(packed, np.uint8)
+    return compress_contour_batch([packed], H, W)[0]
+
+
+def compress_contour_batch(packed_list: Sequence[np.ndarray], H: int, W: int) -> List[bytes]:
+    """Every frame's contour plane in one native call; each container is
+    the frame's own (the lane length depends on H and W only)."""
     T = -(-(W + H - 1) // T_BUCKET) * T_BUCKET
-    words, n_words, counts, states, freqs = _native().contour_encode_frames(packed[None], H, W, T)
-    blob = b"".join(
-        [
-            struct.pack("<BHHH", MAGIC_BITS, T, H, W),
-            freqs[0].astype("<u2").tobytes(),
-            states[0].astype("<u4").tobytes(),
-            counts[0].astype("<u2").tobytes(),
-            words[0, : n_words[0]].astype("<u2").tobytes(),
-        ]
-    )
-    if H * W > CONTOUR_BZ_TRY_MAX_PIXELS:
-        return blob
-    return min(blob, bytes([MAGIC_BZ]) + bz2.compress(packed.tobytes()), key=len)
+    pb = np.stack([np.asarray(p, np.uint8) for p in packed_list])
+    words, n_words, counts, states, freqs = _native().contour_encode_frames(pb, H, W, T)
+    out = []
+    for i, p in enumerate(pb):
+        blob = b"".join(
+            [
+                struct.pack("<BHHH", MAGIC_BITS, T, H, W),
+                freqs[i].astype("<u2").tobytes(),
+                states[i].astype("<u4").tobytes(),
+                counts[i].astype("<u2").tobytes(),
+                words[i, : n_words[i]].astype("<u2").tobytes(),
+            ]
+        )
+        if H * W <= CONTOUR_BZ_TRY_MAX_PIXELS:
+            blob = min(blob, bytes([MAGIC_BZ]) + bz2.compress(p.tobytes()), key=len)
+        out.append(blob)
+    return out
 
 
 def decompress_contour(blob: bytes) -> bytes:
-    _, T, H, W = struct.unpack_from("<BHHH", blob, 0)
+    return decompress_contour_batch([blob])[0]
+
+
+def decompress_contour_batch(blobs: Sequence[bytes]) -> List[bytes]:
+    """Decode a batch of 'N' contour containers of one geometry in one
+    native call."""
+    B = len(blobs)
+    heads = [struct.unpack_from("<BHHH", b, 0) for b in blobs]
+    T, H, W = heads[0][1:]
+    if any(h[1:] != (T, H, W) for h in heads):
+        raise ValueError("mixed contour geometries in one batch")
     if T < H + W - 1 or H < 1 or W < 1:
         # The de-skew reads row r at offset r: a smaller T would read past
         # the symbol block.
         raise ValueError(f"corrupt contour container: T={T} < H+W-1 for {H}x{W}")
-    off = 7
-    freqs = np.frombuffer(blob, "<u2", 8, off).astype(np.int32).reshape(1, 4, 2)
-    off += 16
-    states = np.frombuffer(blob, "<u4", H, off).astype(np.uint32)[None]
-    off += 4 * H
-    cnt = np.frombuffer(blob, "<u2", H, off).astype(np.int32)
-    off += 2 * H
-    words = np.zeros((1, H, T), np.uint16)
-    n_words = int(cnt.sum())
+    freqs = np.zeros((B, 4, 2), np.int32)
+    states = np.zeros((B, H), np.uint32)
+    counts = np.zeros((B, H), np.int32)
+    words = np.zeros((B, H, T), np.uint16)
+    for i, blob in enumerate(blobs):
+        off = 7
+        freqs[i] = np.frombuffer(blob, "<u2", 8, off).astype(np.int32).reshape(4, 2)
+        off += 16
+        states[i] = np.frombuffer(blob, "<u4", H, off)
+        off += 4 * H
+        counts[i] = np.frombuffer(blob, "<u2", H, off)
+        off += 2 * H
+        words[i] = _unpack_lane_words(blob, off, counts[i], T)
+    nat = _native()
+    sym = nat.decode_ctx_batch(words, counts, states, freqs, T, nat.MODE_WAVEFRONT)
+    packed = nat.contour_finalize_frames(sym.reshape(B, H, T), H, W, T)
+    return [packed[i].tobytes() for i in range(B)]
+
+
+def _unpack_lane_words(blob: bytes, off: int, counts: np.ndarray, T: int) -> np.ndarray:
+    """Inverse of :func:`_lane_words`: the packed u16 words at ``off`` ->
+    (L, T), lane l holding its first counts[l] words."""
+    words = np.zeros((counts.shape[0], T), np.uint16)
+    n_words = int(counts.sum())
     if n_words:
         packed_w = np.frombuffer(blob, "<u2", n_words, off)
-        lane_of = np.repeat(np.arange(H), cnt)
-        starts = np.concatenate([[0], np.cumsum(cnt)[:-1]])
-        words[0, lane_of, np.arange(n_words) - np.repeat(starts, cnt)] = packed_w
-    nat = _native()
-    sym = nat.decode_ctx_batch(words, cnt[None], states, freqs, T, nat.MODE_WAVEFRONT)
-    return nat.contour_finalize_frames(sym.reshape(1, H, T), H, W, T)[0].tobytes()
+        lane_of = np.repeat(np.arange(counts.shape[0]), counts)
+        starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+        words[lane_of, np.arange(n_words) - np.repeat(starts, counts)] = packed_w
+    return words
+
+
+def batch_decode_big_fields(packed: Sequence[dict]):
+    """Batch-decode the residual and contour fields of a blob batch:
+    ``(resid_bytes | None, contour_bytes | None)``, one entry per frame, or
+    None for a field some frame codes with another container (plain bzip2
+    of a small field); the caller then decodes each frame on its own."""
+    resid = None
+    if all(p["residual_quantized"][0] in (MAGIC_CTX, MAGIC_BZD) for p in packed):
+        resid = decompress_delta_batch([p["residual_quantized"] for p in packed])
+    cms = [p["contour_map"] for p in packed]
+    contour = None
+    if cms and all(len(c) > 0 and c[0] == MAGIC_BITS for c in cms):
+        contour = decompress_contour_batch(cms)
+    return resid, contour
 
 
 # --------------------------------------------------------- delta containers
@@ -296,46 +374,70 @@ def _zigzag_ctx_np(sym3d: np.ndarray) -> np.ndarray:
     return ctx.astype(np.int32)
 
 
-def _compress_delta_small(arr: np.ndarray) -> bytes:
-    """numpy pre-pass + native coder, and the smaller of 'C' and 'Z'."""
-    sym, escapes, q0, n = _symbolize(arr)
-    lanes = _lanes_for(max(n, 1))
-    T = -(-max(1, -(-n // lanes)) // T_BUCKET) * T_BUCKET
-    sym3d = np.zeros((1, lanes, T), np.int32)
-    sym3d[0].reshape(-1)[:n] = sym
+def _compress_delta_batch_np(arrays: Sequence[np.ndarray]) -> List[bytes]:
+    """numpy pre-pass + native coder for a batch (lanes and T from its
+    longest frame), and per frame the smaller of 'C' and, up to 32768
+    symbols, 'Z'."""
+    per = [_symbolize(np.asarray(a)) for a in arrays]
+    n_max = max((p[3] for p in per), default=0)
+    L = _lanes_for(max(n_max, 1))
+    T = -(-max(1, -(-n_max // L)) // T_BUCKET) * T_BUCKET
+    sym3d = np.zeros((len(arrays), L, T), np.int32)
+    for i, (sym, _, _, n) in enumerate(per):
+        sym3d[i].reshape(-1)[:n] = sym
+    ns = np.asarray([p[3] for p in per], np.int64)
     words, counts, states, freqs = _native().encode_ctx_batch(
-        sym3d, _zigzag_ctx_np(sym3d), ALPHABET, NUM_CTX, ns=np.asarray([n], np.int64)
+        sym3d, _zigzag_ctx_np(sym3d), ALPHABET, NUM_CTX, ns=ns
     )
-    ctx_blob = _ctx_container(
-        lanes, T, n, q0, escapes, freqs[0].astype(np.int64), states[0],
-        counts[0], _lane_words(words[0], counts[0]), arr.dtype,
-    )
-    if n > BZD_TRY_MAX_SYMBOLS:
-        return ctx_blob
-    return min(ctx_blob, _compress_bzd(sym, escapes, q0, n, arr.dtype), key=len)
+    out = []
+    for i, (sym, escapes, q0, n) in enumerate(per):
+        blob = _ctx_container(
+            L, T, n, q0, escapes, freqs[i].astype(np.int64), states[i],
+            counts[i], _lane_words(words[i], counts[i]), arrays[i].dtype,
+        )
+        if n <= BZD_TRY_MAX_SYMBOLS:
+            blob = min(blob, _compress_bzd(sym, escapes, q0, n, arrays[i].dtype), key=len)
+        out.append(blob)
+    return out
 
 
 def compress_delta(arr: np.ndarray) -> bytes:
-    """'C' (or, for small fields, 'Z') container of an int16/uint16 stream;
-    large fields take the fused native encoder."""
-    arr = np.ascontiguousarray(arr)
-    if arr.size <= BZD_TRY_MAX_SYMBOLS:
-        return _compress_delta_small(arr)
-    L = _lanes_for(arr.size)
-    T = -(-max(1, -(-arr.size // L)) // T_BUCKET) * T_BUCKET
-    words, n_words, counts, states, freqs, escapes, esc_counts, q0s = _native().delta_encode_frames(
-        [arr], L, T, ALPHABET, NUM_CTX
-    )
-    if esc_counts[0] < 0:  # escape-capacity overflow
-        return _compress_delta_small(arr)
-    return _ctx_container(
-        L, T, arr.size, q0s[0], escapes[0, : esc_counts[0]], freqs[0], states[0],
-        counts[0], words[0, : n_words[0]], arr.dtype,
-    )
+    """'C' (or, for small fields, 'Z') container of an int16/uint16 stream."""
+    return compress_delta_batch([arr])[0]
 
 
-def decompress_delta(blob: bytes) -> bytes:
-    """Decode a 'C' container."""
+def compress_delta_batch(arrays: Sequence[np.ndarray]) -> List[bytes]:
+    """Delta containers of a batch of int16/uint16 streams, byte-identical
+    to ``rpcc_tpu.codec.rans_codec.compress_delta_batch``: frames above
+    32768 symbols take the fused native encoder in one call (lanes and T
+    from the longest of them), the rest the numpy pre-pass (likewise)."""
+    arrays = [np.ascontiguousarray(a) for a in arrays]
+    out: List[bytes] = [b""] * len(arrays)
+    big_ix = [i for i, a in enumerate(arrays) if a.size > BZD_TRY_MAX_SYMBOLS]
+    small_ix = [i for i, a in enumerate(arrays) if a.size <= BZD_TRY_MAX_SYMBOLS]
+    if small_ix:
+        for i, blob in zip(small_ix, _compress_delta_batch_np([arrays[i] for i in small_ix])):
+            out[i] = blob
+    if big_ix:
+        subs = [arrays[i] for i in big_ix]
+        n_max = max(a.size for a in subs)
+        L = _lanes_for(n_max)
+        T = -(-max(1, -(-n_max // L)) // T_BUCKET) * T_BUCKET
+        words, n_words, counts, states, freqs, escapes, esc_counts, q0s = _native().delta_encode_frames(
+            subs, L, T, ALPHABET, NUM_CTX
+        )
+        for k, i in enumerate(big_ix):
+            if esc_counts[k] < 0:  # escape-capacity overflow
+                out[i] = _compress_delta_batch_np([arrays[i]])[0]
+                continue
+            out[i] = _ctx_container(
+                L, T, subs[k].size, q0s[k], escapes[k, : esc_counts[k]], freqs[k], states[k],
+                counts[k], words[k, : n_words[k]], subs[k].dtype,
+            )
+    return out
+
+
+def _parse_delta(blob: bytes):
     _, log_lanes, T, n, q0 = struct.unpack_from("<BBHIi", blob, 0)
     if (1 << log_lanes) > MAX_LANES:
         raise ValueError(f"corrupt delta container: lanes=2^{log_lanes} > {MAX_LANES}")
@@ -347,27 +449,55 @@ def decompress_delta(blob: bytes) -> bytes:
     off += 4
     escapes = np.frombuffer(blob, "<u4", n_esc, off).astype(np.int64)
     off += 4 * n_esc
-    freqs = np.zeros((1, NUM_CTX, ALPHABET), np.int32)
+    freqs = np.zeros((NUM_CTX, ALPHABET), np.int32)
     for c in range(NUM_CTX):
-        freqs[0, c], off = _unpack_table(blob, off, ALPHABET)
+        freqs[c], off = _unpack_table(blob, off, ALPHABET)
     states = np.frombuffer(blob, "<u4", lanes, off).astype(np.uint32)
     off += 4 * lanes
     counts = np.frombuffer(blob, "<u2", lanes, off).astype(np.int32)
     off += 2 * lanes
-    n_words = int(counts.sum())
-    packed = np.frombuffer(blob, "<u2", n_words, off)
-    off += 2 * n_words
+    words = _unpack_lane_words(blob, off, counts, T)
+    off += 2 * int(counts.sum())
     (dt_code,) = struct.unpack_from("<B", blob, off)
+    return lanes, T, n, q0, escapes, freqs, states, counts, words, dt_code
 
-    words = np.zeros((1, lanes, T), np.uint16)
-    if n_words:
-        lane_of = np.repeat(np.arange(lanes), counts)
-        starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
-        words[0, lane_of, np.arange(n_words) - np.repeat(starts, counts)] = packed
-    lives = np.clip(n - np.arange(lanes) * T, 0, T).astype(np.int32)[None]
+
+def decompress_delta(blob: bytes) -> bytes:
+    """Decode one delta container ('C' or 'Z')."""
+    return decompress_delta_batch([blob])[0]
+
+
+def decompress_delta_batch(blobs: Sequence[bytes]) -> List[bytes]:
+    """Decode a batch of delta containers, the rANS ones of one lane count
+    in one native call (mixed T decode at the largest; each frame's
+    symbols are its own)."""
+    out: List[bytes] = [b""] * len(blobs)
+    groups: dict = {}
+    for i, b in enumerate(blobs):
+        if b[0] == MAGIC_BZD:
+            out[i] = _decompress_bzd(b)
+        elif b[0] == MAGIC_CTX:
+            p = _parse_delta(b)
+            groups.setdefault(p[0], []).append((i, p))
+        else:
+            raise ValueError("unknown delta container magic")
     nat = _native()
-    sym = nat.decode_ctx_batch(words, counts[None], states[None], freqs, T, nat.MODE_ZIGZAG, lives=lives)
-    outs: List[np.ndarray] = nat.delta_finalize_frames_3d(
-        sym.reshape(1, lanes, T), ALPHABET, [T], [n], [q0], [escapes], [dt_code]
-    )
-    return outs[0].tobytes()
+    for lanes, items in groups.items():
+        parsed = [p for _, p in items]
+        T_max = max(p[1] for p in parsed)
+        B = len(parsed)
+        words = np.zeros((B, lanes, T_max), np.uint16)
+        for k, p in enumerate(parsed):
+            words[k, :, : p[1]] = p[8]
+        counts = np.stack([p[7] for p in parsed])
+        states = np.stack([p[6] for p in parsed])
+        lives = np.stack([np.clip(p[2] - np.arange(lanes) * p[1], 0, p[1]) for p in parsed]).astype(np.int32)
+        freqs = np.stack([p[5] for p in parsed])  # (B, C, A)
+        sym = nat.decode_ctx_batch(words, counts, states, freqs, T_max, nat.MODE_ZIGZAG, lives=lives)
+        outs = nat.delta_finalize_frames_3d(
+            sym.reshape(B, lanes, T_max), ALPHABET, [p[1] for p in parsed], [p[2] for p in parsed],
+            [p[3] for p in parsed], [p[4] for p in parsed], [p[9] for p in parsed],
+        )
+        for (i, _), o in zip(items, outs):
+            out[i] = o.tobytes()
+    return out

@@ -2,7 +2,8 @@
 //
 // Replaces the TPU kernel rpcc_tpu/ops/dbscan_pallas.py::_dbscan_label_kernel.
 // Same raw labels as that kernel and as the plain PyTorch version
-// (rpcc_tpu_torch/ops/dbscan.py::dbscan_labels_planar), per (H, W) frame:
+// (rpcc_tpu_torch/ops/dbscan.py::dbscan_labels_planar), per (H, W) frame of
+// a batch of B frames:
 //   * eps-connectivity over the 48 shifts of a window-3 neighbourhood, in
 //     the order of ops/dbscan.py::_neighbor_shifts (dr major, then dc, both
 //     -3..3, (0, 0) left out); columns wrap at the seam, rows do not;
@@ -20,6 +21,14 @@
 // mask in and 512 KB of labels out, all L2-resident; the TPU kernel keeps
 // the same in VMEM and iterates hooks and floods until stable, with the
 // graph's diameter (a 2000-pixel wall) setting the sweep count.
+//
+// Batches: one thread per pixel of the whole (B, H, W) batch, the frame
+// from flat index / (H*W).  Neighbours are found from (r, c) within the
+// frame, so the window wraps at the column seam but never reaches the next
+// frame's rows.  Union-find runs on batch-global indices (frame base +
+// in-frame index); every edge joins two pixels of one frame, so a root is
+// its frame's base plus the component's minimum in-frame index, and labels
+// are stored in-frame.
 //
 // Design: four launches on the caller's stream, no host loop, no sync.
 //   (a) mask_kernel: one thread per pixel builds the 48-bit connectivity
@@ -55,8 +64,8 @@ __device__ __forceinline__ void shift_of(int i, int& dr, int& dc) {
   dc = j % kSide - kWindow;
 }
 
-// Flat index of the (r + dr, c + dc) neighbour, or -1 past the top or
-// bottom row; columns wrap.
+// In-frame flat index of the (r + dr, c + dc) neighbour, or -1 past the
+// top or bottom row; columns wrap.
 __device__ __forceinline__ int neighbour(int r, int c, int dr, int dc, int H, int W) {
   const int rr = r + dr;
   if (rr < 0 || rr >= H) return -1;
@@ -65,18 +74,25 @@ __device__ __forceinline__ int neighbour(int r, int c, int dr, int dc, int H, in
   return rr * W + cc;
 }
 
+// planes: (B, 3, H, W) f32; every other array is (B, H, W), indexed by the
+// batch-global pixel g = frame * hw + p.
 __global__ void __launch_bounds__(kThreads)
-mask_kernel(const float* __restrict__ px, const float* __restrict__ py,
-            const float* __restrict__ pz, const uint8_t* __restrict__ active,
-            int H, int W, float eps2, int min_points,
+mask_kernel(const float* __restrict__ planes, const uint8_t* __restrict__ active,
+            int B, int H, int W, float eps2, int min_points,
             unsigned long long* __restrict__ mask, uint8_t* __restrict__ core,
             int32_t* __restrict__ parent) {
   const int hw = H * W;
-  const int p = blockIdx.x * kThreads + threadIdx.x;
-  if (p >= hw) return;
-  parent[p] = p;
+  const int g = blockIdx.x * kThreads + threadIdx.x;
+  if (g >= B * hw) return;
+  parent[g] = g;
+  const int frame = g / hw;
+  const int base = frame * hw;
+  const int p = g - base;
+  const float* px = planes + static_cast<size_t>(3 * frame) * hw;
+  const float* py = px + hw;
+  const float* pz = py + hw;
   unsigned long long bits = 0;
-  if (active[p]) {
+  if (active[g]) {
     const int r = p / W;
     const int c = p - r * W;
     const float x = px[p], y = py[p], z = pz[p];
@@ -84,7 +100,7 @@ mask_kernel(const float* __restrict__ px, const float* __restrict__ py,
       int dr, dc;
       shift_of(i, dr, dc);
       const int q = neighbour(r, c, dr, dc, H, W);
-      if (q < 0 || !active[q]) continue;
+      if (q < 0 || !active[base + q]) continue;
       const float dx = __fsub_rn(x, px[q]);
       const float dy = __fsub_rn(y, py[q]);
       const float dz = __fsub_rn(z, pz[q]);
@@ -93,8 +109,8 @@ mask_kernel(const float* __restrict__ px, const float* __restrict__ py,
       if (d2 < eps2) bits |= 1ull << i;
     }
   }
-  mask[p] = bits;
-  core[p] = (active[p] && __popcll(bits) + 1 >= min_points) ? 1 : 0;
+  mask[g] = bits;
+  core[g] = (active[g] && __popcll(bits) + 1 >= min_points) ? 1 : 0;
 }
 
 // Root of x with path halving.  Reads go through volatile so a loop sees
@@ -129,92 +145,97 @@ __device__ __forceinline__ void unite(int32_t* parent, int a, int b) {
 
 __global__ void __launch_bounds__(kThreads)
 union_kernel(const unsigned long long* __restrict__ mask, const uint8_t* __restrict__ core,
-             int H, int W, int32_t* parent) {
+             int B, int H, int W, int32_t* parent) {
   const int hw = H * W;
-  const int p = blockIdx.x * kThreads + threadIdx.x;
-  if (p >= hw || !core[p]) return;
+  const int g = blockIdx.x * kThreads + threadIdx.x;
+  if (g >= B * hw || !core[g]) return;
+  const int base = (g / hw) * hw;
+  const int p = g - base;
   const int r = p / W;
   const int c = p - r * W;
-  unsigned long long bits = mask[p];
+  unsigned long long bits = mask[g];
   while (bits) {
     const int i = __ffsll(static_cast<long long>(bits)) - 1;
     bits &= bits - 1;
     int dr, dc;
     shift_of(i, dr, dc);
     const int q = neighbour(r, c, dr, dc, H, W);
-    if (q > p && core[q]) unite(parent, p, q);  // each edge once, from its lower end
+    if (q > p && core[base + q]) unite(parent, g, base + q);  // each edge once, from its lower end
   }
 }
 
 // The finished forest is only read here: a halving write racing with the
 // owner's final store could leave a pixel pointing at a non-root.
 __global__ void __launch_bounds__(kThreads)
-compress_kernel(const uint8_t* __restrict__ core, int hw, int32_t* parent) {
-  const int p = blockIdx.x * kThreads + threadIdx.x;
-  if (p >= hw || !core[p]) return;
+compress_kernel(const uint8_t* __restrict__ core, int n, int32_t* parent) {
+  const int g = blockIdx.x * kThreads + threadIdx.x;
+  if (g >= n || !core[g]) return;
   volatile int32_t* vp = parent;
-  int x = p;
+  int x = g;
   int up = vp[x];
   while (up != x) {
     x = up;
     up = vp[x];
   }
-  parent[p] = x;
+  parent[g] = x;
 }
 
+// Labels are in-frame: root - frame base, or hw for unlabelled pixels.
 __global__ void __launch_bounds__(kThreads)
 label_kernel(const unsigned long long* __restrict__ mask, const uint8_t* __restrict__ core,
              const uint8_t* __restrict__ active, const int32_t* __restrict__ parent,
-             int H, int W, int32_t* __restrict__ out) {
+             int B, int H, int W, int32_t* __restrict__ out) {
   const int hw = H * W;
-  const int p = blockIdx.x * kThreads + threadIdx.x;
-  if (p >= hw) return;
-  if (core[p]) {
-    out[p] = parent[p];
+  const int g = blockIdx.x * kThreads + threadIdx.x;
+  if (g >= B * hw) return;
+  const int base = (g / hw) * hw;
+  if (core[g]) {
+    out[g] = parent[g] - base;
     return;
   }
   int best = hw;
-  if (active[p]) {
+  if (active[g]) {
+    const int p = g - base;
     const int r = p / W;
     const int c = p - r * W;
-    unsigned long long bits = mask[p];
+    unsigned long long bits = mask[g];
     while (bits) {
       const int i = __ffsll(static_cast<long long>(bits)) - 1;
       bits &= bits - 1;
       int dr, dc;
       shift_of(i, dr, dc);
-      const int q = neighbour(r, c, dr, dc, H, W);
-      if (core[q] && parent[q] < best) best = parent[q];
+      const int q = base + neighbour(r, c, dr, dc, H, W);
+      if (core[q] && parent[q] - base < best) best = parent[q] - base;
     }
   }
-  out[p] = best;
+  out[g] = best;
 }
 
 }  // namespace
 
-// Raw DBSCAN labels of one (H, W) frame on `stream`; returns the
+// Raw DBSCAN labels of B (H, W) frames on `stream`; returns the
 // cudaError_t of the first failed launch (0 on success).
-// px/py/pz: (H, W) f32; active: (H, W) u8; scratch: mask (H*W) u64,
-// parent (H*W) i32, core (H*W) u8; out: (H, W) i32.
-extern "C" int rpcc_dbscan_labels_launch(const float* px, const float* py, const float* pz,
-                                         const uint8_t* active, int H, int W, float eps2,
-                                         int min_points, unsigned long long* mask,
-                                         int32_t* parent, uint8_t* core, int32_t* out,
-                                         void* stream) {
-  if (H <= 0 || W <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int hw = H * W;
-  const int blocks = (hw + kThreads - 1) / kThreads;
+// planes: (B, 3, H, W) f32; active: (B, H, W) u8; scratch: mask (B*H*W)
+// u64, parent (B*H*W) i32, core (B*H*W) u8; out: (B, H, W) i32 in-frame
+// labels.
+extern "C" int rpcc_dbscan_labels_launch(const float* planes, const uint8_t* active, int B,
+                                         int H, int W, float eps2, int min_points,
+                                         unsigned long long* mask, int32_t* parent,
+                                         uint8_t* core, int32_t* out, void* stream) {
+  if (B <= 0 || H <= 0 || W <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int n = B * H * W;
+  const int blocks = (n + kThreads - 1) / kThreads;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  mask_kernel<<<blocks, kThreads, 0, s>>>(px, py, pz, active, H, W, eps2, min_points, mask,
-                                          core, parent);
+  mask_kernel<<<blocks, kThreads, 0, s>>>(planes, active, B, H, W, eps2, min_points, mask, core,
+                                          parent);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  union_kernel<<<blocks, kThreads, 0, s>>>(mask, core, H, W, parent);
+  union_kernel<<<blocks, kThreads, 0, s>>>(mask, core, B, H, W, parent);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  compress_kernel<<<blocks, kThreads, 0, s>>>(core, hw, parent);
+  compress_kernel<<<blocks, kThreads, 0, s>>>(core, n, parent);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  label_kernel<<<blocks, kThreads, 0, s>>>(mask, core, active, parent, H, W, out);
+  label_kernel<<<blocks, kThreads, 0, s>>>(mask, core, active, parent, B, H, W, out);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,4 +1,4 @@
-"""LiDAR geometry lookup by name.
+"""LiDAR geometry lookup by name, and the datalist reader.
 
 The same names and YAML files as ``rpcc_tpu.data.__lidar_cfg__`` (that
 module imports jax, so the port keeps its own table).  Only the evenly
@@ -8,6 +8,7 @@ distributed LiDARs are listed: CSV channel tables are not ported yet.
 from __future__ import annotations
 
 import os
+from typing import List
 
 from rpcc_tpu.config import LIDAR_CFG_DIR, LidarConfig
 
@@ -23,3 +24,10 @@ def lidar_config(name: str) -> LidarConfig:
     if name not in LIDAR_YAML:
         raise ValueError(f"unknown lidar {name!r}; choose from {sorted(LIDAR_YAML)}")
     return LidarConfig.from_yaml(os.path.join(LIDAR_CFG_DIR, LIDAR_YAML[name]), name=name)
+
+
+def read_datalist(path: str) -> List[str]:
+    """The frames of a datalist file: its stripped, non-empty lines
+    (``rpcc_tpu/data/dataset.py:121-124``)."""
+    with open(path, "r") as f:
+        return [line.strip() for line in f if line.strip()]

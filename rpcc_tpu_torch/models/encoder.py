@@ -2,11 +2,15 @@
 ``from_ri`` path): FPS or DBSCAN segmentation, point or plane models,
 uniform or non-uniform (salience) quantization.
 
-Input: the (H, W) u16 snap grid ``q`` and its per-frame ``delta``
-(``ri = q * delta``, projected on the host).  Output: every codec artefact
-the host entropy-codes — segmentation, model table, the cluster-ordered
-quantized residual stream, the contour code and, in non-uniform mode, the
-per-cluster salience levels.
+Input: a (B, H, W) batch of u16 snap grids ``q``, each frame's ``delta``
+(``ri = q * delta``, projected on the host) and seed.  Output: every codec
+artefact the host entropy-codes — segmentation, model table, the
+cluster-ordered quantized residual stream, the contour code and, in
+non-uniform mode, the per-cluster salience levels — each with a leading B.
+The batch runs as one graph (the JAX package's ``jax.vmap`` of the frame
+graph): no loop over frames and no host sync inside; a frame's outputs do
+not depend on the other frames of its batch.  A single (H, W) frame is the
+B = 1 case, returned without the batch dimension.
 """
 
 from __future__ import annotations
@@ -62,21 +66,20 @@ def check_supported(lidar: LidarConfig, cfg: CodecConfig) -> None:
 
 
 class EncoderOutput(NamedTuple):
-    range_image: torch.Tensor  # (H, W) f32
-    seg_idx: torch.Tensor  # (H, W) i32
-    model_param: torch.Tensor  # (M, 4) f32; row 0 = ground plane
-    stream: torch.Tensor  # (HW,) i16 quantized residuals, tail-padded
-    stream_len: torch.Tensor  # () number of live residuals
-    contour_packed: torch.Tensor  # (ceil(HW/8),) u8, np.packbits layout
-    sequence: torch.Tensor  # (HW,) u16 run values, tail-padded
-    seq_len: torch.Tensor  # () number of live run values
-    salience: Optional[torch.Tensor] = None  # (M,) u8 levels; non-uniform mode only
+    range_image: torch.Tensor  # (B, H, W) f32
+    seg_idx: torch.Tensor  # (B, H, W) i32
+    model_param: torch.Tensor  # (B, M, 4) f32; row 0 = ground plane
+    stream: torch.Tensor  # (B, HW) i16 quantized residuals, tail-padded
+    stream_len: torch.Tensor  # (B,) number of live residuals
+    contour_packed: torch.Tensor  # (B, ceil(HW/8)) u8, np.packbits layout
+    sequence: torch.Tensor  # (B, HW) u16 run values, tail-padded
+    seq_len: torch.Tensor  # (B,) number of live run values
+    salience: Optional[torch.Tensor] = None  # (B, M) u8 levels; non-uniform mode only
 
 
 class Encoder(nn.Module):
-    """Single-frame encoder over a (3, H, W) ray table (e.g. the JAX
-    package's ``build_transform_planes`` output); ``.to(device)`` moves the
-    table."""
+    """Batched encoder over a (3, H, W) ray table (e.g. the JAX package's
+    ``build_transform_planes`` output); ``.to(device)`` moves the table."""
 
     def __init__(self, lidar: LidarConfig, cfg: CodecConfig, tm_planes: np.ndarray):
         super().__init__()
@@ -91,19 +94,25 @@ class Encoder(nn.Module):
 
     @torch.no_grad()
     def forward(
-        self, q: torch.Tensor, delta: torch.Tensor, seed: int, step: Union[float, Sequence[float]]
+        self, q: torch.Tensor, delta: torch.Tensor, seed, step: Union[float, Sequence[float]]
     ) -> EncoderOutput:
-        """``q``: (H, W) integer snap grid on this module's device; ``delta``:
-        0-d f32 tensor; ``seed``: uint32; ``step``: the quantization step, or
-        in non-uniform mode the step of each salience level."""
+        """``q``: (B, H, W) integer snap grids on this module's device;
+        ``delta``: (B,) f32; ``seed``: (B,) uint32 seeds (a sequence, or a
+        tensor); ``step``: the quantization step, or in non-uniform mode
+        the step of each salience level.  A single (H, W) grid with a 0-d
+        delta and an int seed gives unbatched outputs."""
+        if q.ndim == 2:
+            out = self(q[None], delta.reshape(1), [seed], step)
+            return EncoderOutput(*(None if f is None else f[0] for f in out))
         cfg = self.cfg
         dev = self.tm_planes.device
-        H, W = q.shape
+        B, H, W = q.shape
         hw = H * W
-        k_seg, k_model = prng.split(prng.prng_key(seed, dev))
+        keys = prng.split(prng.prng_key(seed, dev))  # (B, 2, 2)
+        k_seg, k_model = keys[:, 0], keys[:, 1]
 
-        ri = q.to(torch.float32) * delta
-        pc_planes = ri[None] * self.tm_planes
+        ri = q.to(torch.float32) * delta.to(torch.float32)[:, None, None]
+        pc_planes = ri[:, None] * self.tm_planes  # (B, 3, H, W)
         if cfg.segment_method == "DBSCAN":
             seg, ground_model, _ = segment_range_image_dbscan(
                 pc_planes, ri, self.tm_planes, k_seg, cfg.dbscan_eps, cfg.cluster_num
@@ -113,15 +122,15 @@ class Encoder(nn.Module):
                 pc_planes, ri, self.tm_planes, k_seg, cfg.ground_threshold, cfg.cluster_num
             )
 
-        payloads = [ri.reshape(-1)]
+        payloads = [ri.reshape(B, hw)]
         if not cfg.uniform:
             _, kp_map = extract_features_with_segment(
                 ri, seg, feature_region=cfg.feature_region, segments=cfg.segments,
                 sharp_num=cfg.sharp_num, less_sharp_num=cfg.less_sharp_num,
                 flat_num=cfg.flat_num, want_feature_map=False,
             )
-            payloads.append((kp_map.reshape(-1) > 0).to(torch.float32))
-        order, carried = stream_sort(seg.reshape(-1), payloads, self.num_models)
+            payloads.append((kp_map.reshape(B, hw) > 0).to(torch.float32))
+        order, carried = stream_sort(seg.reshape(B, hw), payloads, self.num_models)
         ri_s = carried[0]
         rays_s = rays_from_perm(order, self.lidar)
         if cfg.modeling_method == "point":
@@ -130,7 +139,7 @@ class Encoder(nn.Module):
             model_param = plane_models_stream(
                 ri_s, order, k_model, self.num_models, cfg.plane_angle_threshold, rays_s
             ).table
-        model_param[0] = ground_model
+        model_param[:, 0] = ground_model
 
         resid_s = ri_s - predict_stream(model_param, order, rays_s)
         salience = None
@@ -145,7 +154,7 @@ class Encoder(nn.Module):
             step_s = expand_per_cluster(step_table[sal.to(torch.int64)], order)
             salience = sal.to(torch.uint8)
         qs = round_half_away(resid_s / step_s).to(torch.int32)
-        live = torch.arange(hw, device=dev) < order.stream_len
+        live = torch.arange(hw, device=dev) < order.stream_len[:, None]
         qs = torch.where(live, qs, 0)
 
         code = extract_contour(seg)
@@ -155,7 +164,7 @@ class Encoder(nn.Module):
             model_param=model_param,
             stream=qs.to(torch.int16),  # wraps like the reference's int16 cast
             stream_len=order.stream_len,
-            contour_packed=pack_bits_msb(code.contour),
+            contour_packed=pack_bits_msb(code.contour, start_dim=1),
             sequence=code.sequence.to(torch.uint16),
             seq_len=code.seq_len,
             salience=salience,

@@ -1,0 +1,200 @@
+"""Host decoder: ``.rpcc`` bitstream -> range image / points, no device.
+
+JAX-free copy of ``rpcc_tpu/models/host_decoder.py`` (``_decode_frame_np``
+and ``HostDecoder``): the reconstruction (run-length seg fill,
+cluster-ordered dequantize, intra-predict) runs in the native kernel
+``codec/native/decode.cpp`` shared with ``rpcc_tpu``, with the same
+bit-identical numpy twin.  It gives the same floats as ``rpcc_tpu``'s
+host decoder on the same blobs; the entropy stage batches the big fields
+through this package's native rANS containers.
+"""
+
+from __future__ import annotations
+
+import ctypes as ct
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+
+from rpcc_tpu.codec.bitstream import unpack_bitstream
+from rpcc_tpu.codec.lz4block import native_lib
+from rpcc_tpu.config import CodecConfig, LidarConfig
+from rpcc_tpu_torch.codec.entropy import BasicCompressor
+from rpcc_tpu_torch.ops.projection_host import build_transform_planes
+
+
+def _decode_frame_np(
+    contour_packed: np.ndarray,
+    seq: np.ndarray,
+    stream: np.ndarray,
+    models: np.ndarray,
+    salience: Optional[np.ndarray],
+    level_acc: Optional[np.ndarray],
+    step: float,
+    tm: np.ndarray,  # (3, HW) f32
+    H: int,
+    W: int,
+) -> np.ndarray:
+    """Vectorized numpy twin of ``host_decode_frame`` (bit-identical)."""
+    hw = H * W
+    M = models.shape[0]
+    bits = np.unpackbits(contour_packed)[:hw]
+    run_idx = np.cumsum(bits) - 1
+    seq = np.asarray(seq, np.int64)
+    if seq.shape[0]:
+        seg = seq[np.minimum(run_idx, seq.shape[0] - 1)].astype(np.int32)
+        # A corrupt contour may leave bit 0 unset: the native kernel keeps
+        # id 0 until the first set bit, and so does this twin.
+        seg = np.where(run_idx < 0, np.int32(0), seg)
+    else:
+        seg = np.zeros(hw, np.int32)
+    # stream slot per pixel: stable sort by (remapped id, pixel) — id 1 last
+    key = np.where(seg == 1, M, seg)
+    perm = np.argsort(key, kind="stable")
+    q_pad = np.zeros(hw, np.float32)
+    n_s = min(stream.shape[0], hw)
+    q_pad[:n_s] = stream[:n_s].astype(np.float32)
+    q_pix = np.empty(hw, np.float32)
+    q_pix[perm] = q_pad
+    mrows = models[np.clip(seg, 0, M - 1)]
+    a, b, c, d = mrows[:, 0], mrows[:, 1], mrows[:, 2], mrows[:, 3]
+    denom = a * tm[0] + b * tm[1] + c * tm[2]
+    with np.errstate(divide="ignore", invalid="ignore"):
+        plane_pred = np.where(denom == 0.0, np.float32(0.0), -d / np.where(denom == 0.0, 1.0, denom))
+    pred = np.where(a + b + c == 0.0, d, plane_pred).astype(np.float32)
+    if salience is not None and level_acc is not None:
+        # Out-of-range salience levels clamp to the last level, as in the
+        # native kernel and the device decoder.
+        lv = salience[np.clip(seg, 0, M - 1)].astype(np.int64)
+        st = level_acc[np.minimum(lv, level_acc.shape[0] - 1)]
+    else:
+        st = np.float32(step)
+    ri = pred + q_pix * st
+    # id 1 (zero pixels) and out-of-range ids >= M decode to r = 0, the
+    # native kernel's `id != 1 && id >= 0 && id < M` guard.
+    return np.where((seg == 1) | (seg >= M), np.float32(0.0), ri).reshape(H, W)
+
+
+class HostDecoder:
+    """Decode .rpcc payloads entirely on the host.
+
+    ``decode_fields`` inverts the entropy-decoded field dict to the (H, W)
+    range image; ``decode_blobs``/``decode_blobs_points`` take raw payloads
+    and batch the entropy stage through the native rANS decoder.
+    """
+
+    def __init__(self, lidar: LidarConfig, cfg: CodecConfig):
+        self.lidar = lidar
+        self.cfg = cfg
+        self.H, self.W = lidar.height, lidar.width
+        self.hw = self.H * self.W
+        self._tm = np.ascontiguousarray(build_transform_planes(lidar).reshape(3, self.hw), np.float32)
+        self.entropy = BasicCompressor(method_name=cfg.basic_compressor, contour_shape=(self.H, self.W))
+        self._level_acc = None if cfg.uniform else np.asarray(cfg.level_acc, np.float32)
+
+    @staticmethod
+    def _field_arrays(fields: Dict[str, bytes]):
+        """Entropy-decoded field bytes -> (contour, seq, stream, models,
+        salience|None) array views."""
+        contour = np.frombuffer(fields["contour_map"], np.uint8)
+        seq = np.frombuffer(fields["idx_sequence"], np.uint16)
+        stream = np.frombuffer(fields["residual_quantized"], np.int16)
+        models = np.frombuffer(fields["plane_param"], np.float32).reshape(-1, 4)
+        sal = np.frombuffer(fields["salience_level"], np.uint8) if "salience_level" in fields else None
+        return contour, seq, stream, models, sal
+
+    def decode_fields(self, fields: Dict[str, bytes]) -> np.ndarray:
+        return self.reconstruct(*self._field_arrays(fields))
+
+    def reconstruct(
+        self,
+        contour_packed: np.ndarray,
+        seq: np.ndarray,
+        stream: np.ndarray,
+        models: np.ndarray,
+        salience: Optional[np.ndarray] = None,
+        xyz_out: Optional[np.ndarray] = None,
+    ) -> np.ndarray:
+        """-> (H, W) f32 range image; if ``xyz_out`` is a preallocated
+        (HW, 4) f32 array, also fills it with the compacted xyz0 rows and
+        stashes the row count on ``self.last_point_count``."""
+        models = np.ascontiguousarray(models, np.float32)
+        # Wire-derived fields feed raw C pointers below: validate lengths so
+        # a truncated or corrupt .rpcc raises instead of reading out of bounds.
+        if contour_packed.size < (self.hw + 7) // 8:
+            raise ValueError(
+                f"contour_map too short: {contour_packed.size} bytes for a {self.H}x{self.W} grid"
+            )
+        if models.ndim != 2 or models.shape[1] != 4 or models.shape[0] == 0:
+            raise ValueError(f"plane_param must be (M, 4), got {models.shape}")
+        if salience is not None and len(salience) < models.shape[0]:
+            raise ValueError(f"salience_level has {len(salience)} entries for {models.shape[0]} model rows")
+        lib = native_lib()
+        if lib is not None and hasattr(lib, "host_decode_frame"):
+            contour_packed = np.ascontiguousarray(contour_packed, np.uint8)
+            seq = np.ascontiguousarray(seq, np.uint16)
+            stream = np.ascontiguousarray(stream, np.int16)
+            sal_arr = None if salience is None else np.ascontiguousarray(salience, np.uint8)
+            ri = np.empty(self.hw, np.float32)
+            la = self._level_acc
+            n = lib.host_decode_frame(
+                contour_packed.ctypes.data_as(ct.c_void_p),
+                seq.ctypes.data_as(ct.c_void_p),
+                ct.c_int64(seq.shape[0]),
+                stream.ctypes.data_as(ct.c_void_p),
+                ct.c_int64(stream.shape[0]),
+                models.ctypes.data_as(ct.c_void_p),
+                ct.c_int32(models.shape[0]),
+                None if sal_arr is None else sal_arr.ctypes.data_as(ct.c_void_p),
+                None if la is None else la.ctypes.data_as(ct.c_void_p),
+                ct.c_int32(0 if la is None else la.shape[0]),
+                ct.c_float(np.float32(self.cfg.step)),
+                self._tm.ctypes.data_as(ct.c_void_p),
+                ct.c_int32(self.H),
+                ct.c_int32(self.W),
+                ri.ctypes.data_as(ct.c_void_p),
+                None if xyz_out is None else xyz_out.ctypes.data_as(ct.c_void_p),
+            )
+            self.last_point_count = int(n)
+            return ri.reshape(self.H, self.W)
+
+        ri = _decode_frame_np(
+            np.asarray(contour_packed, np.uint8),
+            np.asarray(seq, np.uint16),
+            np.asarray(stream, np.int16),
+            models,
+            None if salience is None else np.asarray(salience, np.uint8),
+            self._level_acc,
+            self.cfg.step,
+            self._tm,
+            self.H,
+            self.W,
+        )
+        if xyz_out is not None:
+            pts = ri.reshape(-1, 1) * self._tm.T  # (HW, 3)
+            keep = pts.sum(-1) != 0
+            n = int(keep.sum())
+            xyz_out[:n, :3] = pts[keep]
+            xyz_out[:n, 3] = 0.0
+            self.last_point_count = n
+        return ri
+
+    def entropy_decode_blobs(self, blobs: Sequence[bytes]) -> List[Dict[str, bytes]]:
+        """Entropy-decode a batch of payloads (batched native rANS for the
+        big fields)."""
+        packed = [unpack_bitstream(b, uniform=self.cfg.uniform) for b in blobs]
+        return self.entropy.decompress_dict_batch(packed)
+
+    def decode_blobs(self, blobs: Sequence[bytes]) -> List[np.ndarray]:
+        """-> list of (H, W) f32 range images."""
+        return [self.decode_fields(f) for f in self.entropy_decode_blobs(blobs)]
+
+    def decode_blobs_points(self, blobs: Sequence[bytes]) -> List[np.ndarray]:
+        """-> list of compacted (n, 4) f32 xyz0 arrays (rows whose x+y+z is 0
+        dropped, the reference's save rule), ready for .bin output."""
+        out = []
+        buf = np.empty((self.hw, 4), np.float32)
+        for fields in self.entropy_decode_blobs(blobs):
+            self.reconstruct(*self._field_arrays(fields), xyz_out=buf)
+            out.append(buf[: self.last_point_count].copy())
+        return out

@@ -34,7 +34,7 @@ FIRST_CLUSTER_ID = 3  # final id of the first cluster
 WINDOW = 3  # pixel window for eps-connectivity
 
 # Launches of the CUDA kernel since the count was last reset (one per call
-# of :func:`dbscan_labels_cuda`).
+# of :func:`dbscan_labels_cuda`, whatever the batch size).
 LAUNCHES = 0
 
 
@@ -50,29 +50,29 @@ def _neighbor_shifts(window: int) -> Tuple[Tuple[int, int], ...]:
 
 
 def _shift(arr: torch.Tensor, dr: int, dc: int, fill) -> torch.Tensor:
-    """Value of the (r+dr, c+dc) neighbour at each pixel: column-circular,
-    row-clamped with ``fill``."""
-    H = arr.shape[0]
-    out = torch.roll(arr, (-dr, -dc), (0, 1))
+    """Value of the (r+dr, c+dc) neighbour at each pixel of (..., H, W):
+    column-circular, row-clamped with ``fill``; never across frames."""
+    H = arr.shape[-2]
+    out = torch.roll(arr, (-dr, -dc), (-2, -1))
     if dr > 0:
-        out[H - dr :] = fill
+        out[..., H - dr :, :] = fill
     elif dr < 0:
-        out[:-dr] = fill
+        out[..., :-dr, :] = fill
     return out
 
 
 def _run_min(lab: torch.Tensor, linked_prev: torch.Tensor, hw: int) -> torch.Tensor:
-    """Min label over maximal linked runs along dim 1: forward and backward
-    segmented doubling floods (``dbscan_pallas.py:149-179``).
-    ``linked_prev[r, c]``: pixel (r, c) is linked to (r, c-1)."""
-    n = lab.shape[1]
+    """Min label over maximal linked runs along the last dim: forward and
+    backward segmented doubling floods (``dbscan_pallas.py:149-179``).
+    ``linked_prev[..., r, c]``: pixel (r, c) is linked to (r, c-1)."""
+    n = lab.shape[-1]
 
     def shifted(x, d, fill, forward):
         out = torch.full_like(x, fill)
         if forward:
-            out[:, d:] = x[:, :-d]
+            out[..., d:] = x[..., :-d]
         else:
-            out[:, :-d] = x[:, d:]
+            out[..., :-d] = x[..., d:]
         return out
 
     linked_next = shifted(linked_prev, 1, False, forward=False)
@@ -89,23 +89,26 @@ def _run_min(lab: torch.Tensor, linked_prev: torch.Tensor, hw: int) -> torch.Ten
 
 
 def dbscan_labels_planar(
-    point_planes: torch.Tensor,  # (3, H, W) f32 planar x/y/z
-    active: torch.Tensor,  # (H, W) bool
+    point_planes: torch.Tensor,  # (3, H, W) or (B, 3, H, W) f32 planar x/y/z
+    active: torch.Tensor,  # (H, W) or (B, H, W) bool
     eps: float,
     min_points: int = MIN_POINTS,
     window: int = WINDOW,
 ) -> torch.Tensor:
-    """Plain version: (H, W) int32 raw labels (component minimum flat index;
-    ``hw`` = unlabelled).  Components by min-label hooks, row and column
-    floods and pointer jumping until a sweep changes nothing; the loop
-    reads its convergence flag on the host, once per sweep."""
-    H, W = active.shape
+    """Plain version: (..., H, W) int32 raw labels (component minimum
+    in-frame flat index; ``hw`` = unlabelled).  Components by min-label
+    hooks, row and column floods and pointer jumping until a sweep changes
+    nothing in any frame; the loop reads its convergence flag on the host,
+    once per sweep.  A converged frame no longer changes, so a batch gives
+    each frame its single-frame labels."""
+    H, W = active.shape[-2:]
+    lead = active.shape[:-2]
     hw = H * W
     dev = active.device
     eps2 = torch.tensor(float(eps) * float(eps), dtype=torch.float32, device=dev)
     shifts = _neighbor_shifts(window)
-    px, py, pz = point_planes[0], point_planes[1], point_planes[2]
-    conn = torch.empty((len(shifts), H, W), dtype=torch.bool, device=dev)
+    px, py, pz = point_planes[..., 0, :, :], point_planes[..., 1, :, :], point_planes[..., 2, :, :]
+    conn = torch.empty((len(shifts), *active.shape), dtype=torch.bool, device=dev)
     for i, (dr, dc) in enumerate(shifts):
         dx = px - _shift(px, dr, dc, float("inf"))
         dy = py - _shift(py, dr, dc, 0.0)
@@ -118,9 +121,9 @@ def dbscan_labels_planar(
 
     i01, i10 = shifts.index((0, 1)), shifts.index((1, 0))
     lp_col = torch.zeros_like(core)
-    lp_col[:, 1:] = core_edge[i01][:, :-1]  # (r, c) linked to (r, c-1)
+    lp_col[..., :, 1:] = core_edge[i01][..., :, :-1]  # (r, c) linked to (r, c-1)
     lp_row = torch.zeros_like(core)
-    lp_row[1:] = core_edge[i10][:-1]  # (r, c) linked to (r-1, c)
+    lp_row[..., 1:, :] = core_edge[i10][..., :-1, :]  # (r, c) linked to (r-1, c)
 
     iota = torch.arange(hw, dtype=torch.int32, device=dev).reshape(H, W)
     lab = torch.where(core, iota, hw)
@@ -129,15 +132,16 @@ def dbscan_labels_planar(
         for i, (dr, dc) in enumerate(shifts):
             new = torch.where(core_edge[i], torch.minimum(new, _shift(lab, dr, dc, hw)), new)
         new = _run_min(new, lp_col, hw)
-        new = _run_min(new.T, lp_row.T, hw).T
+        new = _run_min(new.transpose(-1, -2), lp_row.transpose(-1, -2), hw).transpose(-1, -2)
         for _ in range(2):  # pointer jumping: every label is a core pixel's
-            flat = new.reshape(-1)
-            new = torch.where(flat < hw, flat[flat.clamp(max=hw - 1).long()], hw).reshape(H, W)
+            flat = new.reshape(*lead, hw)
+            jumped = flat.gather(-1, flat.clamp(max=hw - 1).long())
+            new = torch.where(flat < hw, jumped, hw).reshape(*lead, H, W)
         if torch.equal(new, lab):
             break
         lab = new
 
-    border = torch.full((H, W), hw, dtype=torch.int32, device=dev)
+    border = torch.full(active.shape, hw, dtype=torch.int32, device=dev)
     for i, (dr, dc) in enumerate(shifts):
         attach = conn[i] & nb_core[i]
         border = torch.where(attach, torch.minimum(border, _shift(lab, dr, dc, hw)), border)
@@ -145,20 +149,22 @@ def dbscan_labels_planar(
 
 
 def _compact_labels(labels: torch.Tensor, active: torch.Tensor, max_clusters: int) -> torch.Tensor:
-    """Discovery-order compaction: roots ascending (= row-major first pixel)
-    become FIRST_CLUSTER_ID + rank; components past ``max_clusters`` and
-    unlabelled active pixels become NOISE_ID; inactive pixels 0.  The rank
-    is an integer cumsum, exact on every device."""
-    H, W = active.shape
+    """Discovery-order compaction per frame: roots ascending (= row-major
+    first pixel) become FIRST_CLUSTER_ID + rank; components past
+    ``max_clusters`` and unlabelled active pixels become NOISE_ID;
+    inactive pixels 0.  The rank is an integer cumsum along each frame's
+    row-major pixels, exact on every device."""
+    H, W = active.shape[-2:]
+    lead = active.shape[:-2]
     hw = H * W
-    flat = labels.reshape(-1).to(torch.int64)
+    flat = labels.reshape(*lead, hw).to(torch.int64)
     iota = torch.arange(hw, dtype=torch.int64, device=flat.device)
     is_root = (flat == iota) & (flat < hw)
-    rank = torch.cumsum(is_root.to(torch.int32), 0) - 1
-    r = rank[flat.clamp(max=hw - 1)]
-    noise = torch.where(active.reshape(-1), NOISE_ID, 0)
+    rank = torch.cumsum(is_root.to(torch.int32), -1) - 1
+    r = rank.gather(-1, flat.clamp(max=hw - 1))
+    noise = torch.where(active.reshape(*lead, hw), NOISE_ID, 0)
     cluster_id = torch.where((flat < hw) & (r < max_clusters), FIRST_CLUSTER_ID + r, noise)
-    return cluster_id.reshape(H, W).to(torch.int32)
+    return cluster_id.reshape(active.shape).to(torch.int32)
 
 
 def _check(point_planes: torch.Tensor, active: torch.Tensor) -> None:
@@ -166,10 +172,10 @@ def _check(point_planes: torch.Tensor, active: torch.Tensor) -> None:
         raise TypeError(f"point_planes must be float32, got {point_planes.dtype}")
     if active.dtype != torch.bool:
         raise TypeError(f"active must be bool, got {active.dtype}")
-    if active.ndim != 2 or point_planes.shape != (3, *active.shape):
+    if active.ndim not in (2, 3) or point_planes.shape != (*active.shape[:-2], 3, *active.shape[-2:]):
         raise ValueError(
-            f"expected (3, H, W) planes and an (H, W) mask, got {tuple(point_planes.shape)} "
-            f"and {tuple(active.shape)}"
+            f"expected (3, H, W) planes and an (H, W) mask, or (B, 3, H, W) and (B, H, W), got "
+            f"{tuple(point_planes.shape)} and {tuple(active.shape)}"
         )
     if point_planes.device != active.device:
         raise ValueError("point_planes and active must share a device")
@@ -182,8 +188,8 @@ def _kernel():
     fn = lib.rpcc_dbscan_labels_launch
     fn.restype = ctypes.c_int
     fn.argtypes = (
-        [ctypes.c_void_p] * 4
-        + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int]
+        [ctypes.c_void_p] * 2
+        + [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int]
         + [ctypes.c_void_p] * 5
     )
     return fn
@@ -196,8 +202,9 @@ def dbscan_labels_cuda(
     min_points: int = MIN_POINTS,
     window: int = WINDOW,
 ) -> torch.Tensor:
-    """The CUDA kernel on CUDA tensors; raises on any other input.  Launches
-    on the current stream and does not synchronize."""
+    """The CUDA kernel on CUDA tensors, one frame or a batch (one launch
+    sequence either way); raises on any other input.  Launches on the
+    current stream and does not synchronize."""
     global LAUNCHES
     _check(point_planes, active)
     if active.device.type != "cuda":
@@ -206,22 +213,22 @@ def dbscan_labels_cuda(
         raise ValueError(f"the kernel is built for window {WINDOW}, got {window}")
     if not point_planes.is_contiguous():
         raise ValueError("point_planes must be contiguous")
-    H, W = active.shape
+    H, W = active.shape[-2:]
+    B = active.shape[0] if active.ndim == 3 else 1
     hw = H * W
-    if hw >= 2**31 - 1:
-        raise ValueError("DBSCAN frame exceeds 2^31 pixels")
+    if B * hw >= 2**31 - 1:
+        raise ValueError("DBSCAN batch exceeds 2^31 pixels")
     fn = _kernel()
     dev = active.device
     with torch.cuda.device(dev):
         act_u8 = active.to(torch.uint8).contiguous()
-        mask = torch.empty(hw, dtype=torch.int64, device=dev)  # u64 bits
-        parent = torch.empty(hw, dtype=torch.int32, device=dev)
-        core = torch.empty(hw, dtype=torch.uint8, device=dev)
-        out = torch.empty((H, W), dtype=torch.int32, device=dev)
+        mask = torch.empty(B * hw, dtype=torch.int64, device=dev)  # u64 bits
+        parent = torch.empty(B * hw, dtype=torch.int32, device=dev)
+        core = torch.empty(B * hw, dtype=torch.uint8, device=dev)
+        out = torch.empty(active.shape, dtype=torch.int32, device=dev)
         err = fn(
-            point_planes[0].data_ptr(), point_planes[1].data_ptr(), point_planes[2].data_ptr(),
-            act_u8.data_ptr(), H, W, float(eps) * float(eps), int(min_points),
-            mask.data_ptr(), parent.data_ptr(), core.data_ptr(), out.data_ptr(),
+            point_planes.data_ptr(), act_u8.data_ptr(), B, H, W, float(eps) * float(eps),
+            int(min_points), mask.data_ptr(), parent.data_ptr(), core.data_ptr(), out.data_ptr(),
             torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
@@ -248,8 +255,8 @@ def dbscan_labels(
 
 
 def dbscan_range_image(
-    point_planes: torch.Tensor,  # (3, H, W) planar x/y/z
-    active: torch.Tensor,  # (H, W) bool: non-ground, non-zero pixels
+    point_planes: torch.Tensor,  # (..., 3, H, W) planar x/y/z
+    active: torch.Tensor,  # (..., H, W) bool: non-ground, non-zero pixels
     eps: float,
     max_clusters: int,
     min_points: int = MIN_POINTS,

@@ -8,10 +8,12 @@ same ``--seed``.  This follows jax 0.9's defaults: implementation
 S hashes the 64-bit flat counter ``i`` as the pair ``(i >> 32, i & mask)``
 and returns ``bits1 ^ bits2``; ``split`` keeps both words).
 
-A key is a ``(2,)`` int64 tensor holding two uint32 words.  uint32
-arithmetic runs in int64 and is masked back to 32 bits after every add,
-so it is exact on every device.  Nothing here holds global state: keys
-are passed explicitly.
+A key is a ``(2,)`` int64 tensor holding two uint32 words; a batch of
+keys is ``(B, 2)``, one per frame, and every draw then gets a leading B
+whose row b equals the single-key draw of key b (``jax.vmap`` of the same
+call).  uint32 arithmetic runs in int64 and is masked back to 32 bits
+after every add, so it is exact on every device.  Nothing here holds
+global state: keys are passed explicitly.
 """
 
 from __future__ import annotations
@@ -24,12 +26,20 @@ _MASK = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
 
 
-def prng_key(seed: int, device) -> torch.Tensor:
-    """``jax.random.PRNGKey(np.uint32(seed))``: the words ``[0, seed]``."""
-    seed = int(seed)
-    if not 0 <= seed <= _MASK:
-        raise ValueError(f"seed {seed} is not a uint32")
-    return torch.tensor([0, seed], dtype=torch.int64, device=device)
+def prng_key(seed, device) -> torch.Tensor:
+    """``jax.random.PRNGKey(np.uint32(seed))``: the words ``[0, seed]``.
+    A sequence or (B,) tensor of seeds gives (B, 2) keys.  Python seeds
+    are range-checked on the host; a tensor is taken as it is (checking
+    a device tensor would wait for the device)."""
+    if isinstance(seed, torch.Tensor):
+        seeds = seed.to(device=device, dtype=torch.int64)
+    else:
+        vals = [int(s) for s in seed] if isinstance(seed, (list, tuple, range)) else int(seed)
+        for s in vals if isinstance(vals, list) else [vals]:
+            if not 0 <= s <= _MASK:
+                raise ValueError(f"seed {s} is not a uint32")
+        seeds = torch.tensor(vals, dtype=torch.int64, device=device)
+    return torch.stack([torch.zeros_like(seeds), seeds], -1)
 
 
 def _rotl(x: torch.Tensor, d: int) -> torch.Tensor:
@@ -53,16 +63,21 @@ def threefry2x32(
 
 
 def _hash_counters(key: torch.Tensor, shape: Sequence[int]):
+    """Hash the flat counters of a draw of ``shape`` under each key of
+    ``key`` (..., 2) -> two (..., *shape) word tensors."""
+    shape = tuple(int(s) for s in shape)
     n = 1
     for s in shape:
-        n *= int(s)
+        n *= s
     i = torch.arange(n, dtype=torch.int64, device=key.device)
-    b1, b2 = threefry2x32(key[0], key[1], i >> 32, i & _MASK)
-    return b1.reshape(tuple(shape)), b2.reshape(tuple(shape))
+    k1, k2 = key[..., 0:1], key[..., 1:2]  # (..., 1): broadcast over the counters
+    b1, b2 = threefry2x32(k1, k2, i >> 32, i & _MASK)
+    lead = key.shape[:-1]
+    return b1.reshape((*lead, *shape)), b2.reshape((*lead, *shape))
 
 
 def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
-    """``jax.random.split(key, num)`` -> (num, 2) keys."""
+    """``jax.random.split(key, num)`` -> (..., num, 2) keys."""
     b1, b2 = _hash_counters(key, (num,))
     return torch.stack([b1, b2], dim=-1)
 
@@ -84,8 +99,8 @@ def randint(key: torch.Tensor, shape: Sequence[int], minval: int, maxval: int) -
     """``jax.random.randint(key, shape, minval, maxval)`` for int32: two
     32-bit draws folded modulo the span (JAX's ``2 * nbits`` scheme)."""
     k = split(key)
-    hi = random_bits(k[0], shape)
-    lo = random_bits(k[1], shape)
+    hi = random_bits(k[..., 0, :], shape)
+    lo = random_bits(k[..., 1, :], shape)
     span = (maxval - minval) & _MASK if maxval > minval else 1
     mult = (1 << 16) % span
     mult = ((mult * mult) & _MASK) % span

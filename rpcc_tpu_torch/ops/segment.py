@@ -41,9 +41,9 @@ GROUND_RANSAC_ITERS = 100
 
 
 class SegmentResult(NamedTuple):
-    seg_idx: torch.Tensor  # (H, W) int32: 0 ground, 1 zero pixels, 2.. clusters
-    ground_model: torch.Tensor  # (4,) normalized plane
-    centers: torch.Tensor  # (K, 3) FPS cluster centres
+    seg_idx: torch.Tensor  # (B, H, W) int32: 0 ground, 1 zero pixels, 2.. clusters
+    ground_model: torch.Tensor  # (B, 4) normalized plane
+    centers: torch.Tensor  # (B, K, 3) FPS cluster centres
 
 
 def fit_ground_plane_planar(
@@ -51,17 +51,20 @@ def fit_ground_plane_planar(
     valid: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Seeded RANSAC ground plane from low-z points (fallback: all live
-    points when fewer than 800 lie below the z cut)."""
+    points when fewer than 800 lie below the z cut).  (HW,) planes and a
+    (2,) key -> (4,); batched (B, HW) and (B, 2) -> (B, 4)."""
     k = prng.split(key)
     low = zs < GROUND_Z_CUT
     if valid is not None:
         low = low & valid
-    n_low = low.sum()
+    n_low = low.sum(-1, keepdim=True)
     fallback = torch.ones_like(low) if valid is None else valid
     mask = torch.where(n_low < GROUND_FIT_MIN, fallback, low)
-    subset, count = compact_random_subset_planar(xs, ys, zs, mask, k[0], GROUND_FIT_CAPACITY)
+    subset, count = compact_random_subset_planar(
+        xs, ys, zs, mask, k[..., 0, :], GROUND_FIT_CAPACITY
+    )
     return ransac_plane(
-        subset, count, k[1],
+        subset, count, k[..., 1, :],
         threshold=GROUND_RANSAC_THRESHOLD,
         ransac_n=GROUND_RANSAC_N,
         num_hypotheses=GROUND_RANSAC_ITERS,
@@ -71,74 +74,92 @@ def fit_ground_plane_planar(
 def ground_depth_residual(
     range_image: torch.Tensor, plane: torch.Tensor, tm_planes: torch.Tensor
 ) -> torch.Tensor:
-    """Signed depth residual r - r_plane with r_plane = -d / (n . ray)."""
-    denom = plane[0] * tm_planes[0] + plane[1] * tm_planes[1] + plane[2] * tm_planes[2]
-    return range_image - (-plane[3] / denom)
+    """Signed depth residual r - r_plane with r_plane = -d / (n . ray):
+    (..., H, W) ranges, (..., 4) planes, (3, H, W) rays."""
+    a, b, c, d = (plane[..., i, None, None] for i in range(4))
+    denom = a * tm_planes[0] + b * tm_planes[1] + c * tm_planes[2]
+    return range_image - (-d / denom)
 
 
 def center_distances(
     xs: torch.Tensor, ys: torch.Tensor, zs: torch.Tensor, centers: torch.Tensor
 ) -> torch.Tensor:
-    """(K, HW) Euclidean distances ``sqrt(max(|p|^2 + |c|^2 - 2 c.p, 0))``."""
-    p2 = xs * xs + ys * ys + zs * zs  # (HW,)
-    cx, cy, cz = (centers[:, i : i + 1] for i in range(3))
-    c2 = cx * cx + cy * cy + cz * cz  # (K, 1)
-    dots = cx * xs + cy * ys + cz * zs  # (K, HW)
+    """(..., K, HW) Euclidean distances ``sqrt(max(|p|^2 + |c|^2 - 2 c.p, 0))``
+    of (..., HW) planar points to (..., K, 3) centres."""
+    p2 = (xs * xs + ys * ys + zs * zs)[..., None, :]  # (..., 1, HW)
+    cx, cy, cz = (centers[..., i : i + 1] for i in range(3))
+    c2 = cx * cx + cy * cy + cz * cz  # (..., K, 1)
+    dots = cx * xs[..., None, :] + cy * ys[..., None, :] + cz * zs[..., None, :]  # (..., K, HW)
     return torch.sqrt(torch.clamp(p2 + c2 - 2.0 * dots, min=0.0))
 
 
+def _flat_planes(point_planes: torch.Tensor):
+    """(B, 3, H, W) -> three (B, HW) coordinate planes."""
+    return tuple(point_planes[:, i].reshape(point_planes.shape[0], -1) for i in range(3))
+
+
 def segment_range_image(
-    point_planes: torch.Tensor,  # (3, H, W) planar x/y/z
-    range_image: torch.Tensor,  # (H, W)
+    point_planes: torch.Tensor,  # (B, 3, H, W) planar x/y/z
+    range_image: torch.Tensor,  # (B, H, W)
     tm_planes: torch.Tensor,  # (3, H, W)
-    key: torch.Tensor,
+    key: torch.Tensor,  # (B, 2)
     ground_threshold: float,
     cluster_num: int,
 ) -> SegmentResult:
-    xs, ys, zs = (point_planes[i].reshape(-1) for i in range(3))
-    ri = range_image.reshape(-1)
+    """FPS-mode segmentation of a batch; a single (3, H, W) frame with a
+    (2,) key gives unbatched results."""
+    if point_planes.ndim == 3:
+        res = segment_range_image(point_planes[None], range_image[None], tm_planes, key[None], ground_threshold, cluster_num)
+        return SegmentResult(*(t[0] for t in res))
+    xs, ys, zs = _flat_planes(point_planes)
+    ri = range_image.reshape(range_image.shape[0], -1)
 
     ground_model = fit_ground_plane_planar(xs, ys, zs, key, valid=ri > 0.0)
 
     # Non-ground mask by vertical (point-to-plane) distance; FPS runs over
-    # the zero-masked full grid.
+    # the zero-masked full grid, one launch for the batch.
     vert = point_plane_distance_planar(xs, ys, zs, ground_model)
     nonground = ((vert > ground_threshold) & (ri > 0.0)).to(ri.dtype)
     ngx, ngy, ngz = xs * nonground, ys * nonground, zs * nonground
-    center_idx = furthest_point_sample(ngx, ngy, ngz, cluster_num).to(torch.int64)
-    centers = torch.stack([ngx[center_idx], ngy[center_idx], ngz[center_idx]], -1)
+    center_idx = furthest_point_sample(ngx, ngy, ngz, cluster_num).to(torch.int64)  # (B, K)
+    centers = torch.stack([ngx.gather(1, center_idx), ngy.gather(1, center_idx), ngz.gather(1, center_idx)], -1)
     seg = assign_clusters(point_planes, range_image, tm_planes, ground_model, centers)
     return SegmentResult(seg, ground_model, centers)
 
 
 def segment_range_image_dbscan(
-    point_planes: torch.Tensor,  # (3, H, W)
-    range_image: torch.Tensor,  # (H, W)
+    point_planes: torch.Tensor,  # (B, 3, H, W)
+    range_image: torch.Tensor,  # (B, H, W)
     tm_planes: torch.Tensor,  # (3, H, W)
-    key: torch.Tensor,
+    key: torch.Tensor,  # (B, 2)
     eps: float,
     max_clusters: int,
 ) -> SegmentResult:
     """DBSCAN-mode segmentation: the seeded ground plane, then
-    :func:`dbscan_segment`.  ``centers`` is all zeros, as in the reference."""
-    xs, ys, zs = (point_planes[i].reshape(-1) for i in range(3))
-    ground_model = fit_ground_plane_planar(xs, ys, zs, key, valid=range_image.reshape(-1) > 0.0)
+    :func:`dbscan_segment`.  ``centers`` is all zeros, as in the reference.
+    A single (3, H, W) frame with a (2,) key gives unbatched results."""
+    if point_planes.ndim == 3:
+        res = segment_range_image_dbscan(point_planes[None], range_image[None], tm_planes, key[None], eps, max_clusters)
+        return SegmentResult(*(t[0] for t in res))
+    xs, ys, zs = _flat_planes(point_planes)
+    valid = range_image.reshape(range_image.shape[0], -1) > 0.0
+    ground_model = fit_ground_plane_planar(xs, ys, zs, key, valid=valid)
     seg = dbscan_segment(point_planes, range_image, tm_planes, ground_model, eps, max_clusters)
-    centers = torch.zeros((max_clusters, 3), dtype=range_image.dtype, device=range_image.device)
+    centers = torch.zeros((point_planes.shape[0], max_clusters, 3), dtype=range_image.dtype, device=range_image.device)
     return SegmentResult(seg, ground_model, centers)
 
 
 def dbscan_segment(
-    point_planes: torch.Tensor,  # (3, H, W)
-    range_image: torch.Tensor,  # (H, W)
+    point_planes: torch.Tensor,  # (..., 3, H, W)
+    range_image: torch.Tensor,  # (..., H, W)
     tm_planes: torch.Tensor,  # (3, H, W)
-    ground_model: torch.Tensor,  # (4,)
+    ground_model: torch.Tensor,  # (..., 4)
     eps: float,
     max_clusters: int,
 ) -> torch.Tensor:
-    """(H, W) int32 ids from a ground plane: pixels within 0.5 m of the
-    plane's depth are ground (0), zero pixels 1, DBSCAN noise 2 and
-    clusters 3.. over the rest."""
+    """(..., H, W) int32 ids from a ground plane: pixels within 0.5 m of
+    the plane's depth are ground (0), zero pixels 1, DBSCAN noise 2 and
+    clusters 3.. over the rest (one DBSCAN launch sequence per batch)."""
     g_res = ground_depth_residual(range_image, ground_model, tm_planes)
     nonzero = range_image > 0.0
     active = (torch.abs(g_res) > 0.5) & nonzero
@@ -148,20 +169,20 @@ def dbscan_segment(
 
 
 def assign_clusters(
-    point_planes: torch.Tensor,  # (3, H, W)
-    range_image: torch.Tensor,  # (H, W)
+    point_planes: torch.Tensor,  # (..., 3, H, W)
+    range_image: torch.Tensor,  # (..., H, W)
     tm_planes: torch.Tensor,  # (3, H, W)
-    ground_model: torch.Tensor,  # (4,)
-    centers: torch.Tensor,  # (K, 3)
+    ground_model: torch.Tensor,  # (..., 4)
+    centers: torch.Tensor,  # (..., K, 3)
 ) -> torch.Tensor:
-    """(H, W) int32 seg ids: argmin over the distance stack (row 0 =
+    """(..., H, W) int32 seg ids: argmin over the distance stack (row 0 =
     |ground depth residual|, rows 1..K = |p - c|), ties to the lowest id;
     zero pixels get id 1."""
-    H, W = range_image.shape
-    xs, ys, zs = (point_planes[i].reshape(-1) for i in range(3))
-    g_res = torch.abs(ground_depth_residual(range_image, ground_model, tm_planes).reshape(-1))
-    dist = torch.cat([g_res[None, :], center_distances(xs, ys, zs, centers)], 0)
-    seg = torch.argmin(dist, dim=0).to(torch.int32)
+    lead = range_image.shape[:-2]
+    xs, ys, zs = (point_planes[..., i, :, :].reshape(*lead, -1) for i in range(3))
+    g_res = torch.abs(ground_depth_residual(range_image, ground_model, tm_planes).reshape(*lead, -1))
+    dist = torch.cat([g_res[..., None, :], center_distances(xs, ys, zs, centers)], -2)  # (..., K+1, HW)
+    seg = torch.argmin(dist, dim=-2).to(torch.int32)
     seg = torch.where(seg > 0, seg + 1, seg)  # room for the zero-pixel class 1
-    seg = torch.where(range_image.reshape(-1) == 0.0, 1, seg).to(torch.int32)
-    return seg.reshape(H, W)
+    seg = torch.where(range_image.reshape(*lead, -1) == 0.0, 1, seg).to(torch.int32)
+    return seg.reshape(range_image.shape)

@@ -6,6 +6,10 @@ reference bitstream order.  Per-cluster sums come from one cumsum and
 boundary differences; per-cluster values reach the stream slots by a plain
 gather ``values[order.seg]`` (the JAX package avoids that gather on the
 TPU; on a GPU it is cheap and bit-exact by construction).
+
+Every function takes an optional leading batch dimension: a (B, HW) seg
+map gives a StreamOrder whose fields lead with B, and every sort, gather,
+scatter and scan then runs along the last axis, row by row.
 """
 
 from __future__ import annotations
@@ -18,11 +22,11 @@ _IOTA_BITS = 18  # position field width; covers range images up to 2^18 px
 
 
 class StreamOrder(NamedTuple):
-    perm: torch.Tensor  # (HW,) int64 pixel index of each stream slot
-    seg: torch.Tensor  # (HW,) int64 cluster id of each stream slot
-    starts: torch.Tensor  # (M,) stream start offset per cluster id
-    counts: torch.Tensor  # (M,) per-cluster pixel counts
-    stream_len: torch.Tensor  # () HW - counts[1]
+    perm: torch.Tensor  # (..., HW) int64 pixel index of each stream slot
+    seg: torch.Tensor  # (..., HW) int64 cluster id of each stream slot
+    starts: torch.Tensor  # (..., M) stream start offset per cluster id
+    counts: torch.Tensor  # (..., M) per-cluster pixel counts
+    stream_len: torch.Tensor  # (...) HW - counts[..., 1]
 
 
 def stream_sort(
@@ -30,25 +34,26 @@ def stream_sort(
 ) -> Tuple[StreamOrder, Tuple[torch.Tensor, ...]]:
     """Sort pixels into stream order by the packed int32 key
     ``(stream_key << 18) | pixel_index`` (unique keys, so the order is the
-    stable one) and carry ``payloads`` along."""
-    hw = seg_flat.shape[0]
+    stable one) and carry ``payloads`` (same shape as ``seg_flat``) along."""
+    hw = seg_flat.shape[-1]
+    lead = seg_flat.shape[:-1]
     if hw >= (1 << _IOTA_BITS) or num_models >= (1 << (31 - _IOTA_BITS)):
         raise ValueError(f"stream key overflows int32 (hw={hw}, num_models={num_models})")
     dev = seg_flat.device
     iota = torch.arange(hw, dtype=torch.int32, device=dev)
     key = torch.where(seg_flat == 1, num_models, seg_flat).to(torch.int32)
-    packed_s = torch.sort((key << _IOTA_BITS) | iota).values
+    packed_s = torch.sort((key << _IOTA_BITS) | iota, dim=-1).values
     perm = (packed_s & ((1 << _IOTA_BITS) - 1)).to(torch.int64)
     key_s = (packed_s >> _IOTA_BITS).contiguous()
     seg_s = torch.where(key_s == num_models, 1, key_s).to(torch.int64)
 
     ids = torch.arange(num_models, dtype=torch.int32, device=dev)
-    ckeys = torch.where(ids == 1, num_models, ids).to(torch.int32)
+    ckeys = torch.where(ids == 1, num_models, ids).to(torch.int32).expand(*lead, num_models).contiguous()
     starts = torch.searchsorted(key_s, ckeys, right=False).to(torch.int32)
     ends = torch.searchsorted(key_s, ckeys, right=True).to(torch.int32)
     counts = ends - starts
-    order = StreamOrder(perm, seg_s, starts, counts, hw - counts[1])
-    return order, tuple(p[perm] for p in payloads)
+    order = StreamOrder(perm, seg_s, starts, counts, hw - counts[..., 1])
+    return order, tuple(p.gather(-1, perm) for p in payloads)
 
 
 _SCAN_BLOCK = 16  # XLA's CPU cumsum scans 16-element blocks, recursively
@@ -88,30 +93,57 @@ def fixed_order_cumsum(x: torch.Tensor) -> torch.Tensor:
     return (carry[..., None] + inner).reshape(*lead, nb * _SCAN_BLOCK)[..., :n]
 
 
+def fixed_order_sum(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """Sum over ``dim`` of a float tensor in an association set by the
+    length alone: 16-element blocks added left to right, then the block
+    totals the same way, recursively.  Zero padding of the last block is
+    exact, so a slice's sum never depends on the other dims of the tensor
+    (a batch) or on the device."""
+    x = x.movedim(dim, -1)
+    while x.shape[-1] > _SCAN_BLOCK:
+        nb = -(-x.shape[-1] // _SCAN_BLOCK)
+        x = torch.nn.functional.pad(x, (0, nb * _SCAN_BLOCK - x.shape[-1]))
+        x = x.reshape(*x.shape[:-1], nb, _SCAN_BLOCK)
+        x = _sequential_total(x)
+    return _sequential_total(x)
+
+
+def _sequential_total(x: torch.Tensor) -> torch.Tensor:
+    """Sum of a short last dim, one f32 add at a time, left to right."""
+    total = x[..., 0]
+    for k in range(1, x.shape[-1]):
+        total = total + x[..., k]
+    return total
+
+
 def per_cluster_sums(values_s: torch.Tensor, order: StreamOrder) -> torch.Tensor:
-    """(M,) per-cluster sums: one cumsum and boundary differences (no float
-    atomics, and a fixed-order scan, so a GPU run repeats bit for bit)."""
-    return per_cluster_sums_multi(values_s[None], order)[0]
+    """(..., M) per-cluster sums: one cumsum and boundary differences (no
+    float atomics, and a fixed-order scan, so a GPU run repeats bit for
+    bit)."""
+    return per_cluster_sums_multi(values_s[..., None, :], order)[..., 0, :]
 
 
 def per_cluster_sums_multi(values_s: torch.Tensor, order: StreamOrder) -> torch.Tensor:
-    """(C, HW) stream-order rows -> (C, M) per-cluster sums, through one
-    fixed-order scan along the rows."""
-    zero = torch.zeros((values_s.shape[0], 1), dtype=values_s.dtype, device=values_s.device)
+    """(..., C, HW) stream-order rows -> (..., C, M) per-cluster sums,
+    through one fixed-order scan along the rows."""
+    zero = torch.zeros((*values_s.shape[:-1], 1), dtype=values_s.dtype, device=values_s.device)
     csum = torch.cat([zero, fixed_order_cumsum(values_s)], -1)
-    starts = order.starts.to(torch.int64)
-    return csum[:, starts + order.counts] - csum[:, starts]
+    starts = order.starts.to(torch.int64)[..., None, :]
+    ends = starts + order.counts[..., None, :]
+    rows = (*values_s.shape[:-1], starts.shape[-1])
+    return csum.gather(-1, ends.expand(rows)) - csum.gather(-1, starts.expand(rows))
 
 
 def expand_per_cluster(values: torch.Tensor, order: StreamOrder) -> torch.Tensor:
-    """(M,) per-cluster values -> (HW,) per stream slot: a plain gather, so
-    every slot holds its cluster's value bit for bit."""
-    return values[order.seg]
+    """(..., M) per-cluster values -> (..., HW) per stream slot: a plain
+    gather, so every slot holds its cluster's value bit for bit."""
+    return values.gather(-1, order.seg)
 
 
 def expand_per_cluster_multi(values: torch.Tensor, order: StreamOrder) -> torch.Tensor:
-    """(C, M) -> (C, HW): the row-stacked :func:`expand_per_cluster`."""
-    return values[:, order.seg]
+    """(..., C, M) -> (..., C, HW): the row-stacked :func:`expand_per_cluster`."""
+    seg = order.seg[..., None, :]
+    return values.gather(-1, seg.expand(*values.shape[:-1], seg.shape[-1]))
 
 
 def point_means_stream(ri_s: torch.Tensor, order: StreamOrder) -> torch.Tensor:
@@ -119,19 +151,20 @@ def point_means_stream(ri_s: torch.Tensor, order: StreamOrder) -> torch.Tensor:
     sums = per_cluster_sums(ri_s, order)
     cnt = torch.clamp(order.counts.to(ri_s.dtype), min=1.0)
     mean = torch.where(order.counts > 0, sums / cnt, 0.0)
-    mean[:2] = 0.0
+    mean[..., :2] = 0.0
     return mean
 
 
 def predict_stream(
-    model_param: torch.Tensor,  # (M, 4)
+    model_param: torch.Tensor,  # (..., M, 4)
     order: StreamOrder,
     rays_s: Tuple[torch.Tensor, torch.Tensor, torch.Tensor],
 ) -> torch.Tensor:
     """Intra-prediction per stream slot: the slot's model row, gathered.
     A point model (a+b+c == 0 exactly) predicts d; a plane predicts
     -d / (n . ray), and 0 where the ray lies in the plane."""
-    a, b, c, d = model_param[order.seg].unbind(-1)
+    idx = order.seg[..., None].expand(*order.seg.shape, 4)
+    a, b, c, d = model_param.gather(-2, idx).unbind(-1)
     tx, ty, tz = rays_s
     is_point = (a + b + c) == 0.0
     denom = a * tx + b * ty + c * tz
@@ -157,34 +190,32 @@ def rays_from_perm(order: StreamOrder, lidar) -> Tuple[torch.Tensor, torch.Tenso
 
 def stream_to_pixel(values_s: torch.Tensor, order: StreamOrder) -> torch.Tensor:
     """Invert the stream permutation: one scatter by the pixel index."""
-    out = torch.empty_like(values_s)
-    out[order.perm] = values_s
-    return out
+    return torch.empty_like(values_s).scatter_(-1, order.perm, values_s)
 
 
 def compact_flagged_small(
     flags_flat: torch.Tensor, values_flat: torch.Tensor, value_bits: int = 12
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Front-pack ``values[flags]`` (small non-negative values < 2^value_bits)
-    in position order, tail-padded; returns ``(values, count)``.  One sort
-    of the packed int32 ``(1 - flag | position | value)``."""
-    hw = flags_flat.shape[0]
+    in position order along the last axis, tail-padded; returns ``(values,
+    count)``.  One sort of the packed int32 ``(1 - flag | position | value)``."""
+    hw = flags_flat.shape[-1]
     if hw >= (1 << _IOTA_BITS) or value_bits + _IOTA_BITS + 1 > 31:
         raise ValueError("packed compaction key overflows int32")
     iota = torch.arange(hw, dtype=torch.int32, device=flags_flat.device)
     inv = 1 - flags_flat.to(torch.int32)
     packed = (inv << (_IOTA_BITS + value_bits)) | (iota << value_bits) | values_flat.to(torch.int32)
-    pk = torch.sort(packed).values
-    return pk & ((1 << value_bits) - 1), flags_flat.to(torch.int32).sum()
+    pk = torch.sort(packed, dim=-1).values
+    return pk & ((1 << value_bits) - 1), flags_flat.to(torch.int32).sum(-1)
 
 
 def compact_flagged_positions(flags_flat: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Positions of set flags first (ascending), then the rest (ascending):
-    a full permutation, plus the count of set flags."""
-    hw = flags_flat.shape[0]
+    """Positions of set flags first (ascending), then the rest (ascending)
+    along the last axis: a full permutation, plus the count of set flags."""
+    hw = flags_flat.shape[-1]
     if hw >= (1 << _IOTA_BITS):
         raise ValueError("packed compaction key overflows int32")
     iota = torch.arange(hw, dtype=torch.int32, device=flags_flat.device)
     inv = 1 - flags_flat.to(torch.int32)
-    pk = torch.sort((inv << _IOTA_BITS) | iota).values
-    return pk & ((1 << _IOTA_BITS) - 1), flags_flat.to(torch.int32).sum()
+    pk = torch.sort((inv << _IOTA_BITS) | iota, dim=-1).values
+    return pk & ((1 << _IOTA_BITS) - 1), flags_flat.to(torch.int32).sum(-1)

@@ -1,0 +1,537 @@
+"""Batched throughput engine on one device: (B, H, W) frame batches through
+the encoder and decoder graphs, a host pool for projection and entropy
+coding (port of ``rpcc_tpu/parallel/engine.py``).
+
+The dataset-scale path (``compress_datalist`` / ``decompress_datalist``).
+Frames are host-projected onto the u16 snap grid into a ring of pinned
+(B, H, W) buffers, uploaded as 2-byte words on a copy stream, widened and
+encoded on a compute stream, and their live prefixes come back on the copy
+stream while the host entropy-codes the batch before.  The pipeline
+(``encode_pipeline`` / ``decode_pipeline``) runs four stages on four
+threads:
+
+  1. prepare  (stacker)    host projection into a pinned ring slot, or for
+                           decode the batched entropy decode + stacking;
+  2. dispatch (uploader)   H2D on the copy stream, then the graph on the
+                           compute stream, after the copy's event;
+  3. stage    (downloader) the (B,) lengths, read once per batch, then the
+                           D2H copies of the exact live prefixes;
+  4. finish   (caller)     entropy coding and framing on the pool (decode:
+                           back-projection to points).
+
+Every device tensor read on a stream other than the one it was made on is
+marked with ``record_stream`` and stays referenced until the event of the
+copy that reads it, so the caching allocator never hands its memory to the
+next batch while a copy still reads it.
+
+A batch holds only its live frames: a ragged last batch is a smaller B,
+and a frame's ``.rpcc`` bytes equal the single-frame codec's for the same
+seed (the graph and the entropy coder are both independent of the frame's
+neighbours).  The JAX engine's TPU transfer codes (i8/d8/m8, bucketed
+prefix lengths, the u8 sequence cast, the mesh) are not ported: the wire is
+the u16 snap grid up and the i16/u16 live prefixes down, and decode brings
+back the (B, H, W) f32 range image, so the device backend's points match
+the host backend's within f32 ulps.
+"""
+
+from __future__ import annotations
+
+import concurrent.futures as futures
+import contextlib
+import threading
+import time
+from collections import deque
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from rpcc_tpu.codec.bitstream import pack_bitstream, unpack_bitstream
+from rpcc_tpu.codec.lz4block import native_lib
+from rpcc_tpu.config import CodecConfig, LidarConfig
+from rpcc_tpu_torch.codec.entropy import BasicCompressor
+from rpcc_tpu_torch.models.decoder import Decoder
+from rpcc_tpu_torch.models.encoder import Encoder, EncoderOutput, num_model_rows
+from rpcc_tpu_torch.ops.projection_host import (
+    build_transform_map,
+    build_transform_planes,
+    project_points_host_u16,
+)
+
+RING_SLOTS = 3  # pinned upload buffers in flight
+
+
+def _timed_stage(fn, stats: dict, key: str, count: bool = False):
+    """Accumulate a pipeline stage's wall + thread-CPU seconds into stats."""
+
+    def wrapped(*a):
+        t0 = time.perf_counter()
+        c0 = time.thread_time()
+        r = fn(*a)
+        stats[key + "_s"] = stats.get(key + "_s", 0.0) + time.perf_counter() - t0
+        stats[key + "_cpu_s"] = stats.get(key + "_cpu_s", 0.0) + time.thread_time() - c0
+        if count:
+            stats["batches"] = stats.get("batches", 0) + 1
+        return r
+
+    return wrapped
+
+
+class _Slot:
+    """One pinned upload buffer of the encode ring.  ``free`` is set once
+    the H2D copy of its last use is queued (``h2d`` is that copy's event),
+    so the stacker refills it only after that event fires."""
+
+    def __init__(self, B: int, H: int, W: int, pin: bool):
+        self.q = torch.empty((B, H, W), dtype=torch.int16, pin_memory=pin)  # u16 bits
+        self.delta = torch.empty((B,), dtype=torch.float32, pin_memory=pin)
+        self.seed = torch.empty((B,), dtype=torch.int64, pin_memory=pin)
+        self.q_np = self.q.numpy().view(np.uint16)
+        self.h2d: Optional[torch.cuda.Event] = None
+        self.free = threading.Event()
+        self.free.set()
+
+
+class _Prepared(NamedTuple):
+    slot: _Slot
+    live: int
+
+
+class _Dispatched(NamedTuple):
+    out: EncoderOutput  # device tensors, leading dim = live frames
+    live: int
+    done: Optional[torch.cuda.Event]  # the encoder's end on the compute stream
+
+
+class _Staged(NamedTuple):
+    live: int
+    stream_len: np.ndarray  # (B,)
+    seq_len: np.ndarray  # (B,)
+    host: Dict[str, Optional[torch.Tensor]]  # live prefixes, host memory
+    copied: Optional[torch.cuda.Event]  # the D2H copies' end on the copy stream
+    out: EncoderOutput  # keeps the copies' sources referenced until ``copied``
+
+
+class _DecodePrepared(NamedTuple):
+    host: Dict[str, Optional[torch.Tensor]]
+    live: int
+
+
+class _DecodeDispatched(NamedTuple):
+    range_image: torch.Tensor  # (B, H, W) f32 on the device
+    live: int
+    done: Optional[torch.cuda.Event]
+
+
+class BatchEngine:
+    """Batched encode and decode of one LiDAR geometry on one explicitly
+    named device.  A CUDA device is used as named and never swapped for
+    the CPU; a CPU device runs the same stages synchronously."""
+
+    def __init__(
+        self,
+        lidar: LidarConfig,
+        cfg: CodecConfig,
+        device,
+        batch_size: int = 8,
+        workers: int = 4,
+    ):
+        if batch_size < 1:
+            raise ValueError(f"batch_size must be >= 1, got {batch_size}")
+        self.lidar = lidar
+        self.cfg = cfg
+        self.device = torch.device(device)
+        self.batch_size = batch_size
+        self.H, self.W = lidar.height, lidar.width
+        self.hw = self.H * self.W
+        self.num_models = num_model_rows(cfg)
+        self.encoder = Encoder.for_lidar(lidar, cfg).to(self.device)
+        self.decoder = Decoder(lidar, cfg).to(self.device)
+        self.entropy = BasicCompressor(method_name=cfg.basic_compressor, contour_shape=(self.H, self.W))
+        self._cuda = self.device.type == "cuda"
+        if self._cuda:
+            self._copy = torch.cuda.Stream(self.device)
+            self._compute = torch.cuda.Stream(self.device)
+        self._ring = [_Slot(batch_size, self.H, self.W, self._cuda) for _ in range(RING_SLOTS)]
+        self._ring_next = 0
+        self._ring_lock = threading.Lock()
+        self._pool = futures.ThreadPoolExecutor(workers)
+        self._pool_cpu: Dict[str, float] = {}
+        self._pool_cpu_lock = threading.Lock()
+        self._stacker = futures.ThreadPoolExecutor(1)
+        self._uploader = futures.ThreadPoolExecutor(1)
+        self._downloader = futures.ThreadPoolExecutor(1)
+        self._tm_planar = np.ascontiguousarray(build_transform_planes(lidar).reshape(3, self.hw), np.float32)
+        self._tm_np = build_transform_map(lidar)
+
+    @property
+    def _step_arg(self):
+        return self.cfg.step if self.cfg.uniform else self.cfg.level_acc
+
+    def _on(self, stream_name: str):
+        """Context running torch work on one of the engine's streams (a
+        no-op on the CPU)."""
+        if not self._cuda:
+            return contextlib.nullcontext()
+        return torch.cuda.stream(getattr(self, stream_name))
+
+    def _record(self) -> Optional[torch.cuda.Event]:
+        """An event at the current point of the current stream (CUDA only)."""
+        if not self._cuda:
+            return None
+        ev = torch.cuda.Event()
+        ev.record()
+        return ev
+
+    def _upload(self, t: torch.Tensor) -> torch.Tensor:
+        """Host -> device on the current (copy) stream; the result is
+        marked for use on the compute stream."""
+        dev = t.to(self.device, non_blocking=True, copy=True)
+        if self._cuda:
+            dev.record_stream(self._compute)
+        return dev
+
+    def _download(self, t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+        """Device -> pinned host on the current (copy) stream."""
+        if t is None or not self._cuda:
+            return t
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        t.record_stream(self._copy)
+        host.copy_(t, non_blocking=True)
+        return host
+
+    def close(self) -> None:
+        """Stop the engine's threads."""
+        for pool in (self._stacker, self._uploader, self._downloader, self._pool):
+            pool.shutdown(wait=True)
+
+    def _pool_map(self, key: str, fn, n: int) -> list:
+        """``self._pool.map(fn, range(n))`` with the workers' thread-CPU
+        seconds accumulated under ``key`` (read via :meth:`pool_cpu_snapshot`)."""
+
+        def timed(i):
+            c0 = time.thread_time()
+            r = fn(i)
+            dt = time.thread_time() - c0
+            with self._pool_cpu_lock:
+                self._pool_cpu[key] = self._pool_cpu.get(key, 0.0) + dt
+            return r
+
+        return list(self._pool.map(timed, range(n)))
+
+    def pool_cpu_snapshot(self) -> Dict[str, float]:
+        """Cumulative pool-worker thread-CPU seconds per call site."""
+        with self._pool_cpu_lock:
+            return dict(self._pool_cpu)
+
+    # ---------------------------------------------------------------- encode
+    def _prepare_batch(self, clouds: Sequence[np.ndarray], seeds: Optional[Sequence[int]] = None) -> _Prepared:
+        """Pipeline stage 1: host-project the batch into the next ring slot
+        (waiting for that slot's last upload to finish)."""
+        live = len(clouds)
+        if not 0 < live <= self.batch_size:
+            raise ValueError(f"a batch holds 1..{self.batch_size} frames, got {live}")
+        seeds = [self.cfg.seed] * live if seeds is None else [int(s) for s in seeds]
+        if len(seeds) != live or any(not 0 <= s <= 0xFFFFFFFF for s in seeds):
+            raise ValueError(f"need {live} uint32 seeds, got {seeds}")
+        with self._ring_lock:
+            slot = self._ring[self._ring_next]
+            self._ring_next = (self._ring_next + 1) % len(self._ring)
+        slot.free.wait()
+        slot.free.clear()
+        if slot.h2d is not None:
+            slot.h2d.synchronize()
+        delta = slot.delta.numpy()
+        floor = np.float32(self.cfg.step / 16.0)
+
+        def one(i: int) -> None:
+            slot.q_np[i], delta[i] = project_points_host_u16(clouds[i], self.lidar, floor)
+
+        try:
+            self._pool_map("project", one, live)
+            slot.seed.numpy()[:live] = seeds
+        except BaseException:
+            slot.free.set()
+            raise
+        return _Prepared(slot, live)
+
+    def _dispatch_prepared(self, prepared: _Prepared) -> _Dispatched:
+        """Pipeline stage 2: upload a prepared batch on the copy stream and
+        queue the encoder on the compute stream behind it."""
+        slot, live = prepared
+        try:
+            with self._on("_copy"):
+                q, delta, seed = (self._upload(t[:live]) for t in (slot.q, slot.delta, slot.seed))
+                h2d = self._record()
+            slot.h2d = h2d
+        finally:
+            slot.free.set()
+        with self._on("_compute"):
+            if h2d is not None:
+                self._compute.wait_event(h2d)
+            q32 = q.to(torch.int32) & 0xFFFF  # u16 words arrive as int16
+            out = self.encoder(q32, delta, seed, self._step_arg)
+            done = self._record()
+        return _Dispatched(out, live, done)
+
+    def encode_batch_device(self, clouds: Sequence[np.ndarray], seeds: Optional[Sequence[int]] = None) -> _Dispatched:
+        """Project, upload and launch one batch; returns without waiting for
+        the device."""
+        return self._dispatch_prepared(self._prepare_batch(clouds, seeds))
+
+    def encode_batch_async(self, clouds: Sequence[np.ndarray], seeds=None) -> futures.Future:
+        """:meth:`encode_batch_device` on the uploader thread."""
+        return self._uploader.submit(self.encode_batch_device, clouds, seeds)
+
+    def stage_downloads(self, dispatched: _Dispatched) -> _Staged:
+        """Pipeline stage 3: wait for the batch, read its (B,) lengths (the
+        one host sync per batch) and queue the D2H copies of the exact live
+        prefixes on the copy stream."""
+        out, live, done = dispatched
+        with self._on("_copy"):
+            if done is not None:
+                self._copy.wait_event(done)
+            lens = torch.stack([out.stream_len.to(torch.int64), out.seq_len.to(torch.int64)]).cpu().numpy()
+            m_stream = max(int(lens[0].max()), 1)
+            m_seq = max(int(lens[1].max()), 1)
+            host = {
+                "stream": self._download(out.stream[:, :m_stream]),
+                "sequence": self._download(out.sequence.view(torch.int16)[:, :m_seq]),
+                "contour": self._download(out.contour_packed),
+                "models": self._download(out.model_param),
+                "salience": self._download(out.salience),
+            }
+            copied = self._record()
+        return _Staged(live, lens[0], lens[1], host, copied, out)
+
+    def finish_staged(self, st: _Staged) -> List[Tuple[bytes, Dict[str, np.ndarray]]]:
+        """Pipeline stage 4: wait for the copies, entropy-code (big fields
+        batched through the native coder, the rest on the pool), frame."""
+        if st.copied is not None:
+            st.copied.synchronize()
+        h = {k: None if v is None else v.numpy() for k, v in st.host.items()}
+        seq = h["sequence"].view(np.uint16)
+        dicts = []
+        for i in range(st.live):
+            fields = {
+                "residual_quantized": h["stream"][i, : st.stream_len[i]].copy(),
+                "contour_map": h["contour"][i].copy(),
+                "idx_sequence": seq[i, : st.seq_len[i]].copy(),
+                "plane_param": h["models"][i].astype(np.float32),
+            }
+            if h["salience"] is not None:
+                fields["salience_level"] = h["salience"][i].copy()
+            dicts.append(fields)
+        compressed = self.entropy.compress_dict_batch(
+            dicts, pool_map=lambda fn, n: self._pool_map("entropy", fn, n)
+        )
+        return [(pack_bitstream(c, uniform=self.cfg.uniform), f) for c, f in zip(compressed, dicts)]
+
+    def finalize_encoded(self, dispatched: _Dispatched) -> List[Tuple[bytes, Dict[str, np.ndarray]]]:
+        """Download and entropy-code one dispatched batch."""
+        return self.finish_staged(self.stage_downloads(dispatched))
+
+    def encode_frames(self, clouds: Sequence[np.ndarray], seeds=None) -> List[Tuple[bytes, Dict[str, np.ndarray]]]:
+        """One synchronous batch -> list of (.rpcc payload, fields)."""
+        return self.finalize_encoded(self.encode_batch_device(clouds, seeds))
+
+    def _run_pipeline(self, inputs, prepare, dispatch, stage, finish, stats=None):
+        """4-deep, 4-thread pipeline shared by encode and decode.
+
+        Yields one finished result per input, in order: the stacker runs
+        ``prepare`` on input k, the uploader ``dispatch`` on k-1, the
+        downloader ``stage`` on k-2 and the caller ``finish`` on k-3.
+        ``stats`` (optional dict) accumulates ``<stage>_s`` wall and
+        ``<stage>_cpu_s`` thread-CPU seconds per stage, ``batches``, and
+        ``pool_<site>_cpu_s`` for the pool workers over the run."""
+        pool0 = None
+        if stats is not None:
+            prepare = _timed_stage(prepare, stats, "prepare")
+            dispatch = _timed_stage(dispatch, stats, "dispatch")
+            stage = _timed_stage(stage, stats, "stage")
+            finish = _timed_stage(finish, stats, "finish", count=True)
+            pool0 = self.pool_cpu_snapshot()
+
+        prepared: deque = deque()
+        dispatched: deque = deque()
+        staged: deque = deque()
+
+        def to_dispatch():
+            fut = prepared.popleft()
+            dispatched.append(self._uploader.submit(lambda f=fut: dispatch(f.result())))
+
+        def to_stage():
+            fut = dispatched.popleft()
+            staged.append(self._downloader.submit(lambda f=fut: stage(f.result())))
+
+        try:
+            for item in inputs:
+                prepared.append(self._stacker.submit(prepare, item))
+                if len(prepared) >= 2:
+                    to_dispatch()
+                if len(dispatched) >= 2:
+                    to_stage()
+                if len(staged) >= 2:
+                    yield finish(staged.popleft().result())
+            while prepared:
+                to_dispatch()
+            while dispatched:
+                to_stage()
+            while staged:
+                yield finish(staged.popleft().result())
+        finally:
+            # Let queued stages finish before returning, so no batch is
+            # left touching a ring slot or a stream behind the caller, and
+            # hand back the ring slots of batches that were never dispatched.
+            for q in (prepared, dispatched, staged):
+                for fut in q:
+                    futures.wait([fut])
+            for fut in prepared:
+                if fut.exception() is None and isinstance(fut.result(), _Prepared):
+                    fut.result().slot.free.set()
+            if pool0 is not None:
+                for k, v in self.pool_cpu_snapshot().items():
+                    d = v - pool0.get(k, 0.0)
+                    if d > 0.0:
+                        stats[f"pool_{k}_cpu_s"] = stats.get(f"pool_{k}_cpu_s", 0.0) + d
+
+    def encode_pipeline(self, batches, stats=None):
+        """Pipelined encode over an iterable of ``(clouds, seeds)``; yields
+        one list of (.rpcc payload, fields) per batch, equal to
+        :meth:`encode_frames` of that batch."""
+        return self._run_pipeline(
+            batches,
+            lambda cs: self._prepare_batch(*cs),
+            self._dispatch_prepared,
+            self.stage_downloads,
+            self.finish_staged,
+            stats=stats,
+        )
+
+    # ---------------------------------------------------------------- decode
+    def _prepare_decode(self, blobs: Sequence[bytes]) -> _DecodePrepared:
+        """Decode stage 1: entropy-decode a batch (big fields batched) and
+        stack it into (pinned) host arrays, zero-padded to the live maxima;
+        model tables pad to the configuration's row count."""
+        live = len(blobs)
+        if not 0 < live <= self.batch_size:
+            raise ValueError(f"a batch holds 1..{self.batch_size} blobs, got {live}")
+        packed = [unpack_bitstream(b, uniform=self.cfg.uniform) for b in blobs]
+        fields = self.entropy.decompress_dict_batch(
+            packed, pool_map=lambda fn, n: self._pool_map("entropy_decode", fn, n)
+        )
+        nb = (self.hw + 7) // 8
+        M = self.num_models
+        seqs = [np.frombuffer(f["idx_sequence"], np.uint16) for f in fields]
+        streams = [np.frombuffer(f["residual_quantized"], np.int16) for f in fields]
+        pin = self._cuda
+
+        def zeros(shape, dtype):
+            return torch.zeros(shape, dtype=dtype, pin_memory=pin)
+
+        host = {
+            "contour": zeros((live, nb), torch.uint8),
+            "sequence": zeros((live, max(max(s.size for s in seqs), 1)), torch.int16),  # u16 bits
+            "stream": zeros((live, max(max(s.size for s in streams), 1)), torch.int16),
+            "models": zeros((live, M, 4), torch.float32),
+            "salience": None if self.cfg.uniform else zeros((live, M), torch.uint8),
+        }
+        arr = {k: None if v is None else v.numpy() for k, v in host.items()}
+        for i, f in enumerate(fields):
+            contour = np.frombuffer(f["contour_map"], np.uint8)
+            models = np.frombuffer(f["plane_param"], np.float32).reshape(-1, 4)
+            if contour.size != nb or models.shape[0] > M:
+                raise ValueError(
+                    f"frame {i}: {contour.size} contour bytes and {models.shape[0]} model rows "
+                    f"do not fit a {self.H}x{self.W} grid with {M} models"
+                )
+            arr["contour"][i] = contour
+            arr["sequence"][i, : seqs[i].size] = seqs[i].view(np.int16)
+            arr["stream"][i, : streams[i].size] = streams[i]
+            arr["models"][i, : models.shape[0]] = models
+            if arr["salience"] is not None:
+                sal = np.frombuffer(f["salience_level"], np.uint8)[:M]
+                arr["salience"][i, : sal.size] = sal
+        return _DecodePrepared(host, live)
+
+    def _dispatch_decode(self, prepared: _DecodePrepared) -> _DecodeDispatched:
+        """Decode stage 2: upload on the copy stream, decode on the compute
+        stream behind it."""
+        host, live = prepared
+        with self._on("_copy"):
+            dev = {k: None if v is None else self._upload(v) for k, v in host.items()}
+            h2d = self._record()
+        with self._on("_compute"):
+            if h2d is not None:
+                self._compute.wait_event(h2d)
+            seq = dev["sequence"].to(torch.int32) & 0xFFFF
+            dec = self.decoder(dev["contour"], seq, dev["stream"], dev["models"], self._step_arg, dev["salience"])
+            done = self._record()
+        return _DecodeDispatched(dec.range_image, live, done)
+
+    def decode_blobs_device(self, blobs: Sequence[bytes]) -> _DecodeDispatched:
+        """Entropy-decode, stack, upload and launch one decode batch."""
+        return self._dispatch_decode(self._prepare_decode(blobs))
+
+    def _materialize_ris(self, dispatched: _DecodeDispatched) -> Tuple[np.ndarray, int]:
+        """Decode stage 3: download the (B, H, W) f32 range images."""
+        ri, live, done = dispatched
+        with self._on("_copy"):
+            if done is not None:
+                self._copy.wait_event(done)
+            host = self._download(ri)
+            copied = self._record()
+        if copied is not None:
+            copied.synchronize()
+        return host.numpy(), live
+
+    def _points_from_ris(self, ris: np.ndarray, live: int) -> List[np.ndarray]:
+        """-> (H, W, 3) clouds."""
+        return [ris[i][..., None] * self._tm_np for i in range(live)]
+
+    def _points4_from_ris(self, ris: np.ndarray, live: int) -> List[np.ndarray]:
+        """-> compacted (n, 4) f32 xyz0 rows per frame, the .bin save format
+        (rows whose x+y+z is 0 dropped): native ``backproject_compact``, or
+        its numpy twin with the same rule in the same f32 order."""
+        lib = native_lib()
+        out: List[np.ndarray] = []
+        if lib is not None and hasattr(lib, "backproject_compact"):
+            import ctypes as ct
+
+            tm_p = self._tm_planar.ctypes.data_as(ct.c_void_p)
+            for i in range(live):
+                ri = np.ascontiguousarray(ris[i], np.float32)
+                buf = np.empty((self.hw, 4), np.float32)
+                n = lib.backproject_compact(
+                    ri.ctypes.data_as(ct.c_void_p), tm_p, ct.c_int64(self.hw), buf.ctypes.data_as(ct.c_void_p)
+                )
+                out.append(buf[: int(n)])
+            return out
+        for i in range(live):
+            pts = ris[i].reshape(-1, 1) * self._tm_planar.T  # (HW, 3) f32
+            keep = pts.sum(-1) != 0
+            buf = np.zeros((int(keep.sum()), 4), np.float32)
+            buf[:, :3] = pts[keep]
+            out.append(buf)
+        return out
+
+    def decode_blobs(self, blobs: Sequence[bytes]) -> List[np.ndarray]:
+        """-> (H, W, 3) clouds."""
+        return self._points_from_ris(*self._materialize_ris(self.decode_blobs_device(blobs)))
+
+    def decode_blobs_points(self, blobs: Sequence[bytes]) -> List[np.ndarray]:
+        """-> compacted (n, 4) f32 xyz0 rows per frame, the .bin save format."""
+        return self._points4_from_ris(*self._materialize_ris(self.decode_blobs_device(blobs)))
+
+    def decode_pipeline(self, blob_batches, stats=None):
+        """Pipelined decode over an iterable of blob lists (mirror of
+        :meth:`encode_pipeline`): yields per batch the compacted (n, 4)
+        rows of :meth:`decode_blobs_points`."""
+        return self._run_pipeline(
+            blob_batches,
+            self._prepare_decode,
+            self._dispatch_decode,
+            self._materialize_ris,
+            lambda rl: self._points4_from_ris(*rl),
+            stats=stats,
+        )

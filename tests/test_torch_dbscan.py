@@ -227,3 +227,23 @@ def test_cuda_kernel_matches_plain(cuda_device, name):
     ref = dbscan.dbscan_labels_planar(planes, act, eps)
     torch.cuda.synchronize(cuda_device)
     assert torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_batched_matches_plain_and_single(cuda_device):
+    """B = 3 in one launch sequence: two blob scenes across the seam and an
+    all-inactive frame; labels stay in-frame and equal the batched plain
+    version and three single-frame launches."""
+    scenes = [scene_fuzz(0), scene_fuzz(5)]
+    pc = np.stack([s[0] for s in scenes] + [np.full_like(scenes[0][0], 3.0)])
+    active = np.stack([s[1] for s in scenes] + [np.zeros_like(scenes[0][1])])
+    planes = T(np.ascontiguousarray(np.transpose(pc, (0, 3, 1, 2)))).to(cuda_device)
+    act = T(active).to(cuda_device)
+    before = dbscan.LAUNCHES
+    got = dbscan.dbscan_labels(planes, act, 1.2)
+    assert dbscan.LAUNCHES == before + 1
+    ref = dbscan.dbscan_labels_planar(planes, act, 1.2)
+    single = torch.stack([dbscan.dbscan_labels(planes[b].contiguous(), act[b], 1.2) for b in range(3)])
+    torch.cuda.synchronize(cuda_device)
+    assert torch.equal(got, ref) and torch.equal(got, single)
+    assert bool((got[2] == 16 * 128).all())

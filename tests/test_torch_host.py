@@ -132,6 +132,32 @@ def test_escape_heavy_stream_roundtrips():
     assert rans_codec.decompress(blob) == arr.tobytes()
 
 
+@pytest.mark.parametrize(
+    "sizes, hw",
+    [((500, 3000, 1200), (16, 128)), ((40000, 90000, 128000), (64, 2000)), ((1000, 60000), (16, 128))],
+    ids=["small", "big", "mixed"],
+)
+def test_batch_coders_byte_equal_to_reference(sizes, hw):
+    """The engine's batch entry points give ``rpcc_tpu``'s containers and
+    bytes on ragged batches (frames of different lengths)."""
+    rng = np.random.default_rng(sum(sizes))
+    arrays = [np.cumsum(rng.integers(-40, 41, n)).astype(np.int16) for n in sizes]
+    blobs = rans_codec.compress_delta_batch(arrays)
+    assert blobs == ref_rans.compress_delta_batch(arrays)
+    back = rans_codec.decompress_delta_batch(blobs)
+    assert back == ref_rans.decompress_delta_batch(blobs) == [a.tobytes() for a in arrays]
+
+    H, W = hw
+    packs = [np.packbits(rng.random(H * W) < p) for p in (0.02, 0.1, 0.3)[: len(sizes)]]
+    cblobs = rans_codec.compress_contour_batch(packs, H, W)
+    assert cblobs == ref_rans.compress_contour_batch(packs, H, W)
+    fields = [{"residual_quantized": b, "contour_map": c} for b, c in zip(blobs, cblobs)]
+    got, ref = rans_codec.batch_decode_big_fields(fields), ref_rans.batch_decode_big_fields(fields)
+    assert got == ref and got[0] == [a.tobytes() for a in arrays]
+    if got[1] is not None:  # every frame took the 'N' container
+        assert got[1] == rans_codec.decompress_contour_batch(cblobs) == [p.tobytes() for p in packs]
+
+
 _NO_JAX = r"""
 import sys
 sys.modules["jax"] = None  # any import of jax now raises ImportError
