@@ -7,12 +7,16 @@ Usage, from the repository root:
 
 Phases (each raises on failure, and the process then exits nonzero):
   0. environment: card name and power limit, torch/CUDA versions; the port
-     imports without jax;
+     imports neither jax nor ``rpcc_tpu`` (checked again at the end);
   1. build the CUDA kernels from the sources in the checkout, one nvcc per
      source, all started together (timed);
   2. threefry draws on the GPU equal the CPU draws bit for bit;
-  3. the FPS kernel against its plain PyTorch version on the GPU: indices
-     exactly equal at three shapes, and both timed with CUDA events;
+  3. the FPS kernel (one thread-block cluster per frame) against its plain
+     PyTorch version on the GPU: the occupancy query for clusters of 8 and
+     16, indices exactly equal at five shapes (N not divisible by the
+     cluster, N < C, N above the on-chip capacity) with the cluster size
+     chosen, and both timed with CUDA events; at (1|8, 128000, 100) both
+     cluster sizes, each equal to the plain version, timed in turns;
   3b. the DBSCAN kernel against its plain PyTorch version on the GPU: raw
      labels exactly equal on a 64x2000 multi-object scene, a 16x256 long
      wall, a random blob scene across the column seam and an all-inactive
@@ -44,8 +48,13 @@ Phases (each raises on failure, and the process then exits nonzero):
      ``decompress_datalist`` on the host and the device backend within
      bound and equal to each other.
 
-The line before the last is a JSON object describing each kernel, timed at
-the engine's batch shape (``shape``) and at one frame; the last
+A time is the median of 21 CUDA-event samples of one call each, as in
+every earlier run; a kernel is also timed over 10 calls back to back per
+sample (``ms_10_back_to_back``), where the host's time between calls
+overlaps the device's.  The line before the last is a JSON object
+describing each kernel, timed at the engine's batch shape (``shape``) and
+at one frame, with its bound at the card's peaks (``bound_ms``,
+``bound_by``); the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 without the package beside this script, it exits nonzero and prints no
 result.
@@ -70,8 +79,17 @@ MODE_SEEDS = (10, 11)
 BATCH_SEEDS = tuple(range(20))  # phase 6: batches of 8, 8 and 4
 STREET_SEEDS = (10, 11, 12, 13)  # phases 3c and 6 (DBSCAN at B = 4)
 CLI_FRAMES = 10  # phase 7: batches of 4, 4 and 2
-FPS_SHAPES = ((1, 128000, 100), (4, 128000, 100), (2, 4133, 32))
+# Phase 3: a 64E frame, a batch, N not divisible by C * threads, N < C, and
+# N above a cluster's on-chip capacity (16 CTAs x 16,384 points).
+FPS_SHAPES = ((1, 128000, 100), (4, 128000, 100), (2, 4133, 32), (1, 7, 5), (1, 400000, 16))
 TIMED_RUNS = 21
+BACK_TO_BACK = 10  # calls per CUDA-event sample of a kernel's ``ms_10_back_to_back``
+# Kernel launches per wrapper call: csrc/dbscan.cu's entry point makes four.
+LAUNCHES_PER_CALL = {"fps": 1, "dbscan": 4}
+# The card's published peaks (H100 SXM, at its full 700 W): f32 outside the
+# tensor cores, and device memory.
+PEAK_F32_OPS = 67e12
+PEAK_BYTES = 3.35e12
 RATE_PASSES = 5  # phase 6: timed pipeline passes per batch size
 BPP_TOL = 0.005  # GPU vs CPU encode of the same frame
 
@@ -79,6 +97,13 @@ BPP_TOL = 0.005  # GPU vs CPU encode of the same frame
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(msg)
+
+
+def check_isolated() -> None:
+    """The port has imported neither jax nor the JAX package."""
+    check("jax" not in sys.modules, "the port imported jax")
+    check(not any(m == "rpcc_tpu" or m.startswith("rpcc_tpu.") for m in sys.modules),
+          "the port imported rpcc_tpu")
 
 
 def card_line() -> str:
@@ -89,19 +114,42 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def median_ms(torch, fn, runs: int = TIMED_RUNS) -> float:
-    """Median of per-run CUDA-event times (one warm-up run first)."""
+def median_ms(torch, fn, per_sample: int = 1, runs: int = TIMED_RUNS) -> float:
+    """Median over ``runs`` CUDA-event samples of the time per call, each
+    sample spanning ``per_sample`` calls back to back (one warm-up call
+    first)."""
     fn()
     times = []
     for _ in range(runs):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(per_sample):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / per_sample)
     return statistics.median(times)
+
+
+def bound(ops: float, nbytes: float):
+    """(bound_ms, bound_by): the larger of the operations over the f32 peak
+    and the bytes over the memory rate."""
+    t_ops, t_bytes = ops / PEAK_F32_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def fps_bound(B: int, N: int, K: int):
+    """FPS: (K - 1) steps over B * N points of 9 f32 operations (3 sub,
+    3 mul, 2 add, 1 min); x/y/z read once, the indices written once."""
+    return bound(9.0 * (K - 1) * B * N, 12.0 * B * N + 4.0 * B * K)
+
+
+def dbscan_bound(active, B: int, H: int, W: int):
+    """DBSCAN labels: the 48 window shifts of each active pixel at 9 f32
+    operations (3 sub, 3 mul, 2 add, 1 compare); x/y/z and the mask read
+    once, the labels written once."""
+    return bound(9.0 * 48 * int(active.sum()), 17.0 * B * H * W)
 
 
 # ------------------------------------------------------------------ scenes
@@ -221,16 +269,28 @@ def phase_prng(torch, dev):
     print("[phase 2] threefry cuda == cpu bits: ok")
 
 
+def fps_plan(torch, fps, B: int, N: int):
+    """The launch plan the FPS wrapper picks for (B, N) on this card."""
+    dev = torch.cuda.current_device()
+    return fps.launch_plan(B, N, lambda p: fps.max_active_clusters(dev, p.cluster, p.smem_bytes))
+
+
 def phase_fps(torch, np, dev, card):
     from rpcc_tpu_torch.ops import fps
 
+    for c in (8, 16):
+        p = fps.plan_for(128000, c)
+        print(f"[phase 3] [{card}] occupancy query: {fps.max_active_clusters(torch.cuda.current_device(), c, p.smem_bytes)} "
+              f"clusters of {c} CTAs ({p.smem_bytes} B of shared memory each, a 64E frame) run at once")
     rng = np.random.default_rng(0)
     fps_err = 0
-    fps_ms = plain_ms = None
+    fps_ms = fps_b2b = plain_ms = None
     for B, N, K in FPS_SHAPES:
         pts = rng.uniform(-40.0, 40.0, (3, B, N)).astype(np.float32)
-        if B == 1:
+        if B == 1 and N > 60000:
             pts[:, :, 20000:60000] = 0.0  # a zeroed block, like ground/empty pixels: ties
+        if N == 400000:
+            pts[:, :, -1000:] = 300.0  # far points among those each CTA streams from device memory
         xs, ys, zs = (torch.from_numpy(p).to(dev) for p in pts)
         got = fps.furthest_point_sample_cuda(xs, ys, zs, K)
         ref = fps.furthest_point_sample_planar(xs, ys, zs, K)
@@ -238,13 +298,45 @@ def phase_fps(torch, np, dev, card):
         err = int((got.long() - ref.long()).abs().max())
         fps_err = max(fps_err, err)
         check(err == 0, f"FPS kernel indices differ from the plain version at {(B, N, K)}")
-        print(f"[phase 3] fps kernel == plain at (B={B}, N={N}, K={K})")
+        plan = fps_plan(torch, fps, B, N)
+        print(f"[phase 3] fps kernel == plain at (B={B}, N={N}, K={K}): clusters of {plan.cluster}, "
+              f"{plan.onchip} points per CTA on chip, {plan.spill} streamed")
         if (B, N, K) == FPS_SHAPES[0]:
             fps_ms = median_ms(torch, lambda: fps.furthest_point_sample_cuda(xs, ys, zs, K))
+            fps_b2b = median_ms(torch, lambda: fps.furthest_point_sample_cuda(xs, ys, zs, K), BACK_TO_BACK)
             plain_ms = median_ms(torch, lambda: fps.furthest_point_sample_planar(xs, ys, zs, K))
-            print(f"[phase 3] [{card}] fps (1, 128000, 100) median of {TIMED_RUNS}: "
-                  f"kernel {fps_ms:.4f} ms, plain {plain_ms:.4f} ms")
-    return fps_err, fps_ms, plain_ms
+            print(f"[phase 3] [{card}] fps (1, 128000, 100) median of {TIMED_RUNS}: kernel {fps_ms:.4f} ms "
+                  f"({fps_b2b:.4f} ms over {BACK_TO_BACK} back to back), plain {plain_ms:.4f} ms, "
+                  f"bound {fps_bound(B, N, K)[0]:.6f} ms")
+    # The launcher's choice at the main path's shapes: both cluster sizes,
+    # each held to the plain version, timed in turns (8, 16, 16, 8).
+    for B in (1, 8):
+        pts = rng.uniform(-40.0, 40.0, (3, B, 128000)).astype(np.float32)
+        pts[:, :, 20000:60000] = 0.0
+        xs, ys, zs = (torch.from_numpy(p).to(dev) for p in pts)
+        ref = fps.furthest_point_sample_planar(xs, ys, zs, 100)
+        times = {8: [], 16: []}
+        for c in (8, 16, 16, 8):
+            run = lambda c=c: fps_at_cluster(fps, c, xs, ys, zs, 100)  # noqa: E731
+            got = run()
+            torch.cuda.synchronize()
+            check(torch.equal(got, ref), f"FPS with clusters of {c} differs from the plain version at B={B}")
+            times[c].append(median_ms(torch, run))
+        print(f"[phase 3] [{card}] fps ({B}, 128000, 100) == plain at both cluster sizes; median of "
+              f"{TIMED_RUNS} (in turns): clusters of 8 {times[8][0]:.4f} / {times[8][1]:.4f} ms, clusters of 16 "
+              f"{times[16][0]:.4f} / {times[16][1]:.4f} ms; chosen: {fps_plan(torch, fps, B, 128000).cluster}")
+    return fps_err, fps_ms, fps_b2b, plain_ms
+
+
+def fps_at_cluster(fps, cluster: int, xs, ys, zs, K: int):
+    """The FPS kernel launched with clusters of ``cluster`` CTAs, whatever
+    the occupancy query would pick."""
+    chosen = fps.launch_plan
+    fps.launch_plan = lambda b, n, _: fps.plan_for(n, cluster)
+    try:
+        return fps.furthest_point_sample_cuda(xs, ys, zs, K)
+    finally:
+        fps.launch_plan = chosen
 
 
 def phase_dbscan(torch, np, dev, card, lidar):
@@ -268,7 +360,7 @@ def phase_dbscan(torch, np, dev, card, lidar):
         ("32x512 all inactive", empty, np.zeros((32, 512), bool), 1.5),
     ]
     err_max = 0
-    ms = plain_ms = None
+    ms = b2b = plain_ms = None
     for name, planes, active, eps in inputs:
         p = torch.from_numpy(np.ascontiguousarray(planes)).to(dev)
         a = torch.from_numpy(active).to(dev)
@@ -284,10 +376,11 @@ def phase_dbscan(torch, np, dev, card, lidar):
               f"{max(n_clusters, 0)} clusters")
         if planes is planes64:
             ms = median_ms(torch, lambda: dbscan.dbscan_labels_cuda(p, a, eps))
+            b2b = median_ms(torch, lambda: dbscan.dbscan_labels_cuda(p, a, eps), BACK_TO_BACK)
             plain_ms = median_ms(torch, lambda: dbscan.dbscan_labels_planar(p, a, eps))
-            print(f"[phase 3b] [{card}] dbscan 64x2000 median of {TIMED_RUNS}: "
-                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    return err_max, ms, plain_ms
+            print(f"[phase 3b] [{card}] dbscan 64x2000 median of {TIMED_RUNS}: kernel {ms:.4f} ms "
+                  f"({b2b:.4f} ms over {BACK_TO_BACK} back to back), plain {plain_ms:.4f} ms")
+    return err_max, ms, b2b, plain_ms
 
 
 def encode_frames(codec, frames):
@@ -327,7 +420,7 @@ def check_frames(np, codec, results, bound, card, tag, phase):
 
 
 def phase_main(torch, np, dev, card, lidar):
-    from rpcc_tpu.config import CodecConfig
+    from rpcc_tpu_torch.config import CodecConfig
     from rpcc_tpu_torch.data.synth import synth_cloud_for
     from rpcc_tpu_torch.models.pipeline import RPCCCodec
     from rpcc_tpu_torch.ops import dbscan, fps
@@ -363,12 +456,13 @@ def phase_main(torch, np, dev, card, lidar):
           f"blobs identical {blob_cpu == results[SEEDS[0]][1]}")
     check(rel <= BPP_TOL, f"cuda vs cpu bpp differ by {rel:.4%}")
     check(x_err <= bound, f"cpu decode of the cuda blob: max_err {x_err} > {bound}")
-    return codec, frames, launches
+    return codec, frames, launches / (2 * len(SEEDS))
 
 
 def phase_modes(torch, np, dev, card, lidar):
-    """The DBSCAN, plane and non-uniform paths; returns DBSCAN's launches."""
-    from rpcc_tpu.config import CodecConfig
+    """The DBSCAN, plane and non-uniform paths; returns DBSCAN's launches
+    per encode."""
+    from rpcc_tpu_torch.config import CodecConfig
     from rpcc_tpu_torch.models.pipeline import RPCCCodec
     from rpcc_tpu_torch.ops import dbscan, fps
     from rpcc_tpu_torch.ops.projection_host import build_transform_map
@@ -393,7 +487,7 @@ def phase_modes(torch, np, dev, card, lidar):
         check(counts == want, f"{tag}: kernel launches {counts} over {n_enc} encodes, expected {want}")
         print(f"[phase 4b] {tag}: launches {counts} for {n_enc} encodes")
         if tag == "DBSCAN":
-            dbscan_launches = counts["dbscan"]
+            dbscan_launches = counts["dbscan"] / n_enc
         bpps = check_frames(np, codec, results, bound, card, tag, "4b")
 
         cpu_codec = RPCCCodec(lidar, cfg, "cpu")
@@ -413,7 +507,7 @@ def phase_modes(torch, np, dev, card, lidar):
 
 
 def phase_cli(np, codec, frames):
-    from rpcc_tpu.config import CodecConfig
+    from rpcc_tpu_torch.config import CodecConfig
 
     bound = CodecConfig().step + 1e-5
     work = tempfile.mkdtemp(prefix=".chip_smoke_", dir=ROOT)
@@ -480,10 +574,13 @@ def phase_dbscan_batch(torch, np, dev, card, lidar):
     print(f"[phase 3c] dbscan kernel (B={len(rs)}, 64, 2000) == batched plain == per-frame kernel: "
           f"{[int(x) for x in a.sum((1, 2))]} active px, {n_cl} clusters")
     ms = median_ms(torch, lambda: dbscan.dbscan_labels_cuda(p, a, eps))
+    b2b = median_ms(torch, lambda: dbscan.dbscan_labels_cuda(p, a, eps), BACK_TO_BACK)
     plain_ms = median_ms(torch, lambda: dbscan.dbscan_labels_planar(p, a, eps))
-    print(f"[phase 3c] [{card}] dbscan (B={len(rs)}, 64, 2000) median of {TIMED_RUNS}: "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    return err, ms, plain_ms
+    bound_ms, bound_by = dbscan_bound(active, *active.shape)
+    print(f"[phase 3c] [{card}] dbscan (B={len(rs)}, 64, 2000) median of {TIMED_RUNS}: kernel {ms:.4f} ms "
+          f"({b2b:.4f} ms over {BACK_TO_BACK} back to back), plain {plain_ms:.4f} ms, "
+          f"bound {bound_ms:.6f} ms ({bound_by})")
+    return err, ms, b2b, plain_ms, (bound_ms, bound_by)
 
 
 def _frames_per_s(engine, run, n_frames):
@@ -526,7 +623,7 @@ def _device_profile(torch, fn):
 
 def phase_engine(torch, np, dev, card, lidar, codec):
     """6: the batch engine on the main path at full width."""
-    from rpcc_tpu.config import CodecConfig
+    from rpcc_tpu_torch.config import CodecConfig
     from rpcc_tpu_torch.data.synth import synth_cloud_for
     from rpcc_tpu_torch.models.pipeline import RPCCCodec
     from rpcc_tpu_torch.ops import dbscan, fps
@@ -549,9 +646,13 @@ def phase_engine(torch, np, dev, card, lidar, codec):
     fps_err = int((got.long() - ref.long()).abs().max())
     check(fps_err == 0, f"FPS kernel differs from the plain version at (B={B}, 128000, 100)")
     fps_ms = median_ms(torch, lambda: fps.furthest_point_sample_cuda(xs, ys, zs, cfg.cluster_num))
+    fps_b2b = median_ms(torch, lambda: fps.furthest_point_sample_cuda(xs, ys, zs, cfg.cluster_num), BACK_TO_BACK)
     fps_plain_ms = median_ms(torch, lambda: fps.furthest_point_sample_planar(xs, ys, zs, cfg.cluster_num))
-    print(f"[phase 6] [{card}] fps (B={B}, 128000, 100) kernel == plain; median of {TIMED_RUNS}: "
-          f"kernel {fps_ms:.4f} ms, plain {fps_plain_ms:.4f} ms")
+    fps_bound_ms, fps_bound_by = fps_bound(B, xs.shape[1], cfg.cluster_num)
+    print(f"[phase 6] [{card}] fps (B={B}, 128000, 100) kernel == plain (clusters of "
+          f"{fps_plan(torch, fps, B, xs.shape[1]).cluster}); median of {TIMED_RUNS}: kernel {fps_ms:.4f} ms "
+          f"({fps_b2b:.4f} ms over {BACK_TO_BACK} back to back), plain {fps_plain_ms:.4f} ms, "
+          f"bound {fps_bound_ms:.6f} ms ({fps_bound_by})")
 
     engine = BatchEngine(lidar, cfg, dev, batch_size=B)
     work = [(b, range(i * B, i * B + len(b))) for i, b in enumerate(_batches(frames, B))]
@@ -629,14 +730,15 @@ def phase_engine(torch, np, dev, card, lidar, codec):
     check(dblobs == dsingles, "DBSCAN engine blobs differ from single-frame blobs")
     deng.close()
     print(f"[phase 6] DBSCAN engine (B={len(street)}): launches {db_launches}, blobs == single-frame RPCCCodec")
-    return dict(fps_err=fps_err, fps_ms=fps_ms, fps_plain_ms=fps_plain_ms,
+    return dict(fps_err=fps_err, fps_ms=fps_ms, fps_b2b=fps_b2b, fps_plain_ms=fps_plain_ms,
+                fps_bound=(fps_bound_ms, fps_bound_by),
                 fps_shape=f"B={B} N={lidar.height * lidar.width} K={cfg.cluster_num}",
                 fps_launches=launches["fps"], db_launches=db_launches["dbscan"])
 
 
 def phase_datalist(np, codec, lidar):
     """7: the datalist CLIs in subprocesses, on the card."""
-    from rpcc_tpu.config import CodecConfig
+    from rpcc_tpu_torch.config import CodecConfig
     from rpcc_tpu_torch.data.synth import synth_cloud_for
     from rpcc_tpu_torch.models.host_decoder import HostDecoder
 
@@ -730,25 +832,30 @@ def main() -> int:
         print("yaml: ok")
     except ImportError:
         print("yaml: absent")
-    check("jax" not in sys.modules, "the port imported jax")
+    check_isolated()
     dev = torch.device("cuda:0")
     torch.cuda.set_device(dev)
     lidar = lidar_config(LIDAR)
 
     phase_build()  # 1
     phase_prng(torch, dev)  # 2
-    fps_err, fps_ms, fps_plain_ms = phase_fps(torch, np, dev, card)  # 3
-    db_err, db_ms, db_plain_ms = phase_dbscan(torch, np, dev, card, lidar)  # 3b
-    db3c_err, db3c_ms, db3c_plain_ms = phase_dbscan_batch(torch, np, dev, card, lidar)  # 3c
-    codec, frames, _ = phase_main(torch, np, dev, card, lidar)  # 4
-    phase_modes(torch, np, dev, card, lidar)  # 4b
+    fps_err, fps_ms, fps_b2b, fps_plain_ms = phase_fps(torch, np, dev, card)  # 3
+    db_err, db_ms, db_b2b, db_plain_ms = phase_dbscan(torch, np, dev, card, lidar)  # 3b
+    db3c_err, db3c_ms, db3c_b2b, db3c_plain_ms, db3c_bound = phase_dbscan_batch(torch, np, dev, card, lidar)  # 3c
+    codec, frames, fps_per_encode = phase_main(torch, np, dev, card, lidar)  # 4
+    db_per_encode = phase_modes(torch, np, dev, card, lidar)  # 4b
     phase_cli(np, codec, frames)  # 5
     eng = phase_engine(torch, np, dev, card, lidar, codec)  # 6
     phase_datalist(np, codec, lidar)  # 7
-    check("jax" not in sys.modules, "the port imported jax")
+    check_isolated()
 
-    # ``ms``/``plain_ms`` are timed at the engine's shape (``shape``); the
-    # single-frame times of phases 3 and 3b stand beside them.
+    # ``ms``/``plain_ms``/``bound_ms`` are at the engine's shape (``shape``),
+    # ``launches`` is the engine's count of wrapper calls over phase 6's
+    # main-path run; the single-frame times of phases 3 and 3b stand beside
+    # them, and ``launches_per_encode`` is the kernel launches of one
+    # single-frame encode (phases 4, 4b): wrapper calls times
+    # LAUNCHES_PER_CALL (a DBSCAN call is four launches).  No single
+    # PyTorch call computes FPS or DBSCAN labels, so ``library_ms`` is null.
     print(json.dumps({"kernels": [
         {
             "name": "fps",
@@ -756,12 +863,18 @@ def main() -> int:
             "source": "rpcc_tpu_torch/csrc/fps.cu",
             "replaces": "rpcc_tpu/ops/fps_pallas.py:31",
             "launches": eng["fps_launches"],
+            "launches_per_encode": fps_per_encode * LAUNCHES_PER_CALL["fps"],
             "max_abs_err": max(fps_err, eng["fps_err"]),
             "shape": eng["fps_shape"],
             "ms": eng["fps_ms"],
+            "ms_10_back_to_back": eng["fps_b2b"],
             "plain_ms": eng["fps_plain_ms"],
+            "bound_ms": eng["fps_bound"][0],
+            "bound_by": eng["fps_bound"][1],
+            "library_ms": None,
             "single_frame_shape": "B=1 N=128000 K=100",
             "single_frame_ms": fps_ms,
+            "single_frame_ms_10_back_to_back": fps_b2b,
             "single_frame_plain_ms": fps_plain_ms,
         },
         {
@@ -770,12 +883,18 @@ def main() -> int:
             "source": "rpcc_tpu_torch/csrc/dbscan.cu",
             "replaces": "rpcc_tpu/ops/dbscan_pallas.py:42",
             "launches": eng["db_launches"],
+            "launches_per_encode": db_per_encode * LAUNCHES_PER_CALL["dbscan"],
             "max_abs_err": max(db_err, db3c_err),
             "shape": f"B={len(STREET_SEEDS)} H=64 W=2000",
             "ms": db3c_ms,
+            "ms_10_back_to_back": db3c_b2b,
             "plain_ms": db3c_plain_ms,
+            "bound_ms": db3c_bound[0],
+            "bound_by": db3c_bound[1],
+            "library_ms": None,
             "single_frame_shape": "B=1 H=64 W=2000",
             "single_frame_ms": db_ms,
+            "single_frame_ms_10_back_to_back": db_b2b,
             "single_frame_plain_ms": db_plain_ms,
         },
     ]}))

@@ -7,7 +7,7 @@ from __future__ import annotations
 
 import argparse
 
-from rpcc_tpu.config import CodecConfig, LidarConfig
+from rpcc_tpu_torch.config import CodecConfig, LidarConfig
 from rpcc_tpu_torch.data import lidar_config
 
 
@@ -39,8 +39,9 @@ def add_codec_args(parser: argparse.ArgumentParser, datalist: bool = False) -> N
                         help="plane models: max scan-ray angle in degrees (default 75).")
     parser.add_argument("--nonuniform", action="store_true",
                         help="non-uniform (salience) quantization.")
-    parser.add_argument("--device", required=True,
-                        help="torch device to run on, e.g. cuda, cuda:0 or cpu.")
+    parser.add_argument("--device", default="cuda",
+                        help="torch device to run on: cuda (default), cuda:N or cpu; "
+                        "without a card, cuda raises.")
 
 
 def config_from_args(args: argparse.Namespace) -> CodecConfig:

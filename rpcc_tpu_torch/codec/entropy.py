@@ -1,8 +1,17 @@
 """Byte-level entropy coders for the ``.rpcc`` fields.
 
-``rans`` goes to this package's JAX-free copy of the container code
-(:mod:`rpcc_tpu_torch.codec.rans_codec`); ``lz4``/``bzip2``/``gzip``/
-``deflate`` are ``rpcc_tpu.codec.entropy``'s own coders, which need no jax.
+The same surface and bytes as ``rpcc_tpu.codec.entropy``'s
+``BasicCompressor``, of which this is the port's own copy: ``lz4 | bzip2 |
+gzip | deflate | rans``, selected by name, on bytes-like numpy buffers.
+
+  * ``bzip2``: stdlib ``bz2``.
+  * ``gzip``/``deflate``: stdlib ``gzip`` with ``mtime=0``, so the bytes
+    are deterministic.
+  * ``lz4``: the ``lz4==0.7.0`` ``dumps`` container, a 4-byte little-endian
+    uncompressed size and one LZ4 block, coded by the port's native library
+    (``csrc/host/lz4.cpp``).
+  * ``rans``: the port's JAX-free containers
+    (:mod:`rpcc_tpu_torch.codec.rans_codec`).
 
 The ``*_dict_batch`` methods code a batch of frames' fields with the big
 fields (residual stream, contour plane) batched through the native coder;
@@ -12,25 +21,39 @@ of that frame alone.
 
 from __future__ import annotations
 
+import bz2
+import ctypes
+import gzip
+import struct
 from typing import Callable, Dict, List, Optional, Sequence
 
-from rpcc_tpu.codec import entropy as _ref
 from rpcc_tpu_torch.codec import rans_codec
+from rpcc_tpu_torch.codec.native import native_lib
+
+METHODS = ("lz4", "bzip2", "gzip", "deflate", "rans")
 
 
-class BasicCompressor(_ref.BasicCompressor):
-    """``rpcc_tpu``'s BasicCompressor with ``rans`` routed to the port."""
+class BasicCompressor:
+    def __init__(self, method_name: str, contour_shape: Optional[tuple] = None):
+        if method_name not in METHODS:
+            raise ValueError(f"unknown compression method {method_name!r}; choose from {METHODS}")
+        self.method_name = method_name
+        # (H, W) of the range image: lets ``rans`` context-code the contour
+        # bit plane instead of bzip2ing packed row-major bytes.
+        self.contour_shape = contour_shape
 
+    # -- dict-of-fields helpers ---------------------------------------------
     def compress_dict(self, data_dict: Dict[str, object]) -> Dict[str, bytes]:
-        if self.method_name != "rans":
-            return super().compress_dict(data_dict)
         out = {}
         for k, v in data_dict.items():
-            if k == "contour_map" and self.contour_shape is not None:
+            if k == "contour_map" and self.method_name == "rans" and self.contour_shape is not None:
                 out[k] = rans_codec.compress_contour(v, *self.contour_shape)
             else:
-                out[k] = rans_codec.compress(v)
+                out[k] = self.compress(v)
         return out
+
+    def decompress_dict(self, data_dict: Dict[str, bytes]) -> Dict[str, bytes]:
+        return {k: self.decompress(v) for k, v in data_dict.items()}
 
     def compress_dict_batch(
         self, dicts: Sequence[Dict[str, object]], pool_map: Optional[Callable] = None
@@ -66,12 +89,52 @@ class BasicCompressor(_ref.BasicCompressor):
             len(dicts),
         )
 
+    # -- single buffer -------------------------------------------------------
     def compress(self, np_array) -> bytes:
         if self.method_name == "rans":
             return rans_codec.compress(np_array)
-        return super().compress(np_array)
+        data = _as_bytes(np_array)
+        if self.method_name == "lz4":
+            return lz4_compress(data)
+        if self.method_name == "bzip2":
+            return bz2.compress(data)
+        if self.method_name in ("gzip", "deflate"):
+            return gzip.compress(data, mtime=0)
+        raise ValueError(f"unknown method {self.method_name}")
 
     def decompress(self, bitstream: bytes) -> bytes:
         if self.method_name == "rans":
             return rans_codec.decompress(bitstream)
-        return super().decompress(bitstream)
+        if self.method_name == "lz4":
+            return lz4_decompress(bitstream)
+        if self.method_name == "bzip2":
+            return bz2.decompress(bitstream)
+        if self.method_name in ("gzip", "deflate"):
+            return gzip.decompress(bitstream)
+        raise ValueError(f"unknown method {self.method_name}")
+
+
+def _as_bytes(x) -> bytes:
+    if isinstance(x, (bytes, bytearray, memoryview)):
+        return bytes(x)
+    return x.tobytes()
+
+
+def lz4_compress(data: bytes) -> bytes:
+    """4-byte LE uncompressed length + one LZ4 block."""
+    lib = native_lib()
+    cap = lib.lz4_compress_bound(len(data))
+    out = ctypes.create_string_buffer(cap)
+    n = lib.lz4_compress_block(data, len(data), out, cap)
+    if n == 0:
+        raise RuntimeError("lz4 native compression failed")
+    return struct.pack("<I", len(data)) + out.raw[:n]
+
+
+def lz4_decompress(blob: bytes) -> bytes:
+    (n,) = struct.unpack("<I", blob[:4])
+    out = ctypes.create_string_buffer(n if n else 1)
+    got = native_lib().lz4_decompress_block(blob[4:], len(blob) - 4, out, n)
+    if got != n:
+        raise RuntimeError(f"lz4 native decompression failed ({got} != {n})")
+    return out.raw[:n]

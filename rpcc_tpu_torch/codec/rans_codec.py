@@ -3,8 +3,9 @@
 A copy of the native-library paths of ``rpcc_tpu/codec/rans_codec.py``,
 single-frame and batch entry points; for the same inputs every container
 is byte-identical to that module's.  That module imports jax for its
-fallback kernels; this one uses only the native library shared with it
-(``codec/native/rans.cpp``) and raises if the library cannot be built.
+fallback kernels; this one uses only the port's native host library
+(``csrc/host/rans.cpp``, a copy of the reference's) and raises if the
+library cannot be built.
 
 The batch coders size a batch's lanes from its longest frame, as the
 reference's do, so a frame's container can depend on its neighbours;
@@ -26,13 +27,12 @@ from __future__ import annotations
 
 import bz2
 import struct
-import time
 import zlib
 from typing import List, Sequence
 
 import numpy as np
 
-from rpcc_tpu.codec import lz4block, rans_native
+from rpcc_tpu_torch.codec import rans_native
 
 MAGIC_CTX = 0x43  # 'C'
 MAGIC_BZD = 0x5A  # 'Z'
@@ -49,30 +49,6 @@ BZD_TRY_MAX_SYMBOLS = 32768
 CONTOUR_BZ_TRY_MAX_PIXELS = 65536
 
 _CODE_DTYPE = {0: np.int16, 1: np.uint16, 2: np.int32}
-
-
-_LOAD_TRIES = 40
-_LOAD_RETRY_S = 0.5
-
-
-def _native():
-    """``rpcc_tpu.codec.rans_native`` with its library loaded, or raise.
-
-    ``rpcc_tpu`` compiles the library in place at first use (``g++ -o`` onto
-    one shared path), so a process can load a file that another process is
-    still writing; the loader then marks the library failed for the life of
-    the process.  Clear that mark and load again for up to 20 s before
-    giving up.
-    """
-    for _ in range(_LOAD_TRIES):
-        if rans_native.fused_available():
-            return rans_native
-        lz4block._lib_failed = False
-        time.sleep(_LOAD_RETRY_S)
-    raise RuntimeError(
-        "the native rANS library (rpcc_tpu/codec/native) is not available; "
-        "it is built with g++ at first use"
-    )
 
 
 def _lanes_for(n: int) -> int:
@@ -225,7 +201,7 @@ def compress_contour_batch(packed_list: Sequence[np.ndarray], H: int, W: int) ->
     the frame's own (the lane length depends on H and W only)."""
     T = -(-(W + H - 1) // T_BUCKET) * T_BUCKET
     pb = np.stack([np.asarray(p, np.uint8) for p in packed_list])
-    words, n_words, counts, states, freqs = _native().contour_encode_frames(pb, H, W, T)
+    words, n_words, counts, states, freqs = rans_native.contour_encode_frames(pb, H, W, T)
     out = []
     for i, p in enumerate(pb):
         blob = b"".join(
@@ -272,9 +248,8 @@ def decompress_contour_batch(blobs: Sequence[bytes]) -> List[bytes]:
         counts[i] = np.frombuffer(blob, "<u2", H, off)
         off += 2 * H
         words[i] = _unpack_lane_words(blob, off, counts[i], T)
-    nat = _native()
-    sym = nat.decode_ctx_batch(words, counts, states, freqs, T, nat.MODE_WAVEFRONT)
-    packed = nat.contour_finalize_frames(sym.reshape(B, H, T), H, W, T)
+    sym = rans_native.decode_ctx_batch(words, counts, states, freqs, T, rans_native.MODE_WAVEFRONT)
+    packed = rans_native.contour_finalize_frames(sym.reshape(B, H, T), H, W, T)
     return [packed[i].tobytes() for i in range(B)]
 
 
@@ -386,7 +361,7 @@ def _compress_delta_batch_np(arrays: Sequence[np.ndarray]) -> List[bytes]:
     for i, (sym, _, _, n) in enumerate(per):
         sym3d[i].reshape(-1)[:n] = sym
     ns = np.asarray([p[3] for p in per], np.int64)
-    words, counts, states, freqs = _native().encode_ctx_batch(
+    words, counts, states, freqs = rans_native.encode_ctx_batch(
         sym3d, _zigzag_ctx_np(sym3d), ALPHABET, NUM_CTX, ns=ns
     )
     out = []
@@ -423,7 +398,7 @@ def compress_delta_batch(arrays: Sequence[np.ndarray]) -> List[bytes]:
         n_max = max(a.size for a in subs)
         L = _lanes_for(n_max)
         T = -(-max(1, -(-n_max // L)) // T_BUCKET) * T_BUCKET
-        words, n_words, counts, states, freqs, escapes, esc_counts, q0s = _native().delta_encode_frames(
+        words, n_words, counts, states, freqs, escapes, esc_counts, q0s = rans_native.delta_encode_frames(
             subs, L, T, ALPHABET, NUM_CTX
         )
         for k, i in enumerate(big_ix):
@@ -481,7 +456,6 @@ def decompress_delta_batch(blobs: Sequence[bytes]) -> List[bytes]:
             groups.setdefault(p[0], []).append((i, p))
         else:
             raise ValueError("unknown delta container magic")
-    nat = _native()
     for lanes, items in groups.items():
         parsed = [p for _, p in items]
         T_max = max(p[1] for p in parsed)
@@ -493,8 +467,10 @@ def decompress_delta_batch(blobs: Sequence[bytes]) -> List[bytes]:
         states = np.stack([p[6] for p in parsed])
         lives = np.stack([np.clip(p[2] - np.arange(lanes) * p[1], 0, p[1]) for p in parsed]).astype(np.int32)
         freqs = np.stack([p[5] for p in parsed])  # (B, C, A)
-        sym = nat.decode_ctx_batch(words, counts, states, freqs, T_max, nat.MODE_ZIGZAG, lives=lives)
-        outs = nat.delta_finalize_frames_3d(
+        sym = rans_native.decode_ctx_batch(
+            words, counts, states, freqs, T_max, rans_native.MODE_ZIGZAG, lives=lives
+        )
+        outs = rans_native.delta_finalize_frames_3d(
             sym.reshape(B, lanes, T_max), ALPHABET, [p[1] for p in parsed], [p[2] for p in parsed],
             [p[3] for p in parsed], [p[4] for p in parsed], [p[9] for p in parsed],
         )

@@ -1,7 +1,7 @@
 """LiDAR geometry lookup by name, and the datalist reader.
 
-The same names and YAML files as ``rpcc_tpu.data.__lidar_cfg__`` (that
-module imports jax, so the port keeps its own table).  Only the evenly
+The same names and YAML files as ``rpcc_tpu.data.__lidar_cfg__``; the
+YAML files are the port's own copies (``data/lidar_cfg/``).  Only the evenly
 distributed LiDARs are listed: CSV channel tables are not ported yet.
 """
 
@@ -10,7 +10,7 @@ from __future__ import annotations
 import os
 from typing import List
 
-from rpcc_tpu.config import LIDAR_CFG_DIR, LidarConfig
+from rpcc_tpu_torch.config import LIDAR_CFG_DIR, LidarConfig
 
 LIDAR_YAML = {
     "VelodyneVLP16": "Velodyne_VLP_16.yaml",

@@ -13,7 +13,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from rpcc_tpu.config import CodecConfig, LidarConfig
+from rpcc_tpu_torch.config import CodecConfig, LidarConfig
 from rpcc_tpu_torch.models.encoder import check_supported, num_model_rows
 from rpcc_tpu_torch.ops.contour import recover_map, unpack_bits_msb
 from rpcc_tpu_torch.ops.projection_host import build_transform_planes

@@ -21,7 +21,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from rpcc_tpu.config import CodecConfig, LidarConfig
+from rpcc_tpu_torch.config import CodecConfig, LidarConfig
 from rpcc_tpu_torch.ops import prng
 from rpcc_tpu_torch.ops.contour import extract_contour, pack_bits_msb
 from rpcc_tpu_torch.ops.features import extract_features_with_segment, salience_levels_from_counts

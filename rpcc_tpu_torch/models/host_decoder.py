@@ -1,12 +1,12 @@
 """Host decoder: ``.rpcc`` bitstream -> range image / points, no device.
 
-JAX-free copy of ``rpcc_tpu/models/host_decoder.py`` (``_decode_frame_np``
-and ``HostDecoder``): the reconstruction (run-length seg fill,
-cluster-ordered dequantize, intra-predict) runs in the native kernel
-``codec/native/decode.cpp`` shared with ``rpcc_tpu``, with the same
-bit-identical numpy twin.  It gives the same floats as ``rpcc_tpu``'s
-host decoder on the same blobs; the entropy stage batches the big fields
-through this package's native rANS containers.
+JAX-free copy of ``rpcc_tpu/models/host_decoder.py``'s ``HostDecoder``:
+the reconstruction (run-length seg fill, cluster-ordered dequantize,
+intra-predict) runs in the port's native host library
+(``csrc/host/decode.cpp``, a copy of the reference's), which raises if it
+cannot build, so no numpy twin is kept.  It gives the same floats as
+``rpcc_tpu``'s host decoder on the same blobs; the entropy stage batches
+the big fields through this package's native rANS containers.
 """
 
 from __future__ import annotations
@@ -16,63 +16,11 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
-from rpcc_tpu.codec.bitstream import unpack_bitstream
-from rpcc_tpu.codec.lz4block import native_lib
-from rpcc_tpu.config import CodecConfig, LidarConfig
+from rpcc_tpu_torch.codec.bitstream import unpack_bitstream
 from rpcc_tpu_torch.codec.entropy import BasicCompressor
+from rpcc_tpu_torch.codec.native import native_lib
+from rpcc_tpu_torch.config import CodecConfig, LidarConfig
 from rpcc_tpu_torch.ops.projection_host import build_transform_planes
-
-
-def _decode_frame_np(
-    contour_packed: np.ndarray,
-    seq: np.ndarray,
-    stream: np.ndarray,
-    models: np.ndarray,
-    salience: Optional[np.ndarray],
-    level_acc: Optional[np.ndarray],
-    step: float,
-    tm: np.ndarray,  # (3, HW) f32
-    H: int,
-    W: int,
-) -> np.ndarray:
-    """Vectorized numpy twin of ``host_decode_frame`` (bit-identical)."""
-    hw = H * W
-    M = models.shape[0]
-    bits = np.unpackbits(contour_packed)[:hw]
-    run_idx = np.cumsum(bits) - 1
-    seq = np.asarray(seq, np.int64)
-    if seq.shape[0]:
-        seg = seq[np.minimum(run_idx, seq.shape[0] - 1)].astype(np.int32)
-        # A corrupt contour may leave bit 0 unset: the native kernel keeps
-        # id 0 until the first set bit, and so does this twin.
-        seg = np.where(run_idx < 0, np.int32(0), seg)
-    else:
-        seg = np.zeros(hw, np.int32)
-    # stream slot per pixel: stable sort by (remapped id, pixel) — id 1 last
-    key = np.where(seg == 1, M, seg)
-    perm = np.argsort(key, kind="stable")
-    q_pad = np.zeros(hw, np.float32)
-    n_s = min(stream.shape[0], hw)
-    q_pad[:n_s] = stream[:n_s].astype(np.float32)
-    q_pix = np.empty(hw, np.float32)
-    q_pix[perm] = q_pad
-    mrows = models[np.clip(seg, 0, M - 1)]
-    a, b, c, d = mrows[:, 0], mrows[:, 1], mrows[:, 2], mrows[:, 3]
-    denom = a * tm[0] + b * tm[1] + c * tm[2]
-    with np.errstate(divide="ignore", invalid="ignore"):
-        plane_pred = np.where(denom == 0.0, np.float32(0.0), -d / np.where(denom == 0.0, 1.0, denom))
-    pred = np.where(a + b + c == 0.0, d, plane_pred).astype(np.float32)
-    if salience is not None and level_acc is not None:
-        # Out-of-range salience levels clamp to the last level, as in the
-        # native kernel and the device decoder.
-        lv = salience[np.clip(seg, 0, M - 1)].astype(np.int64)
-        st = level_acc[np.minimum(lv, level_acc.shape[0] - 1)]
-    else:
-        st = np.float32(step)
-    ri = pred + q_pix * st
-    # id 1 (zero pixels) and out-of-range ids >= M decode to r = 0, the
-    # native kernel's `id != 1 && id >= 0 && id < M` guard.
-    return np.where((seg == 1) | (seg >= M), np.float32(0.0), ri).reshape(H, W)
 
 
 class HostDecoder:
@@ -130,54 +78,32 @@ class HostDecoder:
         if salience is not None and len(salience) < models.shape[0]:
             raise ValueError(f"salience_level has {len(salience)} entries for {models.shape[0]} model rows")
         lib = native_lib()
-        if lib is not None and hasattr(lib, "host_decode_frame"):
-            contour_packed = np.ascontiguousarray(contour_packed, np.uint8)
-            seq = np.ascontiguousarray(seq, np.uint16)
-            stream = np.ascontiguousarray(stream, np.int16)
-            sal_arr = None if salience is None else np.ascontiguousarray(salience, np.uint8)
-            ri = np.empty(self.hw, np.float32)
-            la = self._level_acc
-            n = lib.host_decode_frame(
-                contour_packed.ctypes.data_as(ct.c_void_p),
-                seq.ctypes.data_as(ct.c_void_p),
-                ct.c_int64(seq.shape[0]),
-                stream.ctypes.data_as(ct.c_void_p),
-                ct.c_int64(stream.shape[0]),
-                models.ctypes.data_as(ct.c_void_p),
-                ct.c_int32(models.shape[0]),
-                None if sal_arr is None else sal_arr.ctypes.data_as(ct.c_void_p),
-                None if la is None else la.ctypes.data_as(ct.c_void_p),
-                ct.c_int32(0 if la is None else la.shape[0]),
-                ct.c_float(np.float32(self.cfg.step)),
-                self._tm.ctypes.data_as(ct.c_void_p),
-                ct.c_int32(self.H),
-                ct.c_int32(self.W),
-                ri.ctypes.data_as(ct.c_void_p),
-                None if xyz_out is None else xyz_out.ctypes.data_as(ct.c_void_p),
-            )
-            self.last_point_count = int(n)
-            return ri.reshape(self.H, self.W)
-
-        ri = _decode_frame_np(
-            np.asarray(contour_packed, np.uint8),
-            np.asarray(seq, np.uint16),
-            np.asarray(stream, np.int16),
-            models,
-            None if salience is None else np.asarray(salience, np.uint8),
-            self._level_acc,
-            self.cfg.step,
-            self._tm,
-            self.H,
-            self.W,
+        contour_packed = np.ascontiguousarray(contour_packed, np.uint8)
+        seq = np.ascontiguousarray(seq, np.uint16)
+        stream = np.ascontiguousarray(stream, np.int16)
+        sal_arr = None if salience is None else np.ascontiguousarray(salience, np.uint8)
+        ri = np.empty(self.hw, np.float32)
+        la = self._level_acc
+        n = lib.host_decode_frame(
+            contour_packed.ctypes.data_as(ct.c_void_p),
+            seq.ctypes.data_as(ct.c_void_p),
+            ct.c_int64(seq.shape[0]),
+            stream.ctypes.data_as(ct.c_void_p),
+            ct.c_int64(stream.shape[0]),
+            models.ctypes.data_as(ct.c_void_p),
+            ct.c_int32(models.shape[0]),
+            None if sal_arr is None else sal_arr.ctypes.data_as(ct.c_void_p),
+            None if la is None else la.ctypes.data_as(ct.c_void_p),
+            ct.c_int32(0 if la is None else la.shape[0]),
+            ct.c_float(np.float32(self.cfg.step)),
+            self._tm.ctypes.data_as(ct.c_void_p),
+            ct.c_int32(self.H),
+            ct.c_int32(self.W),
+            ri.ctypes.data_as(ct.c_void_p),
+            None if xyz_out is None else xyz_out.ctypes.data_as(ct.c_void_p),
         )
-        if xyz_out is not None:
-            pts = ri.reshape(-1, 1) * self._tm.T  # (HW, 3)
-            keep = pts.sum(-1) != 0
-            n = int(keep.sum())
-            xyz_out[:n, :3] = pts[keep]
-            xyz_out[:n, 3] = 0.0
-            self.last_point_count = n
-        return ri
+        self.last_point_count = int(n)
+        return ri.reshape(self.H, self.W)
 
     def entropy_decode_blobs(self, blobs: Sequence[bytes]) -> List[Dict[str, bytes]]:
         """Entropy-decode a batch of payloads (batched native rANS for the

@@ -14,12 +14,22 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from rpcc_tpu.codec.bitstream import pack_bitstream, unpack_bitstream
-from rpcc_tpu.config import CodecConfig, LidarConfig
+from rpcc_tpu_torch.codec.bitstream import pack_bitstream, unpack_bitstream
 from rpcc_tpu_torch.codec.entropy import BasicCompressor
+from rpcc_tpu_torch.config import CodecConfig, LidarConfig
 from rpcc_tpu_torch.models.decoder import Decoder
 from rpcc_tpu_torch.models.encoder import Encoder, EncoderOutput, num_model_rows
 from rpcc_tpu_torch.ops.projection_host import build_transform_map, project_points_host_u16
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a ``torch.device``.  A CUDA device must exist: without
+    a card this raises, and nothing falls back to the CPU unless the CPU is
+    asked for."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {str(device)!r} asked for, but no CUDA device is available; pass 'cpu' for the CPU")
+    return dev
 
 
 def _sync(device: torch.device) -> None:
@@ -29,12 +39,12 @@ def _sync(device: torch.device) -> None:
 
 class RPCCCodec:
     """A configured encoder/decoder pair for one LiDAR geometry on one
-    explicitly named device."""
+    device: the card unless the CPU is asked for."""
 
-    def __init__(self, lidar: LidarConfig, cfg: CodecConfig, device):
+    def __init__(self, lidar: LidarConfig, cfg: CodecConfig, device="cuda"):
         self.lidar = lidar
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.H, self.W = lidar.height, lidar.width
         self.hw = self.H * self.W
         self.num_models = num_model_rows(cfg)

@@ -7,14 +7,17 @@ steps takes the argmax of the running minimum, the lowest index winning
 ties.
 
 :func:`furthest_point_sample` dispatches on the tensors' device: the plain
-version for CPU tensors, the hand-written kernel (``csrc/fps.cu``) for
-CUDA tensors.  A CUDA tensor never falls back to the plain version: if the
-kernel cannot build or launch, the call raises.
+version for CPU tensors, the hand-written kernel (``csrc/fps.cu``, one
+thread-block cluster per frame) for CUDA tensors.  A CUDA tensor never
+falls back to the plain version: if the kernel cannot build or launch, the
+call raises.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -59,14 +62,64 @@ def _check(xs: torch.Tensor, ys: torch.Tensor, zs: torch.Tensor, num_samples: in
         raise ValueError(f"num_samples must be >= 1, got {num_samples}")
 
 
-def _kernel():
+# The cluster kernel's shape (csrc/fps.cu: kThreads, kRegPts): a CTA keeps
+# up to ONCHIP_PTS points on chip, x/y/z in shared memory and min-d2 in
+# registers; points past that stream from device memory ("spill").
+THREADS = 1024
+REG_PTS = 16
+ONCHIP_PTS = THREADS * REG_PTS
+
+
+class LaunchPlan(NamedTuple):
+    cluster: int  # CTAs per frame
+    chunk: int  # points per CTA, ceil(N / cluster); the last CTAs may hold fewer
+    onchip: int  # points a CTA holds on chip
+    spill: int  # points a CTA streams from device memory
+    smem_bytes: int  # dynamic shared memory per CTA (x/y/z of the on-chip points)
+
+
+def plan_for(n: int, cluster: int) -> LaunchPlan:
+    """The split of an N-point frame over a cluster of ``cluster`` CTAs."""
+    chunk = -(-n // cluster)
+    onchip = min(chunk, ONCHIP_PTS)
+    return LaunchPlan(cluster, chunk, onchip, chunk - onchip, 12 * onchip)
+
+
+def launch_plan(batch: int, n: int, max_active: Callable[[LaunchPlan], int]) -> LaunchPlan:
+    """Clusters of 16 CTAs where ``max_active(plan)`` says B of them run on
+    the card at once, else clusters of 8.  Both give the same indices."""
+    big = plan_for(n, 16)
+    return big if max_active(big) >= batch else plan_for(n, 8)
+
+
+@functools.lru_cache(maxsize=None)
+def _library():
     from rpcc_tpu_torch.ops.cuda_build import load_cuda_library
 
     lib = load_cuda_library("fps.cu")
-    fn = lib.rpcc_fps_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3
-    return fn
+    lib.rpcc_fps_launch.restype = ctypes.c_int
+    lib.rpcc_fps_launch.argtypes = (
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 3
+    )
+    lib.rpcc_fps_max_active_clusters.restype = ctypes.c_int
+    lib.rpcc_fps_max_active_clusters.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    return lib
+
+
+def _kernel():
+    return _library().rpcc_fps_launch
+
+
+@functools.lru_cache(maxsize=None)
+def max_active_clusters(device_index: int, cluster: int, smem_bytes: int) -> int:
+    """``cudaOccupancyMaxActiveClusters`` of the kernel on one card: how many
+    clusters of ``cluster`` CTAs with ``smem_bytes`` each run at once."""
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        err = _library().rpcc_fps_max_active_clusters(cluster, smem_bytes, ctypes.byref(out))
+    if err != 0:
+        raise RuntimeError(f"FPS occupancy query failed: cudaError_t {err}")
+    return out.value
 
 
 def furthest_point_sample_cuda(
@@ -86,11 +139,14 @@ def furthest_point_sample_cuda(
     if B * n >= 2**31:
         raise ValueError("FPS input exceeds 2^31 elements")
     fn = _kernel()
+    dev = xs.device.index if xs.device.index is not None else torch.cuda.current_device()
+    plan = launch_plan(B, n, lambda p: max_active_clusters(dev, p.cluster, p.smem_bytes))
     with torch.cuda.device(xs.device):
         out = torch.empty((B, num_samples), dtype=torch.int32, device=xs.device)
-        scratch = torch.empty((B, n), dtype=torch.float32, device=xs.device)
+        scratch = torch.empty(max(B * plan.cluster * plan.spill, 1), dtype=torch.float32, device=xs.device)
         err = fn(
             x2.data_ptr(), y2.data_ptr(), z2.data_ptr(), B, n, num_samples,
+            plan.cluster, plan.chunk, plan.smem_bytes,
             scratch.data_ptr(), out.data_ptr(), torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:

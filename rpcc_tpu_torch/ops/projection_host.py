@@ -2,10 +2,8 @@
 
 JAX-free copy of the host half of ``rpcc_tpu/ops/projection.py`` (that
 module imports jax at the top): the ray tables and the u16 snap projection
-the single-frame encoder uploads.  The native fused pass
-(``codec/native/raster.cpp``, shared with ``rpcc_tpu``) runs when the
-library builds; the numpy fallback is the same deterministic twin the
-reference keeps, bit-identical to it.
+the single-frame encoder uploads.  The projection is the native fused
+pass (``csrc/host/raster.cpp``, a copy of the reference's).
 """
 
 from __future__ import annotations
@@ -14,11 +12,8 @@ import ctypes as ct
 
 import numpy as np
 
-from rpcc_tpu.codec.lz4block import native_lib
-from rpcc_tpu.config import LidarConfig
-
-# The C++ kernel wraps azimuth with the literal 2*3.14159265.
-_TWO_PI_REF = 2.0 * 3.14159265
+from rpcc_tpu_torch.codec.native import native_lib
+from rpcc_tpu_torch.config import LidarConfig
 
 
 def build_transform_map(lidar: LidarConfig) -> np.ndarray:
@@ -48,79 +43,6 @@ def build_transform_map(lidar: LidarConfig) -> np.ndarray:
 def build_transform_planes(lidar: LidarConfig) -> np.ndarray:
     """(3, H, W) planar unit-ray table."""
     return np.transpose(build_transform_map(lidar), (2, 0, 1)).copy()
-
-
-def _round_half_away_np(x: np.ndarray) -> np.ndarray:
-    """C ``round()``: half away from zero."""
-    return np.trunc(x + np.where(x >= 0, np.float32(0.5), np.float32(-0.5)))
-
-
-# Deterministic atan2 (octant reduction + odd polynomial), the same +,-,*,/
-# sequence as project_bin_raster in codec/native/raster.cpp.
-_ATAN_W8 = 0.41421356237309503  # tan(pi/8)
-_ATAN_COEFFS = (
-    0.999999999999762,
-    -0.3333333332494847,
-    0.19999999129892043,
-    -0.14285673103306398,
-    0.11110049848756427,
-    -0.09074709961180911,
-    0.07540656567851425,
-    -0.05797933104322553,
-    0.02961455500835997,
-)
-
-
-def _atan2_det(y: np.ndarray, x: np.ndarray) -> np.ndarray:
-    ay, ax = np.abs(y), np.abs(x)
-    swap = ay > ax
-    num = np.where(swap, ax, ay)
-    den = np.where(swap, ay, ax)
-    t = num / np.where(den == 0, 1.0, den)
-    red = t > _ATAN_W8
-    u = np.where(red, (t - 1.0) / (t + 1.0), t)
-    u2 = u * u
-    p = np.full_like(u, _ATAN_COEFFS[8])
-    for cj in _ATAN_COEFFS[7::-1]:
-        p = p * u2 + cj
-    a = u * p + np.where(red, np.pi / 4, 0.0)
-    a = np.where(swap, np.pi / 2 - a, a)
-    a = np.where(x < 0, np.pi - a, a)
-    a = np.where(y < 0, -a, a)
-    return np.where(den == 0, 0.0, a)
-
-
-def _bin_points(pts: np.ndarray, lidar: LidarConfig):
-    """(N, >=3) f32 cloud -> (depth (N,) f32, flat pixel index (N,) i32)."""
-    x64 = pts[:, 0].astype(np.float64)
-    y64 = pts[:, 1].astype(np.float64)
-    z64 = pts[:, 2].astype(np.float64)
-    h2 = x64 * x64 + y64 * y64
-    depth = np.sqrt(h2 + z64 * z64).astype(np.float32)
-    az = _atan2_det(y64, x64).astype(np.float32)
-    az = np.where(az < 0, az + np.float32(_TWO_PI_REF), az)
-    H, W = lidar.height, lidar.width
-    v_ang = _atan2_det(z64, np.sqrt(h2)).astype(np.float32)
-    col = _round_half_away_np(
-        az / np.float32(lidar.horizontal_fov) * np.float32(W)
-    ).astype(np.int32) % W
-    vres = np.float32((lidar.vertical_max - lidar.vertical_min) / (H - 1))
-    row = _round_half_away_np((v_ang - np.float32(lidar.vertical_min)) / vres).astype(np.int32)
-    row = np.clip(row, 0, H - 1)
-    return depth, (row * np.int32(W) + col).astype(np.int32)
-
-
-def _project_np(pts: np.ndarray, lidar: LidarConfig) -> np.ndarray:
-    """Keep-nearest raster: the nearest point wins a pixel; among exact depth
-    ties the first point in input order wins (the C++ loop's rule)."""
-    depth, flat_idx = _bin_points(pts, lidar)
-    ri = np.zeros(lidar.height * lidar.width, np.float32)
-    o = np.argsort(depth, kind="stable")[::-1]
-    d = depth[o]
-    k = flat_idx[o]
-    live = d > 0
-    ri[k[live]] = d[live]
-    return ri
 
 
 def _native_proj_head(pts: np.ndarray, lidar: LidarConfig):
@@ -162,20 +84,14 @@ def project_points_host_u16(points: np.ndarray, lidar: LidarConfig, step_over16)
     if pts.strides[1] != 4:
         pts = np.ascontiguousarray(pts[:, :3], np.float32)
     floor = np.float32(step_over16)
-    lib = native_lib()
-    if lib is not None and hasattr(lib, "project_bin_raster_u16"):
-        scratch = np.zeros(H * W, np.float32)
-        out = np.empty(H * W, np.uint16)
-        delta = np.zeros(1, np.float32)
-        lib.project_bin_raster_u16(
-            *_native_proj_head(pts, lidar),
-            ct.c_float(floor),
-            scratch.ctypes.data_as(ct.c_void_p),
-            out.ctypes.data_as(ct.c_void_p),
-            delta.ctypes.data_as(ct.c_void_p),
-        )
-        return out.reshape(H, W), np.float32(delta[0])
-    ri = _project_np(pts, lidar)
-    d = np.float32(max(float(floor), float(ri.max()) / 65535.0))
-    q = np.rint(ri * (np.float32(1.0) / d))
-    return np.minimum(q, np.float32(65535.0)).astype(np.uint16).reshape(H, W), d
+    scratch = np.zeros(H * W, np.float32)
+    out = np.empty(H * W, np.uint16)
+    delta = np.zeros(1, np.float32)
+    native_lib().project_bin_raster_u16(
+        *_native_proj_head(pts, lidar),
+        ct.c_float(floor),
+        scratch.ctypes.data_as(ct.c_void_p),
+        out.ctypes.data_as(ct.c_void_p),
+        delta.ctypes.data_as(ct.c_void_p),
+    )
+    return out.reshape(H, W), np.float32(delta[0])

@@ -46,12 +46,13 @@ from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from rpcc_tpu.codec.bitstream import pack_bitstream, unpack_bitstream
-from rpcc_tpu.codec.lz4block import native_lib
-from rpcc_tpu.config import CodecConfig, LidarConfig
+from rpcc_tpu_torch.codec.bitstream import pack_bitstream, unpack_bitstream
 from rpcc_tpu_torch.codec.entropy import BasicCompressor
+from rpcc_tpu_torch.codec.native import native_lib
+from rpcc_tpu_torch.config import CodecConfig, LidarConfig
 from rpcc_tpu_torch.models.decoder import Decoder
 from rpcc_tpu_torch.models.encoder import Encoder, EncoderOutput, num_model_rows
+from rpcc_tpu_torch.models.pipeline import resolve_device
 from rpcc_tpu_torch.ops.projection_host import (
     build_transform_map,
     build_transform_planes,
@@ -124,15 +125,16 @@ class _DecodeDispatched(NamedTuple):
 
 
 class BatchEngine:
-    """Batched encode and decode of one LiDAR geometry on one explicitly
-    named device.  A CUDA device is used as named and never swapped for
-    the CPU; a CPU device runs the same stages synchronously."""
+    """Batched encode and decode of one LiDAR geometry on one device: the
+    card unless the CPU is asked for.  A CUDA device is used as named and
+    never swapped for the CPU; a CPU device runs the same stages
+    synchronously."""
 
     def __init__(
         self,
         lidar: LidarConfig,
         cfg: CodecConfig,
-        device,
+        device="cuda",
         batch_size: int = 8,
         workers: int = 4,
     ):
@@ -140,7 +142,7 @@ class BatchEngine:
             raise ValueError(f"batch_size must be >= 1, got {batch_size}")
         self.lidar = lidar
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.batch_size = batch_size
         self.H, self.W = lidar.height, lidar.width
         self.hw = self.H * self.W
@@ -491,28 +493,19 @@ class BatchEngine:
 
     def _points4_from_ris(self, ris: np.ndarray, live: int) -> List[np.ndarray]:
         """-> compacted (n, 4) f32 xyz0 rows per frame, the .bin save format
-        (rows whose x+y+z is 0 dropped): native ``backproject_compact``, or
-        its numpy twin with the same rule in the same f32 order."""
-        lib = native_lib()
-        out: List[np.ndarray] = []
-        if lib is not None and hasattr(lib, "backproject_compact"):
-            import ctypes as ct
+        (rows whose x+y+z is 0 dropped), by the native ``backproject_compact``."""
+        import ctypes as ct
 
-            tm_p = self._tm_planar.ctypes.data_as(ct.c_void_p)
-            for i in range(live):
-                ri = np.ascontiguousarray(ris[i], np.float32)
-                buf = np.empty((self.hw, 4), np.float32)
-                n = lib.backproject_compact(
-                    ri.ctypes.data_as(ct.c_void_p), tm_p, ct.c_int64(self.hw), buf.ctypes.data_as(ct.c_void_p)
-                )
-                out.append(buf[: int(n)])
-            return out
+        lib = native_lib()
+        tm_p = self._tm_planar.ctypes.data_as(ct.c_void_p)
+        out: List[np.ndarray] = []
         for i in range(live):
-            pts = ris[i].reshape(-1, 1) * self._tm_planar.T  # (HW, 3) f32
-            keep = pts.sum(-1) != 0
-            buf = np.zeros((int(keep.sum()), 4), np.float32)
-            buf[:, :3] = pts[keep]
-            out.append(buf)
+            ri = np.ascontiguousarray(ris[i], np.float32)
+            buf = np.empty((self.hw, 4), np.float32)
+            n = lib.backproject_compact(
+                ri.ctypes.data_as(ct.c_void_p), tm_p, ct.c_int64(self.hw), buf.ctypes.data_as(ct.c_void_p)
+            )
+            out.append(buf[: int(n)])
         return out
 
     def decode_blobs(self, blobs: Sequence[bytes]) -> List[np.ndarray]:

@@ -84,18 +84,67 @@ def test_wrapper_rejects_bad_inputs():
         fps.furthest_point_sample_cuda(x, x, x, 4)
 
 
+@pytest.mark.parametrize(
+    "n, cluster, want",
+    [
+        (128000, 16, fps.LaunchPlan(16, 8000, 8000, 0, 96000)),  # a 64E frame, all on chip
+        (128000, 8, fps.LaunchPlan(8, 16000, 16000, 0, 192000)),
+        (4133, 16, fps.LaunchPlan(16, 259, 259, 0, 3108)),  # the last CTA holds 248
+        (7, 16, fps.LaunchPlan(16, 1, 1, 0, 12)),  # N < C: CTAs 7-15 hold nothing
+        (400000, 16, fps.LaunchPlan(16, 25000, 16384, 8616, 196608)),  # above the on-chip capacity
+    ],
+)
+def test_plan_splits_a_frame_over_the_cluster(n, cluster, want):
+    plan = fps.plan_for(n, cluster)
+    assert plan == want
+    assert n <= plan.chunk * cluster < n + cluster  # every point owned, by the smallest chunk
+    assert plan.onchip + plan.spill == plan.chunk and plan.onchip <= fps.ONCHIP_PTS
+    assert plan.smem_bytes <= 232448  # a CTA's shared memory on Hopper
+
+
+@pytest.mark.parametrize("batch, active16, want", [(1, 7, 16), (7, 7, 16), (8, 7, 8), (8, 8, 16), (3, 0, 8)])
+def test_launch_plan_takes_16_where_the_batch_fits(batch, active16, want):
+    asked = []
+
+    def max_active(plan):
+        asked.append(plan.cluster)
+        return active16
+
+    assert fps.launch_plan(batch, 128000, max_active).cluster == want
+    assert asked == [16]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(1, 128000, 100), (2, 4133, 32), (3, 2048, 32)])
+@pytest.mark.parametrize(
+    "shape",
+    [(1, 128000, 100), (8, 128000, 100), (2, 4133, 32), (3, 2048, 32), (1, 7, 5), (1, 400000, 16)],
+)
 def test_cuda_kernel_matches_plain(cuda_device, shape):
     B, N, K = shape
     rng = np.random.default_rng(B * N + K)
     pts = rng.uniform(-40, 40, (3, B, N)).astype(np.float32)
     pts[:, :, N // 5 : N // 2] = 0.0  # zeroed block: exact ties
+    if N == 400000:
+        pts[:, :, -1000:] = 300.0  # far points among the ones each CTA streams from device memory
     xs, ys, zs = (torch.from_numpy(p).to(cuda_device) for p in pts)
     before = fps.LAUNCHES
     got = fps.furthest_point_sample(xs, ys, zs, K)
     assert fps.LAUNCHES == before + 1
     ref = fps.furthest_point_sample_planar(xs, ys, zs, K)
+    torch.cuda.synchronize(cuda_device)
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", [8, 16])
+def test_cuda_both_cluster_sizes_give_the_plain_indices(cuda_device, cluster, monkeypatch):
+    rng = np.random.default_rng(cluster)
+    pts = rng.uniform(-40, 40, (3, 2, 128000)).astype(np.float32)
+    pts[:, :, 20000:60000] = 0.0
+    xs, ys, zs = (torch.from_numpy(p).to(cuda_device) for p in pts)
+    monkeypatch.setattr(fps, "launch_plan", lambda b, n, _: fps.plan_for(n, cluster))
+    got = fps.furthest_point_sample(xs, ys, zs, 100)
+    ref = fps.furthest_point_sample_planar(xs, ys, zs, 100)
     torch.cuda.synchronize(cuda_device)
     assert torch.equal(got, ref)
 

@@ -40,9 +40,8 @@ def test_synth_cloud_matches_bench():
     np.testing.assert_array_equal(synth_cloud_for(lidar, 3), bench.synth_cloud_for(lidar, 3))
 
 
-@pytest.mark.parametrize("native", [True, False], ids=["native", "numpy"])
 @pytest.mark.parametrize("scene", ["small", "64e"])
-def test_u16_projection_bit_equal(native, scene, monkeypatch):
+def test_u16_projection_bit_equal(scene):
     if scene == "small":
         lidar, pc = SMALL, synth_scene(seed=2)
     else:
@@ -51,8 +50,6 @@ def test_u16_projection_bit_equal(native, scene, monkeypatch):
         pc = np.concatenate([pc, np.ones((pc.shape[0], 1), np.float32)], 1)  # (N, 4) stride path
     floor = np.float32(CodecConfig().step / 16.0)
     q_ref, d_ref = ref_proj.project_points_host_u16(pc, lidar, floor)
-    if not native:
-        monkeypatch.setattr(projection_host, "native_lib", lambda: None)
     q, d = projection_host.project_points_host_u16(pc, lidar, floor)
     assert q.dtype == np.uint16 and d == d_ref
     np.testing.assert_array_equal(q, q_ref)
@@ -164,7 +161,7 @@ sys.modules["jax"] = None  # any import of jax now raises ImportError
 import numpy as np
 import rpcc_tpu_torch.models.pipeline as pipeline
 import rpcc_tpu_torch.cli.compress, rpcc_tpu_torch.cli.decompress
-from rpcc_tpu.config import CodecConfig, LidarConfig
+from rpcc_tpu_torch.config import CodecConfig, LidarConfig
 from rpcc_tpu_torch.data.synth import synth_cloud_for
 small = LidarConfig(name="small64", horizontal_fov_deg=360.0, vertical_angle_max_deg=2.0,
                     vertical_angle_min_deg=-24.9, height=16, width=256)
@@ -200,19 +197,3 @@ def test_port_sources_never_import_jax():
                 with open(os.path.join(dirpath, f)) as fh:
                     src = fh.read()
                 assert "import jax" not in src and "from jax" not in src, f
-
-
-def test_native_load_recovers_after_a_lost_build_race(monkeypatch):
-    """A process that loaded rpcc_tpu's library while another process was
-    still writing it is marked failed; the port loads it again."""
-    from rpcc_tpu.codec import lz4block, rans_native
-
-    rans_codec._native()  # a complete library is on disk
-    monkeypatch.setattr(lz4block, "_lib", None)
-    monkeypatch.setattr(lz4block, "_lib_failed", True)
-    monkeypatch.setattr(rans_native, "_sigs_registered", False)
-    monkeypatch.setattr(rans_codec, "_LOAD_RETRY_S", 0.0)
-    assert rans_native.fused_available() is False
-    assert rans_codec._native() is rans_native
-    arr = np.arange(-500, 500, dtype=np.int16)
-    assert rans_codec.decompress(rans_codec.compress(arr)) == arr.tobytes()
