@@ -3,7 +3,15 @@
 
 Usage, from the repository root:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                      # every phase below
+    python3 chip_smoke.py --against CHECKOUT   # DBSCAN times and blob hashes only
+
+``--against`` runs the DBSCAN kernel timings of phases 3b/3c (B = 1, 4, 8)
+and the DBSCAN-mode encodes of phases 4b/6 with the ``rpcc_tpu_torch``
+package of another checkout (``.`` for this one), through entry points
+every checkout of the port has, and prints the same times and sha256 lines:
+run it for a parent and a change in turns (P C C P) in one call to compare
+them.
 
 Phases (each raises on failure, and the process then exits nonzero):
   0. environment: card name and power limit, torch/CUDA versions; the port
@@ -17,10 +25,16 @@ Phases (each raises on failure, and the process then exits nonzero):
      cluster, N < C, N above the on-chip capacity) with the cluster size
      chosen, and both timed with CUDA events; at (1|8, 128000, 100) both
      cluster sizes, each equal to the plain version, timed in turns;
-  3b. the DBSCAN kernel against its plain PyTorch version on the GPU: raw
-     labels exactly equal on a 64x2000 multi-object scene, a 16x256 long
-     wall, a random blob scene across the column seam and an all-inactive
-     frame; both timed with CUDA events at 64x2000;
+  3b. the DBSCAN kernels (two launches per batch: a grid-wide mask pass,
+     then one thread-block cluster per frame) against their plain PyTorch
+     version on the GPU: raw labels
+     exactly equal on a 64x2000 multi-object scene, a 16x256 long wall, a
+     random blob scene across the column seam, an all-inactive frame, an
+     8x20 frame (W not divisible by the cluster, bands narrower than the
+     window), a 64x2000 ring wall that wraps the seam and spans every band,
+     and a 128x4000 frame past a cluster's on-chip capacity; the launch plan
+     of each; both versions timed with CUDA events at 64x2000, and the
+     kernel's per-phase split (``%globaltimer`` stamps of frame 0);
   4. the main path: ``RPCCCodec(Velodyne64E, CodecConfig(), "cuda")``
      compresses and decompresses four synthetic 64x2000 frames; error
      bound, exact zero pixels, one FPS launch per encode, byte-identical
@@ -28,18 +42,21 @@ Phases (each raises on failure, and the process then exits nonzero):
   4b. the DBSCAN, plane-model and non-uniform paths, each on two 64x2000
      multi-object frames: error bound (step, or step + max level delta),
      exact zero pixels, one DBSCAN (or FPS) launch per encode,
-     byte-identical repeat encodes, GPU-vs-CPU bpp within 0.5%;
+     byte-identical repeat encodes, GPU-vs-CPU bpp within 0.5%; the sha256
+     of each DBSCAN-mode blob;
   5. the compress/decompress CLIs with ``--device cuda`` in subprocesses;
-  3c. (run after 3b) the batched DBSCAN kernel at (4, 64, 2000) on four
-     street scenes: labels equal the batched plain version and four
-     single-frame kernel runs; both versions timed with CUDA events;
+  3c. (run after 3b) the batched DBSCAN kernel at (4, 64, 2000) and
+     (8, 64, 2000) on street scenes: labels equal the batched plain version
+     and the single-frame kernel runs; the launch plan (clusters of 8 at
+     B = 8) and the per-phase split; both versions timed with CUDA events;
   6. the batch engine on the main path: ``BatchEngine(Velodyne64E,
      CodecConfig(), "cuda", batch_size=8)`` encodes 20 frames through
      ``encode_pipeline`` (batches of 8, 8, 4) and decodes them through
      ``decode_pipeline``: blobs equal phase 4's single-frame blobs byte for
      byte, points within bound with zero pixels dropped, a repeat run
      byte-identical, one FPS launch per batch; the DBSCAN mode at B = 4
-     equals its single-frame blobs with one DBSCAN launch per batch; encode
+     equals its single-frame blobs with one DBSCAN launch per batch (their
+     sha256 printed); encode
      and decode frames/s at B = 1 and B = 8 (median, min and max of five
      passes), the stage stats, and one profiled B = 8 encode (launches,
      summed device time);
@@ -62,6 +79,7 @@ result.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import shutil
@@ -78,14 +96,16 @@ SEEDS = (0, 1, 2, 3)
 MODE_SEEDS = (10, 11)
 BATCH_SEEDS = tuple(range(20))  # phase 6: batches of 8, 8 and 4
 STREET_SEEDS = (10, 11, 12, 13)  # phases 3c and 6 (DBSCAN at B = 4)
+STREET_SEEDS_8 = tuple(range(10, 18))  # phase 3c at B = 8
 CLI_FRAMES = 10  # phase 7: batches of 4, 4 and 2
 # Phase 3: a 64E frame, a batch, N not divisible by C * threads, N < C, and
 # N above a cluster's on-chip capacity (16 CTAs x 16,384 points).
 FPS_SHAPES = ((1, 128000, 100), (4, 128000, 100), (2, 4133, 32), (1, 7, 5), (1, 400000, 16))
 TIMED_RUNS = 21
 BACK_TO_BACK = 10  # calls per CUDA-event sample of a kernel's ``ms_10_back_to_back``
-# Kernel launches per wrapper call: csrc/dbscan.cu's entry point makes four.
-LAUNCHES_PER_CALL = {"fps": 1, "dbscan": 4}
+# Kernel launches per wrapper call, whatever the batch: DBSCAN's mask pass
+# and cluster kernel are two.
+LAUNCHES_PER_CALL = {"fps": 1, "dbscan": 2}
 # The card's published peaks (H100 SXM, at its full 700 W): f32 outside the
 # tensor cores, and device memory.
 PEAK_F32_OPS = 67e12
@@ -241,6 +261,32 @@ def scene_blobs(np, seed: int):
     return pc, active, 1.2
 
 
+def scene_ring(np, H: int, W: int, radius: float, gap):
+    """A wall on a ring around the sensor in rows H/4..3H/4 of every column
+    but the ``gap`` columns: one component that wraps the column seam and,
+    at 64x2000, spans every band of a cluster."""
+    az = 2 * np.pi * np.arange(W) / W
+    planes = np.zeros((3, H, W), np.float32)
+    active = np.zeros((H, W), bool)
+    for r in range(H // 4, 3 * H // 4):
+        planes[0, r], planes[1, r], planes[2, r] = radius * np.cos(az), radius * np.sin(az), 0.3 * r
+        active[r] = True
+    active[:, gap[0] : gap[1]] = False
+    return planes, active
+
+
+def scene_narrow(np, seed: int, H: int, W: int):
+    """A small ring of jittered points with 70% of the pixels active: at
+    W = 20 a cluster's bands are narrower than the window."""
+    rng = np.random.default_rng(seed)
+    az = 2 * np.pi * np.arange(W) / W
+    planes = np.zeros((3, H, W), np.float32)
+    for r in range(H):
+        planes[0, r], planes[1, r], planes[2, r] = 2 * np.cos(az), 2 * np.sin(az), 0.3 * r
+    planes += rng.normal(0, 0.05, planes.shape).astype(np.float32)
+    return planes, rng.random((H, W)) < 0.7
+
+
 # ------------------------------------------------------------------ phases
 def phase_build():
     from rpcc_tpu_torch.ops import dbscan, fps
@@ -339,28 +385,53 @@ def fps_at_cluster(fps, cluster: int, xs, ys, zs, K: int):
         fps.launch_plan = chosen
 
 
+def dbscan_plan(torch, dbscan, B: int, H: int, W: int):
+    """The launch plan the DBSCAN wrapper picks for (B, H, W) on this card."""
+    dev = torch.cuda.current_device()
+    return dbscan.launch_plan(B, H, W, lambda p: dbscan.max_active_clusters(dev, p.cluster, p.smem_bytes))
+
+
+def dbscan_split(torch, dbscan, p, a, eps):
+    """Median over TIMED_RUNS calls of each kernel phase's time (us) in frame
+    0's first CTA, from the kernel's %globaltimer stamps."""
+    stamps = torch.zeros(len(dbscan.PHASES) + 1, dtype=torch.int64, device=a.device)
+    rows = []
+    for _ in range(TIMED_RUNS):
+        dbscan.dbscan_labels_cuda(p, a, eps, phase_stamps=stamps)
+        torch.cuda.synchronize()
+        rows.append(stamps.diff().cpu().tolist())
+    return {name: statistics.median(r[i] for r in rows) / 1e3 for i, name in enumerate(dbscan.PHASES)}
+
+
+def street_frame(np, segment, torch, tm, seed: int):
+    """A street scene as (3, H, W) planes and its active pixels."""
+    r = scene_ranges(np, tm, seed)
+    return np.ascontiguousarray(np.transpose(tm * r[..., None], (2, 0, 1))), street_active(np, segment, torch, tm, r)
+
+
 def phase_dbscan(torch, np, dev, card, lidar):
     from rpcc_tpu_torch.ops import dbscan, segment
     from rpcc_tpu_torch.ops.projection_host import build_transform_map
 
     tm = build_transform_map(lidar)
-    r = scene_ranges(np, tm, 0)
-    planes64 = np.ascontiguousarray(np.transpose(tm * r[..., None], (2, 0, 1)))
-    res = segment.ground_depth_residual(
-        torch.from_numpy(r), torch.tensor([0.0, 0.0, 1.0, 1.8]),
-        torch.from_numpy(np.ascontiguousarray(np.transpose(tm, (2, 0, 1)))),
-    ).numpy()
-    active64 = (np.abs(res) > 0.5) & (r > 0)
+    planes64, active64 = street_frame(np, segment, torch, tm, 0)
     empty = np.random.default_rng(4).uniform(-20, 20, (3, 32, 512)).astype(np.float32)
     wall, blobs = scene_long_wall(np), scene_blobs(np, 305)
+    # Past a cluster's on-chip capacity: four street scenes tiled to 128x4000.
+    (pa, aa), (pb, ab) = street_frame(np, segment, torch, tm, 2), street_frame(np, segment, torch, tm, 3)
+    big = np.concatenate([np.concatenate([pa, pb], 2), np.concatenate([pb, pa], 2)], 1)
+    big_active = np.concatenate([np.concatenate([aa, ab], 1), np.concatenate([ab, aa], 1)], 0)
     inputs = [
         ("64x2000 street scene", planes64, active64, 1.5),
         ("16x256 long wall", np.transpose(wall[0], (2, 0, 1)), wall[1], wall[2]),
         ("16x128 blobs across the seam", np.transpose(blobs[0], (2, 0, 1)), blobs[1], blobs[2]),
         ("32x512 all inactive", empty, np.zeros((32, 512), bool), 1.5),
+        ("8x20 narrow frame", *scene_narrow(np, 0, 8, 20), 1.0),
+        ("64x2000 ring wall across the seam", *scene_ring(np, 64, 2000, 20.0, (1000, 1010)), 1.5),
+        ("128x4000 frame past the on-chip capacity", big, big_active, 1.5),
     ]
     err_max = 0
-    ms = b2b = plain_ms = None
+    ms = b2b = plain_ms = split = None
     for name, planes, active, eps in inputs:
         p = torch.from_numpy(np.ascontiguousarray(planes)).to(dev)
         a = torch.from_numpy(active).to(dev)
@@ -372,15 +443,21 @@ def phase_dbscan(torch, np, dev, card, lidar):
         check(err == 0, f"DBSCAN kernel labels differ from the plain version on the {name}")
         ids = dbscan._compact_labels(got, a, 1 << 20)
         n_clusters = int(ids.max()) - dbscan.FIRST_CLUSTER_ID + 1 if bool(a.any()) else 0
+        plan = dbscan_plan(torch, dbscan, 1, *active.shape)
         print(f"[phase 3b] dbscan kernel == plain on the {name}: {int(a.sum())} active px, "
-              f"{max(n_clusters, 0)} clusters")
+              f"{max(n_clusters, 0)} clusters; plan: clusters of {plan.cluster}, {plan.band} columns per CTA, "
+              f"{plan.onchip} px on chip and {plan.spill} in device memory per CTA, {plan.smem_bytes} B shared")
         if planes is planes64:
             ms = median_ms(torch, lambda: dbscan.dbscan_labels_cuda(p, a, eps))
             b2b = median_ms(torch, lambda: dbscan.dbscan_labels_cuda(p, a, eps), BACK_TO_BACK)
             plain_ms = median_ms(torch, lambda: dbscan.dbscan_labels_planar(p, a, eps))
+            split = dbscan_split(torch, dbscan, p, a, eps)
             print(f"[phase 3b] [{card}] dbscan 64x2000 median of {TIMED_RUNS}: kernel {ms:.4f} ms "
-                  f"({b2b:.4f} ms over {BACK_TO_BACK} back to back), plain {plain_ms:.4f} ms")
-    return err_max, ms, b2b, plain_ms
+                  f"({b2b:.4f} ms over {BACK_TO_BACK} back to back), plain {plain_ms:.4f} ms, "
+                  f"bound {dbscan_bound(active, 1, *active.shape)[0]:.6f} ms")
+            print(f"[phase 3b] [{card}] dbscan 64x2000 phase split (us, median of {TIMED_RUNS}): "
+                  + json.dumps({k: round(v, 3) for k, v in split.items()}))
+    return err_max, ms, b2b, plain_ms, dbscan_bound(active64, 1, *active64.shape), split
 
 
 def encode_frames(codec, frames):
@@ -488,6 +565,8 @@ def phase_modes(torch, np, dev, card, lidar):
         print(f"[phase 4b] {tag}: launches {counts} for {n_enc} encodes")
         if tag == "DBSCAN":
             dbscan_launches = counts["dbscan"] / n_enc
+            for s, res in results.items():
+                print(f"[phase 4b] DBSCAN seed {s} blob sha256 {hashlib.sha256(res[1]).hexdigest()}")
         bpps = check_frames(np, codec, results, bound, card, tag, "4b")
 
         cpu_codec = RPCCCodec(lidar, cfg, "cpu")
@@ -550,37 +629,42 @@ def street_active(np, segment, torch, tm, r):
     return (np.abs(res) > 0.5) & (r > 0)
 
 
-def phase_dbscan_batch(torch, np, dev, card, lidar):
-    """3c: the kernel on a (4, 64, 2000) batch against the batched plain
-    version and four single-frame launches."""
+def phase_dbscan_batch(torch, np, dev, card, lidar, seeds):
+    """3c: the kernel on a (B, 64, 2000) batch of street scenes against the
+    batched plain version and B single-frame launches."""
     from rpcc_tpu_torch.ops import dbscan, segment
     from rpcc_tpu_torch.ops.projection_host import build_transform_map
 
     tm = build_transform_map(lidar)
-    rs = [scene_ranges(np, tm, s) for s in STREET_SEEDS]
-    planes = np.stack([np.transpose(tm * r[..., None], (2, 0, 1)) for r in rs])
-    active = np.stack([street_active(np, segment, torch, tm, r) for r in rs])
+    frames = [street_frame(np, segment, torch, tm, s) for s in seeds]
+    planes = np.stack([f[0] for f in frames])
+    active = np.stack([f[1] for f in frames])
     p = torch.from_numpy(np.ascontiguousarray(planes)).to(dev)
     a = torch.from_numpy(active).to(dev)
+    B = len(seeds)
     eps = 1.5
     got = dbscan.dbscan_labels_cuda(p, a, eps)
     ref = dbscan.dbscan_labels_planar(p, a, eps)
-    single = torch.stack([dbscan.dbscan_labels_cuda(p[i].contiguous(), a[i], eps) for i in range(len(rs))])
+    single = torch.stack([dbscan.dbscan_labels_cuda(p[i].contiguous(), a[i], eps) for i in range(B)])
     torch.cuda.synchronize()
     err = max(int((got.long() - ref.long()).abs().max()), int((got.long() - single.long()).abs().max()))
-    check(err == 0, "batched DBSCAN kernel labels differ from the plain version or the per-frame kernel")
+    check(err == 0, f"batched DBSCAN kernel labels differ from the plain version or the per-frame kernel at B={B}")
     ids = dbscan._compact_labels(got, a, 1 << 20)
-    n_cl = [int(ids[i].max()) - dbscan.FIRST_CLUSTER_ID + 1 for i in range(len(rs))]
-    print(f"[phase 3c] dbscan kernel (B={len(rs)}, 64, 2000) == batched plain == per-frame kernel: "
-          f"{[int(x) for x in a.sum((1, 2))]} active px, {n_cl} clusters")
+    n_cl = [int(ids[i].max()) - dbscan.FIRST_CLUSTER_ID + 1 for i in range(B)]
+    plan = dbscan_plan(torch, dbscan, B, 64, 2000)
+    print(f"[phase 3c] dbscan kernel (B={B}, 64, 2000) == batched plain == per-frame kernel: "
+          f"{[int(x) for x in a.sum((1, 2))]} active px, {n_cl} clusters; plan: clusters of {plan.cluster}, "
+          f"{plan.band} columns and {plan.smem_bytes} B shared per CTA")
     ms = median_ms(torch, lambda: dbscan.dbscan_labels_cuda(p, a, eps))
     b2b = median_ms(torch, lambda: dbscan.dbscan_labels_cuda(p, a, eps), BACK_TO_BACK)
     plain_ms = median_ms(torch, lambda: dbscan.dbscan_labels_planar(p, a, eps))
+    split = dbscan_split(torch, dbscan, p, a, eps)
     bound_ms, bound_by = dbscan_bound(active, *active.shape)
-    print(f"[phase 3c] [{card}] dbscan (B={len(rs)}, 64, 2000) median of {TIMED_RUNS}: kernel {ms:.4f} ms "
+    print(f"[phase 3c] [{card}] dbscan (B={B}, 64, 2000) median of {TIMED_RUNS}: kernel {ms:.4f} ms "
           f"({b2b:.4f} ms over {BACK_TO_BACK} back to back), plain {plain_ms:.4f} ms, "
-          f"bound {bound_ms:.6f} ms ({bound_by})")
-    return err, ms, b2b, plain_ms, (bound_ms, bound_by)
+          f"bound {bound_ms:.6f} ms ({bound_by}); frame 0 phase split (us): "
+          + json.dumps({k: round(v, 3) for k, v in split.items()}))
+    return dict(err=err, ms=ms, b2b=b2b, plain_ms=plain_ms, bound=(bound_ms, bound_by), cluster=plan.cluster)
 
 
 def _frames_per_s(engine, run, n_frames):
@@ -729,7 +813,8 @@ def phase_engine(torch, np, dev, card, lidar, codec):
     check(db_launches == {"fps": 0, "dbscan": 1}, f"DBSCAN engine launches {db_launches} for one batch")
     check(dblobs == dsingles, "DBSCAN engine blobs differ from single-frame blobs")
     deng.close()
-    print(f"[phase 6] DBSCAN engine (B={len(street)}): launches {db_launches}, blobs == single-frame RPCCCodec")
+    print(f"[phase 6] DBSCAN engine (B={len(street)}): launches {db_launches}, blobs == single-frame RPCCCodec; "
+          f"sha256 {[hashlib.sha256(b).hexdigest() for b in dblobs]}")
     return dict(fps_err=fps_err, fps_ms=fps_ms, fps_b2b=fps_b2b, fps_plain_ms=fps_plain_ms,
                 fps_bound=(fps_bound_ms, fps_bound_by),
                 fps_shape=f"B={B} N={lidar.height * lidar.width} K={cfg.cluster_num}",
@@ -811,16 +896,68 @@ def phase_datalist(np, codec, lidar):
         shutil.rmtree(work, ignore_errors=True)
 
 
+def phase_against(torch, np, dev, card, lidar, root: str) -> None:
+    """``--against``: the DBSCAN kernel of ``root``'s package timed as in
+    phases 3b/3c, and the sha256 of the DBSCAN-mode blobs of phases 4b/6."""
+    import rpcc_tpu_torch
+    from rpcc_tpu_torch.config import CodecConfig
+    from rpcc_tpu_torch.models.pipeline import RPCCCodec
+    from rpcc_tpu_torch.ops import dbscan, segment
+    from rpcc_tpu_torch.ops.projection_host import build_transform_map
+    from rpcc_tpu_torch.parallel.engine import BatchEngine
+
+    pkg = os.path.dirname(os.path.dirname(os.path.abspath(rpcc_tpu_torch.__file__)))
+    check(pkg == root, f"imported the package of {pkg}, not of {root}")
+    tm = build_transform_map(lidar)
+    for seeds in ((0,), STREET_SEEDS, STREET_SEEDS_8):
+        frames = [street_frame(np, segment, torch, tm, s) for s in seeds]
+        p = torch.from_numpy(np.ascontiguousarray(np.stack([f[0] for f in frames]))).to(dev)
+        a = torch.from_numpy(np.stack([f[1] for f in frames])).to(dev)
+        run = lambda: dbscan.dbscan_labels_cuda(p, a, 1.5)  # noqa: E731
+        print(f"[against] [{card}] dbscan ({len(seeds)}, 64, 2000) of {root} median of {TIMED_RUNS}: "
+              f"{median_ms(torch, run):.4f} ms one call, {median_ms(torch, run, BACK_TO_BACK):.4f} ms "
+              f"over {BACK_TO_BACK} back to back")
+        if hasattr(dbscan, "PHASES"):  # a kernel with phase stamps
+            print(f"[against] [{card}] dbscan ({len(seeds)}, 64, 2000) frame 0 phase split (us): "
+                  + json.dumps({k: round(v, 3) for k, v in dbscan_split(torch, dbscan, p, a, 1.5).items()}))
+    cfg = CodecConfig(segment_method="DBSCAN")
+    codec = RPCCCodec(lidar, cfg, dev)
+    for s in MODE_SEEDS:
+        print(f"[phase 4b] DBSCAN seed {s} blob sha256 "
+              f"{hashlib.sha256(codec.compress(scene_cloud(np, tm, s))[0]).hexdigest()}")
+    engine = BatchEngine(lidar, cfg, dev, batch_size=len(STREET_SEEDS))
+    try:
+        blobs = engine.encode_frames([scene_cloud(np, tm, s) for s in STREET_SEEDS], STREET_SEEDS)
+    finally:
+        engine.close()
+    print(f"[phase 6] DBSCAN engine (B={len(STREET_SEEDS)}) sha256 {[hashlib.sha256(b).hexdigest() for b, _ in blobs]}")
+
+
 def main() -> int:
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--against", metavar="CHECKOUT",
+                    help="time the DBSCAN kernel and hash the DBSCAN blobs of this checkout's package only")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
-    sys.path.insert(0, ROOT)
+    root = ROOT if args.against is None else os.path.abspath(args.against)
+    sys.path.insert(0, root)
     import numpy as np
 
     from rpcc_tpu_torch.data import lidar_config
+
+    if args.against is not None:
+        card = card_line()
+        print(card)
+        dev = torch.device("cuda:0")
+        torch.cuda.set_device(dev)
+        phase_against(torch, np, dev, card, lidar_config(LIDAR), root)
+        return 0
 
     # ---------------------------------------------------------------- 0
     card = card_line()
@@ -840,8 +977,9 @@ def main() -> int:
     phase_build()  # 1
     phase_prng(torch, dev)  # 2
     fps_err, fps_ms, fps_b2b, fps_plain_ms = phase_fps(torch, np, dev, card)  # 3
-    db_err, db_ms, db_b2b, db_plain_ms = phase_dbscan(torch, np, dev, card, lidar)  # 3b
-    db3c_err, db3c_ms, db3c_b2b, db3c_plain_ms, db3c_bound = phase_dbscan_batch(torch, np, dev, card, lidar)  # 3c
+    db_err, db_ms, db_b2b, db_plain_ms, db_bound, db_split = phase_dbscan(torch, np, dev, card, lidar)  # 3b
+    db4 = phase_dbscan_batch(torch, np, dev, card, lidar, STREET_SEEDS)  # 3c
+    db8 = phase_dbscan_batch(torch, np, dev, card, lidar, STREET_SEEDS_8)
     codec, frames, fps_per_encode = phase_main(torch, np, dev, card, lidar)  # 4
     db_per_encode = phase_modes(torch, np, dev, card, lidar)  # 4b
     phase_cli(np, codec, frames)  # 5
@@ -851,11 +989,12 @@ def main() -> int:
 
     # ``ms``/``plain_ms``/``bound_ms`` are at the engine's shape (``shape``),
     # ``launches`` is the engine's count of wrapper calls over phase 6's
-    # main-path run; the single-frame times of phases 3 and 3b stand beside
-    # them, and ``launches_per_encode`` is the kernel launches of one
-    # single-frame encode (phases 4, 4b): wrapper calls times
-    # LAUNCHES_PER_CALL (a DBSCAN call is four launches).  No single
-    # PyTorch call computes FPS or DBSCAN labels, so ``library_ms`` is null.
+    # main-path run; the single-frame times and bound of phases 3 and 3b
+    # stand beside them (DBSCAN's B = 8 times of phase 3c too), and
+    # ``launches_per_encode`` is the kernel launches of one single-frame
+    # encode (phases 4, 4b): wrapper calls times LAUNCHES_PER_CALL.  No
+    # single PyTorch call computes FPS or DBSCAN labels, so ``library_ms``
+    # is null.
     print(json.dumps({"kernels": [
         {
             "name": "fps",
@@ -876,6 +1015,7 @@ def main() -> int:
             "single_frame_ms": fps_ms,
             "single_frame_ms_10_back_to_back": fps_b2b,
             "single_frame_plain_ms": fps_plain_ms,
+            "single_frame_bound_ms": fps_bound(1, 128000, 100)[0],
         },
         {
             "name": "dbscan",
@@ -884,18 +1024,24 @@ def main() -> int:
             "replaces": "rpcc_tpu/ops/dbscan_pallas.py:42",
             "launches": eng["db_launches"],
             "launches_per_encode": db_per_encode * LAUNCHES_PER_CALL["dbscan"],
-            "max_abs_err": max(db_err, db3c_err),
+            "max_abs_err": max(db_err, db4["err"], db8["err"]),
             "shape": f"B={len(STREET_SEEDS)} H=64 W=2000",
-            "ms": db3c_ms,
-            "ms_10_back_to_back": db3c_b2b,
-            "plain_ms": db3c_plain_ms,
-            "bound_ms": db3c_bound[0],
-            "bound_by": db3c_bound[1],
+            "ms": db4["ms"],
+            "ms_10_back_to_back": db4["b2b"],
+            "plain_ms": db4["plain_ms"],
+            "bound_ms": db4["bound"][0],
+            "bound_by": db4["bound"][1],
             "library_ms": None,
             "single_frame_shape": "B=1 H=64 W=2000",
             "single_frame_ms": db_ms,
             "single_frame_ms_10_back_to_back": db_b2b,
             "single_frame_plain_ms": db_plain_ms,
+            "single_frame_bound_ms": db_bound[0],
+            "single_frame_phase_us": {k: round(v, 3) for k, v in db_split.items()},
+            "batch8_ms": db8["ms"],
+            "batch8_ms_10_back_to_back": db8["b2b"],
+            "batch8_plain_ms": db8["plain_ms"],
+            "batch8_bound_ms": db8["bound"][0],
         },
     ]}))
     print(json.dumps({"ok": True, "device": {

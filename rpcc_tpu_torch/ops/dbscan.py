@@ -16,15 +16,17 @@ Discovery-order compaction (:func:`_compact_labels`) turns those raw labels
 into the codec's ids: 2 = noise, 3.. = clusters by ascending root index.
 
 :func:`dbscan_labels` dispatches on the tensors' device: the plain version
-for CPU tensors, the hand-written kernel (``csrc/dbscan.cu``) for CUDA
-tensors.  A CUDA tensor never falls back to the plain version: if the
-kernel cannot build or launch, the call raises.
+for CPU tensors, the hand-written kernels (``csrc/dbscan.cu``: a grid-wide
+mask pass, then one thread-block cluster per frame; two launches per batch)
+for CUDA tensors.  A CUDA tensor never falls back to the plain version: if
+the kernels cannot build or launch, the call raises.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+import functools
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -33,9 +35,23 @@ NOISE_ID = 2  # final id of DBSCAN noise
 FIRST_CLUSTER_ID = 3  # final id of the first cluster
 WINDOW = 3  # pixel window for eps-connectivity
 
-# Launches of the CUDA kernel since the count was last reset (one per call
-# of :func:`dbscan_labels_cuda`, whatever the batch size).
+# Calls of :func:`dbscan_labels_cuda` that launched the kernels since the
+# count was last reset: one per call, whatever the batch size; each call
+# makes two launches (the mask pass, then the cluster kernel).
 LAUNCHES = 0
+
+# The cluster kernel's layout (csrc/dbscan.cu): a CTA keeps a u64 mask word
+# and an i32 parent per owned pixel (12 B) in shared memory, up to the
+# card's opt-in limit per CTA (the kernel has no static shared memory);
+# slots past that stay in device memory ("spill").  This module owns the
+# plan; the launcher checks only that it is safe.
+SMEM_LIMIT = 232448  # 227 KB, cudaDevAttrMaxSharedMemoryPerBlockOptin on Hopper
+BYTES_PER_PX = 12
+MAX_ONCHIP = SMEM_LIMIT // BYTES_PER_PX
+# Spans timed by ``phase_stamps`` (csrc/dbscan.cu): the mask launch until
+# the cluster kernel starts, then the cluster kernel's five phases ("load":
+# the mask words into shared memory).
+PHASES = ("mask", "load", "local_union", "cross_union", "resolve", "label")
 
 
 def _neighbor_shifts(window: int) -> Tuple[Tuple[int, int], ...]:
@@ -51,11 +67,13 @@ def _neighbor_shifts(window: int) -> Tuple[Tuple[int, int], ...]:
 
 def _shift(arr: torch.Tensor, dr: int, dc: int, fill) -> torch.Tensor:
     """Value of the (r+dr, c+dc) neighbour at each pixel of (..., H, W):
-    column-circular, row-clamped with ``fill``; never across frames."""
+    column-circular, row-clamped with ``fill``; never across frames.  Rows
+    are clamped for every ``dr``, as in the TPU kernel; the jnp spec's
+    ``_shift`` keeps a wrapped row when ``dr > H`` (H = 2, dr = 3)."""
     H = arr.shape[-2]
     out = torch.roll(arr, (-dr, -dc), (-2, -1))
     if dr > 0:
-        out[..., H - dr :, :] = fill
+        out[..., max(H - dr, 0) :, :] = fill
     elif dr < 0:
         out[..., :-dr, :] = fill
     return out
@@ -181,18 +199,60 @@ def _check(point_planes: torch.Tensor, active: torch.Tensor) -> None:
         raise ValueError("point_planes and active must share a device")
 
 
-def _kernel():
+class LaunchPlan(NamedTuple):
+    cluster: int  # CTAs per frame
+    band: int  # columns per CTA, ceil(W / cluster); the last bands may be narrower or empty
+    onchip: int  # pixel slots a CTA keeps in shared memory
+    spill: int  # pixel slots a CTA keeps in device memory
+    smem_bytes: int  # dynamic shared memory per CTA
+
+
+def plan_for(H: int, W: int, cluster: int) -> LaunchPlan:
+    """The split of an (H, W) frame over a cluster of ``cluster`` CTAs:
+    CTA r owns columns [r * band, (r + 1) * band) of every row."""
+    band = -(-W // cluster)
+    slots = H * band
+    onchip = min(slots, MAX_ONCHIP)
+    return LaunchPlan(cluster, band, onchip, slots - onchip, BYTES_PER_PX * onchip)
+
+
+def launch_plan(batch: int, H: int, W: int, max_active: Callable[[LaunchPlan], int]) -> LaunchPlan:
+    """Clusters of 16 CTAs where ``max_active(plan)`` says B of them run on
+    the card at once, else clusters of 8.  Both give the same labels."""
+    big = plan_for(H, W, 16)
+    return big if max_active(big) >= batch else plan_for(H, W, 8)
+
+
+@functools.lru_cache(maxsize=None)
+def _library():
     from rpcc_tpu_torch.ops.cuda_build import load_cuda_library
 
     lib = load_cuda_library("dbscan.cu")
-    fn = lib.rpcc_dbscan_labels_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = (
+    lib.rpcc_dbscan_labels_launch.restype = ctypes.c_int
+    lib.rpcc_dbscan_labels_launch.argtypes = (
         [ctypes.c_void_p] * 2
-        + [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int]
+        + [ctypes.c_int] * 3 + [ctypes.c_float] + [ctypes.c_int] * 5
         + [ctypes.c_void_p] * 5
     )
-    return fn
+    lib.rpcc_dbscan_max_active_clusters.restype = ctypes.c_int
+    lib.rpcc_dbscan_max_active_clusters.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    return lib
+
+
+def _kernel():
+    return _library().rpcc_dbscan_labels_launch
+
+
+@functools.lru_cache(maxsize=None)
+def max_active_clusters(device_index: int, cluster: int, smem_bytes: int) -> int:
+    """``cudaOccupancyMaxActiveClusters`` of the kernel on one card: how many
+    clusters of ``cluster`` CTAs with ``smem_bytes`` each run at once."""
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        err = _library().rpcc_dbscan_max_active_clusters(cluster, smem_bytes, ctypes.byref(out))
+    if err != 0:
+        raise RuntimeError(f"DBSCAN occupancy query failed: cudaError_t {err}")
+    return out.value
 
 
 def dbscan_labels_cuda(
@@ -201,34 +261,44 @@ def dbscan_labels_cuda(
     eps: float,
     min_points: int = MIN_POINTS,
     window: int = WINDOW,
+    phase_stamps: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """The CUDA kernel on CUDA tensors, one frame or a batch (one launch
-    sequence either way); raises on any other input.  Launches on the
-    current stream and does not synchronize."""
+    """The CUDA kernels on CUDA tensors, one frame or a batch in two
+    launches; raises on any other input.  Launches on the current stream and
+    does not synchronize.  ``phase_stamps``, an int64 CUDA tensor of
+    ``len(PHASES) + 1`` elements, receives frame 0's ``%globaltimer`` (ns)
+    at the start of each launch and after each phase of the second."""
     global LAUNCHES
     _check(point_planes, active)
     if active.device.type != "cuda":
         raise ValueError(f"dbscan_labels_cuda needs CUDA tensors, got {active.device}")
     if window != WINDOW:
         raise ValueError(f"the kernel is built for window {WINDOW}, got {window}")
-    if not point_planes.is_contiguous():
-        raise ValueError("point_planes must be contiguous")
+    if not (point_planes.is_contiguous() and active.is_contiguous()):
+        raise ValueError("point_planes and active must be contiguous")
+    if phase_stamps is not None and (
+        phase_stamps.device != active.device or phase_stamps.dtype != torch.int64
+        or phase_stamps.numel() != len(PHASES) + 1 or not phase_stamps.is_contiguous()
+    ):
+        raise ValueError(f"phase_stamps must be a contiguous int64 tensor of {len(PHASES) + 1} on {active.device}")
     H, W = active.shape[-2:]
     B = active.shape[0] if active.ndim == 3 else 1
-    hw = H * W
-    if B * hw >= 2**31 - 1:
-        raise ValueError("DBSCAN batch exceeds 2^31 pixels")
+    if B * H * W >= 2**31 - 1 or B > 65535:
+        raise ValueError("DBSCAN batch exceeds 2^31 pixels or 65535 frames")
     fn = _kernel()
-    dev = active.device
-    with torch.cuda.device(dev):
-        act_u8 = active.to(torch.uint8).contiguous()
-        mask = torch.empty(B * hw, dtype=torch.int64, device=dev)  # u64 bits
-        parent = torch.empty(B * hw, dtype=torch.int32, device=dev)
-        core = torch.empty(B * hw, dtype=torch.uint8, device=dev)
-        out = torch.empty(active.shape, dtype=torch.int32, device=dev)
+    dev = active.device.index if active.device.index is not None else torch.cuda.current_device()
+    plan = launch_plan(B, H, W, lambda p: max_active_clusters(dev, p.cluster, p.smem_bytes))
+    with torch.cuda.device(active.device):
+        out = torch.empty(active.shape, dtype=torch.int32, device=active.device)
+        mask = torch.empty(active.shape, dtype=torch.int64, device=active.device)  # u64 mask words
+        parent = None
+        if plan.spill:  # parents of the slots past a CTA's shared memory: (B, cluster, spill)
+            parent = torch.empty(B * plan.cluster * plan.spill, dtype=torch.int32, device=active.device)
         err = fn(
-            point_planes.data_ptr(), act_u8.data_ptr(), B, H, W, float(eps) * float(eps),
-            int(min_points), mask.data_ptr(), parent.data_ptr(), core.data_ptr(), out.data_ptr(),
+            point_planes.data_ptr(), active.data_ptr(), B, H, W, float(eps) * float(eps),
+            int(min_points), plan.cluster, plan.band, plan.onchip, plan.smem_bytes,
+            mask.data_ptr(), None if parent is None else parent.data_ptr(),
+            out.data_ptr(), None if phase_stamps is None else phase_stamps.data_ptr(),
             torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
