@@ -4,10 +4,12 @@
 Usage, from the repository root:
 
     python3 chip_smoke.py                      # every phase below
-    python3 chip_smoke.py --against CHECKOUT   # DBSCAN times and blob hashes only
+    python3 chip_smoke.py --against CHECKOUT   # kernel times and blob hashes only
 
-``--against`` runs the DBSCAN kernel timings of phases 3b/3c (B = 1, 4, 8)
-and the DBSCAN-mode encodes of phases 4b/6 with the ``rpcc_tpu_torch``
+``--against`` runs the unmasked FPS kernel timings of phases 3/6 (B = 1, 8),
+the DBSCAN kernel timings of phases 3b/3c (B = 1, 4, 8), the main path's
+encodes of phase 4 and the DBSCAN-mode encodes of phases 4b/6 with the
+``rpcc_tpu_torch``
 package of another checkout (``.`` for this one), through entry points
 every checkout of the port has, and prints the same times and sha256 lines:
 run it for a parent and a change in turns (P C C P) in one call to compare
@@ -25,6 +27,12 @@ Phases (each raises on failure, and the process then exits nonzero):
      cluster, N < C, N above the on-chip capacity) with the cluster size
      chosen, and both timed with CUDA events; at (1|8, 128000, 100) both
      cluster sizes, each equal to the plain version, timed in turns;
+  3d. (run after 3) the same kernel masked by a per-frame count (the
+     ``cpu_fps`` mode) against the plain masked version: (1, 128000, 100)
+     at counts 0, 1, 50, 99, 64000, 127999 and 128000, (8, 128000, 100)
+     with a different count per frame (each frame equal to its own
+     single-frame launch), (1, 400000, 16) at 300000 past the on-chip
+     capacity; timed at counts of about N / 2, at B = 1 and 8;
   3b. the DBSCAN kernels (two launches per batch: a grid-wide mask pass,
      then one thread-block cluster per frame) against their plain PyTorch
      version on the GPU: raw labels
@@ -44,7 +52,16 @@ Phases (each raises on failure, and the process then exits nonzero):
      exact zero pixels, one DBSCAN (or FPS) launch per encode,
      byte-identical repeat encodes, GPU-vs-CPU bpp within 0.5%; the sha256
      of each DBSCAN-mode blob;
+  4c. the same checks for the remaining codec modes, each through
+     ``RPCCCodec(..., "cuda")`` on two street scenes: ``cpu_fps`` and
+     ``transfer_precision="f32"`` on the 64E, and the HDL-32E channel
+     table (32x2250, not cut) in FPS and in DBSCAN mode; one FPS (or
+     DBSCAN) wrapper call per encode;
   5. the compress/decompress CLIs with ``--device cuda`` in subprocesses;
+     compress ``--self_describing --eval`` decoded by a decompress with no
+     codec flags and no ``--lidar`` (then with ``--eval
+     --original_point_cloud``), and the 32E channel table with ``f32`` and
+     a ``--compressor_yaml`` that sets ``cpu_fps`` through both CLIs;
   3c. (run after 3b) the batched DBSCAN kernel at (4, 64, 2000) and
      (8, 64, 2000) on street scenes: labels equal the batched plain version
      and the single-frame kernel runs; the launch plan (clusters of 8 at
@@ -59,11 +76,15 @@ Phases (each raises on failure, and the process then exits nonzero):
      sha256 printed); encode
      and decode frames/s at B = 1 and B = 8 (median, min and max of five
      passes), the stage stats, and one profiled B = 8 encode (launches,
-     summed device time);
+     summed device time); the engine at B = 8 on the 32E channel table and
+     in f32 (its 4-byte ring): blobs equal the single-frame blobs, one FPS
+     launch per batch, decodes within bound;
   7. the datalist CLIs in subprocesses: ``compress_datalist --batch 4
      --device cuda`` on 10 frames equals the single-frame codec per seed,
      ``decompress_datalist`` on the host and the device backend within
-     bound and equal to each other.
+     bound and equal to each other; then both on four 32E channel-table
+     frames in f32 with ``cpu_fps`` from a ``--compressor_yaml`` and
+     ``--eval`` (one OK line per frame).
 
 A time is the median of 21 CUDA-event samples of one call each, as in
 every earlier run; a kernel is also timed over 10 calls back to back per
@@ -94,6 +115,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 LIDAR = "Velodyne64E"
 SEEDS = (0, 1, 2, 3)
 MODE_SEEDS = (10, 11)
+CSV_LIDAR = "Velodyne32E"  # with the HDL-32E channel table (data.VELODYNE_32E_CSV)
 BATCH_SEEDS = tuple(range(20))  # phase 6: batches of 8, 8 and 4
 STREET_SEEDS = (10, 11, 12, 13)  # phases 3c and 6 (DBSCAN at B = 4)
 STREET_SEEDS_8 = tuple(range(10, 18))  # phase 3c at B = 8
@@ -101,6 +123,11 @@ CLI_FRAMES = 10  # phase 7: batches of 4, 4 and 2
 # Phase 3: a 64E frame, a batch, N not divisible by C * threads, N < C, and
 # N above a cluster's on-chip capacity (16 CTAs x 16,384 points).
 FPS_SHAPES = ((1, 128000, 100), (4, 128000, 100), (2, 4133, 32), (1, 7, 5), (1, 400000, 16))
+# Phase 3d: the masked kernel's counts at (1, 128000, 100), a count per frame
+# at B = 8, and the counts it is timed at (about N / 2).
+MASKED_COUNTS = (0, 1, 50, 99, 64000, 127999, 128000)
+MASKED_COUNTS_8 = (0, 1, 50, 99, 64000, 100000, 127999, 128000)
+MASKED_TIMED = tuple(64000 + 500 * i for i in range(8))
 TIMED_RUNS = 21
 BACK_TO_BACK = 10  # calls per CUDA-event sample of a kernel's ``ms_10_back_to_back``
 # Kernel launches per wrapper call, whatever the batch: DBSCAN's mask pass
@@ -163,6 +190,14 @@ def fps_bound(B: int, N: int, K: int):
     """FPS: (K - 1) steps over B * N points of 9 f32 operations (3 sub,
     3 mul, 2 add, 1 min); x/y/z read once, the indices written once."""
     return bound(9.0 * (K - 1) * B * N, 12.0 * B * N + 4.0 * B * K)
+
+
+def masked_fps_bound(counts, K: int):
+    """Masked FPS: (K - 1) steps over the valid points only, 9 f32
+    operations each; their x/y/z and the counts read once, the indices
+    written once."""
+    n = float(sum(counts))
+    return bound(9.0 * (K - 1) * n, 12.0 * n + 4.0 * len(counts) * (K + 1))
 
 
 def dbscan_bound(active, B: int, H: int, W: int):
@@ -385,6 +420,60 @@ def fps_at_cluster(fps, cluster: int, xs, ys, zs, K: int):
         fps.launch_plan = chosen
 
 
+def phase_fps_masked(torch, np, dev, card):
+    """3d: the FPS kernel masked by per-frame counts against the plain
+    masked version, at every count of MASKED_COUNTS, per frame at B = 8,
+    and past the on-chip capacity; timed at counts of about N / 2."""
+    from rpcc_tpu_torch.ops import fps
+
+    K = 100
+    rng = np.random.default_rng(3)
+    pts = rng.uniform(-40.0, 40.0, (3, 8, 128000)).astype(np.float32)
+    pts[:, :, 20000:60000] = 0.0  # exact ties
+    xs, ys, zs = (torch.from_numpy(p).to(dev) for p in pts)
+    one = (xs[:1], ys[:1], zs[:1])
+
+    def held(planes, counts, k, what):
+        cnt = torch.tensor(counts, dtype=torch.int32, device=dev)
+        got = fps.furthest_point_sample_cuda(*planes, k, cnt)
+        ref = fps.furthest_point_sample_planar_masked(*planes, cnt, k)
+        torch.cuda.synchronize()
+        check(torch.equal(got, ref), f"masked FPS kernel differs from the plain masked version {what}")
+        return got, cnt
+
+    for nv in MASKED_COUNTS:
+        held(one, (nv,), K, f"at (1, 128000, {K}), count {nv}")
+    print(f"[phase 3d] masked fps kernel == plain at (1, 128000, {K}) for counts {list(MASKED_COUNTS)}")
+    got8, cnt8 = held((xs, ys, zs), MASKED_COUNTS_8, K, f"at (8, 128000, {K})")
+    single = torch.stack([fps.furthest_point_sample_cuda(xs[b], ys[b], zs[b], K, cnt8[b : b + 1]) for b in range(8)])
+    torch.cuda.synchronize()
+    check(torch.equal(got8, single), "a frame's masked FPS indices depend on its batch")
+    print(f"[phase 3d] masked fps kernel (8, 128000, {K}) == plain == per-frame launches for counts "
+          f"{list(MASKED_COUNTS_8)}")
+    big = rng.uniform(-40.0, 40.0, (3, 1, 400000)).astype(np.float32)
+    big[:, :, 266400:267400] = 300.0  # valid far points among those a CTA streams
+    big[:, :, 350000:351000] = 900.0  # farther, past the count: never picked
+    held(tuple(torch.from_numpy(p).to(dev) for p in big), (300000,), 16, "at (1, 400000, 16), count 300000")
+    plan = fps_plan(torch, fps, 1, 400000)
+    print(f"[phase 3d] masked fps kernel == plain at (1, 400000, 16), count 300000: {plan.onchip} points per "
+          f"CTA on chip, {plan.spill} streamed")
+
+    res = {}
+    for B, counts in ((1, MASKED_TIMED[:1]), (8, MASKED_TIMED)):
+        planes = one if B == 1 else (xs, ys, zs)
+        _, cnt = held(planes, counts, K, f"at ({B}, 128000, {K}), counts {list(counts)}")
+        run = lambda planes=planes, cnt=cnt: fps.furthest_point_sample_cuda(*planes, K, cnt)  # noqa: E731
+        ms, b2b = median_ms(torch, run), median_ms(torch, run, BACK_TO_BACK)
+        plain_ms = median_ms(torch, lambda planes=planes, cnt=cnt: fps.furthest_point_sample_planar_masked(*planes, cnt, K))
+        bound_ms, bound_by = masked_fps_bound(counts, K)
+        res[B] = dict(ms=ms, b2b=b2b, plain_ms=plain_ms, bound=(bound_ms, bound_by),
+                      shape=f"B={B} N=128000 K={K} n_valid={list(counts)}")
+        print(f"[phase 3d] [{card}] masked fps ({B}, 128000, {K}), counts {list(counts)}, median of {TIMED_RUNS}: "
+              f"kernel {ms:.4f} ms ({b2b:.4f} ms over {BACK_TO_BACK} back to back), plain {plain_ms:.4f} ms, "
+              f"bound {bound_ms:.6f} ms ({bound_by})")
+    return res
+
+
 def dbscan_plan(torch, dbscan, B: int, H: int, W: int):
     """The launch plan the DBSCAN wrapper picks for (B, H, W) on this card."""
     dev = torch.cuda.current_device()
@@ -410,11 +499,13 @@ def street_frame(np, segment, torch, tm, seed: int):
 
 
 def phase_dbscan(torch, np, dev, card, lidar):
+    from rpcc_tpu_torch.data import VELODYNE_32E_CSV, lidar_config
     from rpcc_tpu_torch.ops import dbscan, segment
     from rpcc_tpu_torch.ops.projection_host import build_transform_map
 
     tm = build_transform_map(lidar)
     planes64, active64 = street_frame(np, segment, torch, tm, 0)
+    planes32, active32 = street_frame(np, segment, torch, build_transform_map(lidar_config(CSV_LIDAR, VELODYNE_32E_CSV)), 1)
     empty = np.random.default_rng(4).uniform(-20, 20, (3, 32, 512)).astype(np.float32)
     wall, blobs = scene_long_wall(np), scene_blobs(np, 305)
     # Past a cluster's on-chip capacity: four street scenes tiled to 128x4000.
@@ -429,6 +520,7 @@ def phase_dbscan(torch, np, dev, card, lidar):
         ("8x20 narrow frame", *scene_narrow(np, 0, 8, 20), 1.0),
         ("64x2000 ring wall across the seam", *scene_ring(np, 64, 2000, 20.0, (1000, 1010)), 1.5),
         ("128x4000 frame past the on-chip capacity", big, big_active, 1.5),
+        ("32x2250 street scene on the HDL-32E channel table", planes32, active32, 1.5),
     ]
     err_max = 0
     ms = b2b = plain_ms = split = None
@@ -515,6 +607,8 @@ def phase_main(torch, np, dev, card, lidar):
     check(launches == 2 * len(SEEDS), f"fps.LAUNCHES rose by {launches} over {2 * len(SEEDS)} encodes")
     check(dbscan.LAUNCHES == 0, "the FPS path launched the DBSCAN kernel")
     print(f"[phase 4] fps.LAUNCHES = {launches} for {2 * len(SEEDS)} encodes")
+    for s, res in results.items():
+        print(f"[phase 4] default seed {s} blob sha256 {hashlib.sha256(res[1]).hexdigest()}")
     bpps = check_frames(np, codec, results, bound, card, "default", 4)
 
     cpu_codec = RPCCCodec(lidar, cfg, "cpu")
@@ -536,57 +630,126 @@ def phase_main(torch, np, dev, card, lidar):
     return codec, frames, launches / (2 * len(SEEDS))
 
 
-def phase_modes(torch, np, dev, card, lidar):
-    """The DBSCAN, plane and non-uniform paths; returns DBSCAN's launches
-    per encode."""
-    from rpcc_tpu_torch.config import CodecConfig
+def drive_mode(torch, np, dev, card, lidar, tag, cfg, frames, phase):
+    """One codec mode through ``RPCCCodec(lidar, cfg, "cuda")``: each frame
+    encoded, decoded and encoded again with the launches counted (one FPS
+    or DBSCAN wrapper call per encode), the error bound, exact zero pixels,
+    byte-identical repeats, and the CPU codec's bpp (within BPP_TOL) and
+    decode of the card's blob.  -> (launch counts, encode_frames results)"""
     from rpcc_tpu_torch.models.pipeline import RPCCCodec
     from rpcc_tpu_torch.ops import dbscan, fps
+
+    n_enc = 2 * len(frames)
+    bound = (cfg.step if cfg.uniform else cfg.step + max(cfg.level_delta_acc)) + 1e-5
+    codec = RPCCCodec(lidar, cfg, dev)
+    codec.decompress(codec.compress(next(iter(frames.values())))[0])  # warm-up
+    torch.cuda.synchronize()
+    fps.LAUNCHES = dbscan.LAUNCHES = 0
+    results = encode_frames(codec, frames)
+    counts = {"fps": fps.LAUNCHES, "dbscan": dbscan.LAUNCHES}
+    want = {"fps": 0, "dbscan": n_enc} if cfg.segment_method == "DBSCAN" else {"fps": n_enc, "dbscan": 0}
+    check(counts == want, f"{tag}: kernel launches {counts} over {n_enc} encodes, expected {want}")
+    print(f"[phase {phase}] {tag} ({lidar.height}x{lidar.width}): launches {counts} for {n_enc} encodes")
+    bpps = check_frames(np, codec, results, bound, card, tag, phase)
+
+    cpu_codec = RPCCCodec(lidar, cfg, "cpu")
+    for s, pc in frames.items():
+        blob_cpu, fields_cpu, _ = cpu_codec.compress(pc)
+        bpp_cpu = len(blob_cpu) * 8 / fields_cpu["residual_quantized"].size
+        rel = abs(bpps[s] - bpp_cpu) / bpp_cpu
+        _, ri_x, _ = cpu_codec.decompress(results[s][1])  # GPU blob, CPU decoder
+        q, d = codec.project(pc)
+        x_err = float(np.abs(ri_x - q.astype(np.float32) * d).max())
+        print(f"[phase {phase}] {tag} seed {s} cuda vs cpu: bpp {bpps[s]:.5f} vs {bpp_cpu:.5f} "
+              f"(rel diff {rel:.5f}), cpu decode of the cuda blob max_err {x_err:.6f}, "
+              f"blobs identical {blob_cpu == results[s][1]}")
+        check(rel <= BPP_TOL, f"{tag} seed {s}: cuda vs cpu bpp differ by {rel:.4%}")
+        check(x_err <= bound, f"{tag} seed {s}: cpu decode of the cuda blob: max_err {x_err} > {bound}")
+    return counts, results
+
+
+def phase_modes(torch, np, dev, card, lidar):
+    """4b: the DBSCAN, plane and non-uniform paths; returns DBSCAN's
+    launches per encode."""
+    from rpcc_tpu_torch.config import CodecConfig
     from rpcc_tpu_torch.ops.projection_host import build_transform_map
 
     tm = build_transform_map(lidar)
     frames = {s: scene_cloud(np, tm, s) for s in MODE_SEEDS}
-    n_enc = 2 * len(MODE_SEEDS)
     dbscan_launches = None
     for tag, cfg in (
         ("DBSCAN", CodecConfig(segment_method="DBSCAN")),
         ("plane", CodecConfig(modeling_method="plane")),
         ("non-uniform", CodecConfig(compress_framework="non-uniform")),
     ):
-        bound = (cfg.step if cfg.uniform else cfg.step + max(cfg.level_delta_acc)) + 1e-5
-        codec = RPCCCodec(lidar, cfg, dev)
-        codec.decompress(codec.compress(frames[MODE_SEEDS[0]])[0])  # warm-up
-        torch.cuda.synchronize()
-        fps.LAUNCHES = dbscan.LAUNCHES = 0
-        results = encode_frames(codec, frames)
-        counts = {"fps": fps.LAUNCHES, "dbscan": dbscan.LAUNCHES}
-        want = {"fps": 0, "dbscan": n_enc} if tag == "DBSCAN" else {"fps": n_enc, "dbscan": 0}
-        check(counts == want, f"{tag}: kernel launches {counts} over {n_enc} encodes, expected {want}")
-        print(f"[phase 4b] {tag}: launches {counts} for {n_enc} encodes")
+        counts, results = drive_mode(torch, np, dev, card, lidar, tag, cfg, frames, "4b")
         if tag == "DBSCAN":
-            dbscan_launches = counts["dbscan"] / n_enc
+            dbscan_launches = counts["dbscan"] / (2 * len(frames))
             for s, res in results.items():
                 print(f"[phase 4b] DBSCAN seed {s} blob sha256 {hashlib.sha256(res[1]).hexdigest()}")
-        bpps = check_frames(np, codec, results, bound, card, tag, "4b")
-
-        cpu_codec = RPCCCodec(lidar, cfg, "cpu")
-        for s, pc in frames.items():
-            blob_cpu, fields_cpu, _ = cpu_codec.compress(pc)
-            bpp_cpu = len(blob_cpu) * 8 / fields_cpu["residual_quantized"].size
-            rel = abs(bpps[s] - bpp_cpu) / bpp_cpu
-            _, ri_x, _ = cpu_codec.decompress(results[s][1])  # GPU blob, CPU decoder
-            q, d = codec.project(pc)
-            x_err = float(np.abs(ri_x - q.astype(np.float32) * d).max())
-            print(f"[phase 4b] {tag} seed {s} cuda vs cpu: bpp {bpps[s]:.5f} vs {bpp_cpu:.5f} "
-                  f"(rel diff {rel:.5f}), cpu decode of the cuda blob max_err {x_err:.6f}, "
-                  f"blobs identical {blob_cpu == results[s][1]}")
-            check(rel <= BPP_TOL, f"{tag} seed {s}: cuda vs cpu bpp differ by {rel:.4%}")
-            check(x_err <= bound, f"{tag} seed {s}: cpu decode of the cuda blob: max_err {x_err} > {bound}")
     return dbscan_launches
 
 
-def phase_cli(np, codec, frames):
+def phase_new_modes(torch, np, dev, card, lidar):
+    """4c: ``cpu_fps`` and ``f32`` on the 64E, the 32E channel table in FPS
+    and DBSCAN mode; returns each mode's launches per encode."""
     from rpcc_tpu_torch.config import CodecConfig
+    from rpcc_tpu_torch.data import VELODYNE_32E_CSV, lidar_config
+    from rpcc_tpu_torch.ops.projection_host import build_transform_map
+
+    lidar32 = lidar_config(CSV_LIDAR, VELODYNE_32E_CSV)
+    per_encode = {}
+    for tag, lid, cfg in (
+        ("cpu_fps", lidar, CodecConfig(cpu_fps=True)),
+        ("f32", lidar, CodecConfig(transfer_precision="f32")),
+        ("32E CSV", lidar32, CodecConfig()),
+        ("32E CSV DBSCAN", lidar32, CodecConfig(segment_method="DBSCAN")),
+    ):
+        tm = build_transform_map(lid)
+        frames = {s: scene_cloud(np, tm, s) for s in MODE_SEEDS}
+        counts, _ = drive_mode(torch, np, dev, card, lid, tag, cfg, frames, "4c")
+        per_encode[tag] = {k: v / (2 * len(frames)) for k, v in counts.items()}
+    return per_encode
+
+
+def run_cli(mod, args, phase):
+    """``python -m rpcc_tpu_torch.cli.<mod> <args>`` in a subprocess; -> its
+    standard output (raises on a nonzero exit)."""
+    t = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", f"rpcc_tpu_torch.cli.{mod}", *args],
+                          cwd=ROOT, capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0, f"cli.{mod} {' '.join(args)} failed:\n{proc.stdout}\n{proc.stderr}")
+    print(f"[phase {phase}] cli.{mod} ({time.perf_counter() - t:.1f} s with start-up): "
+          + " | ".join(ln.strip() for ln in proc.stdout.strip().splitlines()))
+    return proc.stdout
+
+
+def cpu_fps_yaml(path: str) -> str:
+    """The package's codec YAML with ``cpu_fps: true``, written to ``path``."""
+    from rpcc_tpu_torch.config import DEFAULT_CODEC_YAML
+
+    with open(DEFAULT_CODEC_YAML) as f:
+        text = f.read()
+    check("cpu_fps: false" in text, "the codec YAML has no cpu_fps key")
+    with open(path, "w") as f:
+        f.write(text.replace("cpu_fps: false", "cpu_fps: true"))
+    return path
+
+
+def eval_number(stdout: str, label: str) -> float:
+    return float(next(ln for ln in stdout.splitlines() if ln.strip().startswith(label)).split()[-1])
+
+
+def write_bin(np, path, pc):
+    np.concatenate([pc, np.zeros((pc.shape[0], 1), np.float32)], 1).astype(np.float32).tofile(path)
+
+
+def phase_cli(np, codec, frames):
+    """5: the single-frame CLIs on the card, in subprocesses."""
+    from rpcc_tpu_torch.config import CodecConfig
+    from rpcc_tpu_torch.data import VELODYNE_32E_CSV, lidar_config
+    from rpcc_tpu_torch.models.pipeline import RPCCCodec
+    from rpcc_tpu_torch.ops.projection_host import build_transform_map
 
     bound = CodecConfig().step + 1e-5
     work = tempfile.mkdtemp(prefix=".chip_smoke_", dir=ROOT)
@@ -595,15 +758,10 @@ def phase_cli(np, codec, frames):
         src = os.path.join(work, "frame.bin")
         out = os.path.join(work, "frame.rpcc")
         rec = os.path.join(work, "rec.bin")
-        np.concatenate([pc, np.zeros((pc.shape[0], 1), np.float32)], 1).tofile(src)
+        write_bin(np, src, pc)
         common = ["--lidar", LIDAR, "--device", "cuda"]
-        for mod, a, b in (("compress", src, out), ("decompress", out, rec)):
-            proc = subprocess.run(
-                [sys.executable, "-m", f"rpcc_tpu_torch.cli.{mod}", "--input", a, "--output", b, *common],
-                cwd=ROOT, capture_output=True, text=True, timeout=600,
-            )
-            check(proc.returncode == 0, f"cli.{mod} failed:\n{proc.stdout}\n{proc.stderr}")
-            print(f"[phase 5] cli.{mod}: " + " | ".join(proc.stdout.strip().splitlines()))
+        run_cli("compress", ["--input", src, "--output", out, *common], 5)
+        run_cli("decompress", ["--input", out, "--output", rec, *common], 5)
         with open(out, "rb") as f:
             blob = f.read()
         pc_dec, ri_rec, _ = codec.decompress(blob)
@@ -615,6 +773,46 @@ def phase_cli(np, codec, frames):
         cli_pts = np.fromfile(rec, np.float32).reshape(-1, 4)[:, :3]
         check(np.array_equal(cli_pts, pts), "CLI decode differs from the in-process decode")
         print(f"[phase 5] CLI roundtrip ok: max_err {err:.6f}, {cli_pts.shape[0]} points")
+
+        # A self-describing stream: decompress takes no codec flag and no --lidar.
+        sd, sd_rec = os.path.join(work, "sd.rpcc"), os.path.join(work, "sd.bin")
+        enc_out = run_cli("compress", ["--input", src, "--output", sd, *common, "--self_describing", "--eval"], 5)
+        with open(sd, "rb") as f:
+            sd_blob = f.read()
+        check(sd_blob.startswith(b"RPC1") and sd_blob.endswith(blob), "the self-describing stream is not header + blob")
+        run_cli("decompress", ["--input", sd, "--output", sd_rec], 5)
+        check(np.array_equal(np.fromfile(sd_rec, np.float32), np.fromfile(rec, np.float32)),
+              "the flagless decode of the self-describing stream differs")
+        dec_out = run_cli("decompress", ["--input", sd, "--output", sd_rec, "--eval", "--original_point_cloud", src], 5)
+        for label in ("Depth Error (max)", "Chamfer Distance (mean)", "F1 score", "Point-to-Point PSNR", "Point-to-Plane PSNR"):
+            check(eval_number(enc_out, label) == eval_number(dec_out, label), f"compress and decompress --eval differ: {label}")
+        check(eval_number(enc_out, "Depth Error (max)") <= bound, "--eval: depth error past the bound")
+        print(f"[phase 5] self-describing stream decoded with no codec flags; --eval on both CLIs: max_err "
+              f"{eval_number(enc_out, 'Depth Error (max)'):.6f}, chamfer {eval_number(enc_out, 'Chamfer Distance (mean)'):.6f}, "
+              f"F1 {eval_number(enc_out, 'F1 score'):.4f}, p2p {eval_number(enc_out, 'Point-to-Point PSNR'):.3f}, "
+              f"p2plane {eval_number(enc_out, 'Point-to-Plane PSNR'):.3f}")
+
+        # The 32E channel table, f32 transfer and cpu_fps (from a YAML) through both CLIs.
+        lidar32 = lidar_config(CSV_LIDAR, VELODYNE_32E_CSV)
+        pc32 = scene_cloud(np, build_transform_map(lidar32), MODE_SEEDS[0])
+        src32, out32, rec32 = (os.path.join(work, f) for f in ("f32.bin", "f32.rpcc", "f32rec.bin"))
+        write_bin(np, src32, pc32)
+        flags32 = ["--lidar", CSV_LIDAR, "--channel_distribute_csv", VELODYNE_32E_CSV, "--transfer_precision", "f32",
+                   "--compressor_yaml", cpu_fps_yaml(os.path.join(work, "cpu_fps.yaml")), "--device", "cuda"]
+        run_cli("compress", ["--input", src32, "--output", out32, *flags32], 5)
+        run_cli("decompress", ["--input", out32, "--output", rec32, *flags32], 5)
+        codec32 = RPCCCodec(lidar32, CodecConfig(cpu_fps=True, transfer_precision="f32"), "cuda")
+        with open(out32, "rb") as f:
+            blob32 = f.read()
+        check(blob32 == codec32.compress(pc32)[0], "32E f32 cpu_fps CLI blob != RPCCCodec blob")
+        pc32_dec, ri32_rec, _ = codec32.decompress(blob32)
+        q32, d32 = codec32.project(pc32)
+        err32 = float(np.abs(ri32_rec - q32 * d32).max())
+        check(err32 <= bound, f"32E f32 cpu_fps CLI: max_err {err32} > {bound}")
+        pts32 = pc32_dec.reshape(-1, 3)
+        check(np.array_equal(np.fromfile(rec32, np.float32).reshape(-1, 4)[:, :3], pts32[pts32.sum(-1) != 0]),
+              "32E CLI decode differs from the in-process decode")
+        print(f"[phase 5] 32E channel table, f32, cpu_fps through both CLIs: blob == RPCCCodec, max_err {err32:.6f}")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -815,6 +1013,35 @@ def phase_engine(torch, np, dev, card, lidar, codec):
     deng.close()
     print(f"[phase 6] DBSCAN engine (B={len(street)}): launches {db_launches}, blobs == single-frame RPCCCodec; "
           f"sha256 {[hashlib.sha256(b).hexdigest() for b in dblobs]}")
+
+    # The 32E channel table, and f32 transfer (a 4-byte ring), at B = 8.
+    from rpcc_tpu_torch.data import VELODYNE_32E_CSV, lidar_config
+
+    lidar32 = lidar_config(CSV_LIDAR, VELODYNE_32E_CSV)
+    tm32 = build_transform_map(lidar32)
+    seeds = BATCH_SEEDS[:B]
+    for tag, lid, ecfg, clouds in (
+        ("32E CSV", lidar32, CodecConfig(), [scene_cloud(np, tm32, s) for s in seeds]),
+        ("f32", lidar, CodecConfig(transfer_precision="f32"), frames[:B]),
+    ):
+        ecodec = RPCCCodec(lid, ecfg, dev)
+        esingles = [ecodec.compress(pc, seed=s)[0] for pc, s in zip(clouds, seeds)]
+        eng = BatchEngine(lid, ecfg, dev, batch_size=B)
+        try:
+            eng.encode_frames(clouds, seeds)  # warm-up
+            torch.cuda.synchronize()
+            fps.LAUNCHES = dbscan.LAUNCHES = 0
+            eblobs = [b for b, _ in eng.encode_frames(clouds, seeds)]
+            e_launches = {"fps": fps.LAUNCHES, "dbscan": dbscan.LAUNCHES}
+            check(e_launches == {"fps": 1, "dbscan": 0}, f"{tag} engine launches {e_launches} for one batch")
+            check(eblobs == esingles, f"{tag} engine blobs differ from single-frame blobs")
+            recs = eng.decode_range_images(eblobs)
+            e_err = max(float(np.abs(r - q * d).max()) for r, (q, d) in zip(recs, map(ecodec.project, clouds)))
+            check(e_err <= bound, f"{tag} engine decode: max_err {e_err} > {bound}")
+        finally:
+            eng.close()
+        print(f"[phase 6] {tag} engine (B={B}, {lid.height}x{lid.width}, {eng._ring[0].q.dtype} ring): launches "
+              f"{e_launches}, blobs == single-frame RPCCCodec, decode max_err {e_err:.6f}")
     return dict(fps_err=fps_err, fps_ms=fps_ms, fps_b2b=fps_b2b, fps_plain_ms=fps_plain_ms,
                 fps_bound=(fps_bound_ms, fps_bound_by),
                 fps_shape=f"B={B} N={lidar.height * lidar.width} K={cfg.cluster_num}",
@@ -837,19 +1064,14 @@ def phase_datalist(np, codec, lidar):
         srcs = []
         for i, pc in enumerate(frames):
             srcs.append(os.path.join(src_dir, f"{i:06d}.bin"))
-            np.concatenate([pc, np.zeros((pc.shape[0], 1), np.float32)], 1).tofile(srcs[-1])
+            write_bin(np, srcs[-1], pc)
         lst = os.path.join(work, "list.txt")
         with open(lst, "w") as f:
             f.write("\n".join(srcs) + "\n")
         common = ["--lidar", LIDAR, "--device", "cuda", "--batch", "4"]
 
         def run(mod, *args):
-            t = time.perf_counter()
-            proc = subprocess.run([sys.executable, "-m", f"rpcc_tpu_torch.cli.{mod}", *args, *common],
-                                  cwd=ROOT, capture_output=True, text=True, timeout=600)
-            check(proc.returncode == 0, f"cli.{mod} failed:\n{proc.stdout}\n{proc.stderr}")
-            tail = proc.stdout.strip().splitlines()[-1]
-            print(f"[phase 7] cli.{mod} {' '.join(args[-2:])}: {tail} ({time.perf_counter() - t:.1f} s with start-up)")
+            run_cli(mod, [*args, *common], 7)
 
         out_dir = os.path.join(work, "rpcc")
         run("compress_datalist", "--datalist", lst, "--output_dir", out_dir)
@@ -862,10 +1084,8 @@ def phase_datalist(np, codec, lidar):
                 blobs.append(f.read())
             check(blobs[-1] == codec.compress(pc, seed=i)[0], f"datalist blob {i} != single-frame codec, seed {i}")
         single = os.path.join(work, "single.rpcc")
-        proc = subprocess.run([sys.executable, "-m", "rpcc_tpu_torch.cli.compress", "--input", srcs[3],
-                               "--output", single, "--lidar", LIDAR, "--device", "cuda", "--seed", "3"],
-                              cwd=ROOT, capture_output=True, text=True, timeout=600)
-        check(proc.returncode == 0, f"cli.compress failed:\n{proc.stdout}\n{proc.stderr}")
+        run_cli("compress", ["--input", srcs[3], "--output", single, "--lidar", LIDAR, "--device", "cuda",
+                             "--seed", "3"], 7)
         with open(single, "rb") as f:
             check(f.read() == blobs[3], "datalist blob 3 != single-frame CLI --seed 3")
         print(f"[phase 7] {len(blobs)} datalist blobs == single-frame codec per seed; "
@@ -892,13 +1112,58 @@ def phase_datalist(np, codec, lidar):
         check(diff <= 1e-5, f"host and device backends differ by {diff}")
         print(f"[phase 7] both backends within bound; host vs device max |diff| {diff:.3g} "
               f"(identical: {all(np.array_equal(a, b) for a, b in zip(pts['host'], pts['device']))})")
+
+        # The 32E channel table in f32 with cpu_fps from a YAML, and --eval.
+        from rpcc_tpu_torch.data import VELODYNE_32E_CSV, lidar_config
+        from rpcc_tpu_torch.models.pipeline import RPCCCodec
+        from rpcc_tpu_torch.ops.projection_host import build_transform_map
+
+        lidar32 = lidar_config(CSV_LIDAR, VELODYNE_32E_CSV)
+        tm32 = build_transform_map(lidar32)
+        frames32 = [scene_cloud(np, tm32, s) for s in STREET_SEEDS]
+        srcs32 = [os.path.join(src_dir, f"csv{i:06d}.bin") for i in range(len(frames32))]
+        for path, pc in zip(srcs32, frames32):
+            write_bin(np, path, pc)
+        lst32 = os.path.join(work, "list32.txt")
+        with open(lst32, "w") as f:
+            f.write("\n".join(srcs32) + "\n")
+        flags32 = ["--lidar", CSV_LIDAR, "--channel_distribute_csv", VELODYNE_32E_CSV, "--transfer_precision", "f32",
+                   "--compressor_yaml", cpu_fps_yaml(os.path.join(work, "cpu_fps.yaml")), "--device", "cuda", "--batch", "4"]
+        out32 = os.path.join(work, "rpcc32")
+        stdout = run_cli("compress_datalist", ["--datalist", lst32, "--output_dir", out32, "--eval", *flags32], 7)
+        evals = [ln for ln in stdout.splitlines() if ln.startswith("eval ")]
+        check(len(evals) == len(frames32) and all(ln.endswith(" OK") for ln in evals),
+              f"compress_datalist --eval: {len(evals)} lines, not all OK")
+        codec32 = RPCCCodec(lidar32, CodecConfig(cpu_fps=True, transfer_precision="f32"), "cuda")
+        outs32 = [_mirror_path(p, out32, "rpcc") for p in srcs32]
+        for i, (pc, path) in enumerate(zip(frames32, outs32)):
+            with open(path, "rb") as f:
+                check(f.read() == codec32.compress(pc, seed=i)[0], f"32E datalist blob {i} != RPCCCodec, seed {i}")
+        lst32b = os.path.join(work, "list32b.txt")
+        with open(lst32b, "w") as f:
+            f.write("\n".join(outs32) + "\n")
+        rec32 = os.path.join(work, "rec32")
+        run_cli("decompress_datalist", ["--datalist", lst32b, "--output_dir", rec32, *flags32], 7)
+        err32 = 0.0
+        for pc, path in zip(frames32, outs32):
+            ri = codec32.project(pc)[0]
+            keep = ri.reshape(-1) > 0
+            rows = np.fromfile(_mirror_path(path, rec32, "bin"), np.float32).reshape(-1, 4)
+            check(rows.shape[0] == int(keep.sum()), "32E datalist decode: rows != nonzero pixels")
+            rec = np.linalg.norm(rows[:, :3].astype(np.float64), axis=1)
+            ray = np.linalg.norm(tm32.reshape(-1, 3)[keep].astype(np.float64), axis=1)
+            err32 = max(err32, float(np.abs(rec / ray - ri.reshape(-1)[keep]).max()))
+        check(err32 <= bound, f"32E datalist decode: max_err {err32} > {bound}")
+        print(f"[phase 7] 32E channel table, f32, cpu_fps: {len(outs32)} datalist blobs == RPCCCodec per seed, "
+              f"{len(evals)} eval lines OK, decode max_err {err32:.6f}")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
 
 def phase_against(torch, np, dev, card, lidar, root: str) -> None:
     """``--against``: the DBSCAN kernel of ``root``'s package timed as in
-    phases 3b/3c, and the sha256 of the DBSCAN-mode blobs of phases 4b/6."""
+    phases 3b/3c, and the sha256 of the main path's blobs of phase 4 and
+    of the DBSCAN-mode blobs of phases 4b/6."""
     import rpcc_tpu_torch
     from rpcc_tpu_torch.config import CodecConfig
     from rpcc_tpu_torch.models.pipeline import RPCCCodec
@@ -906,8 +1171,18 @@ def phase_against(torch, np, dev, card, lidar, root: str) -> None:
     from rpcc_tpu_torch.ops.projection_host import build_transform_map
     from rpcc_tpu_torch.parallel.engine import BatchEngine
 
+    from rpcc_tpu_torch.ops import fps
+
     pkg = os.path.dirname(os.path.dirname(os.path.abspath(rpcc_tpu_torch.__file__)))
     check(pkg == root, f"imported the package of {pkg}, not of {root}")
+    for B in (1, 8):  # the unmasked FPS kernel of the main path, as in phases 3 and 6
+        pts = np.random.default_rng(B).uniform(-40.0, 40.0, (3, B, 128000)).astype(np.float32)
+        pts[:, :, 20000:60000] = 0.0
+        xs, ys, zs = (torch.from_numpy(p).to(dev) for p in pts)
+        run = lambda: fps.furthest_point_sample_cuda(xs, ys, zs, 100)  # noqa: E731
+        print(f"[against] [{card}] fps ({B}, 128000, 100) of {root} median of {TIMED_RUNS}: "
+              f"{median_ms(torch, run):.4f} ms one call, {median_ms(torch, run, BACK_TO_BACK):.4f} ms "
+              f"over {BACK_TO_BACK} back to back")
     tm = build_transform_map(lidar)
     for seeds in ((0,), STREET_SEEDS, STREET_SEEDS_8):
         frames = [street_frame(np, segment, torch, tm, s) for s in seeds]
@@ -920,6 +1195,12 @@ def phase_against(torch, np, dev, card, lidar, root: str) -> None:
         if hasattr(dbscan, "PHASES"):  # a kernel with phase stamps
             print(f"[against] [{card}] dbscan ({len(seeds)}, 64, 2000) frame 0 phase split (us): "
                   + json.dumps({k: round(v, 3) for k, v in dbscan_split(torch, dbscan, p, a, 1.5).items()}))
+    from rpcc_tpu_torch.data.synth import synth_cloud_for
+
+    codec = RPCCCodec(lidar, CodecConfig(), dev)
+    for s in SEEDS:
+        print(f"[phase 4] default seed {s} blob sha256 "
+              f"{hashlib.sha256(codec.compress(synth_cloud_for(lidar, s))[0]).hexdigest()}")
     cfg = CodecConfig(segment_method="DBSCAN")
     codec = RPCCCodec(lidar, cfg, dev)
     for s in MODE_SEEDS:
@@ -940,7 +1221,8 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--against", metavar="CHECKOUT",
-                    help="time the DBSCAN kernel and hash the DBSCAN blobs of this checkout's package only")
+                    help="time the FPS and DBSCAN kernels and hash the main-path and DBSCAN blobs of this "
+                    "checkout's package only")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -977,11 +1259,13 @@ def main() -> int:
     phase_build()  # 1
     phase_prng(torch, dev)  # 2
     fps_err, fps_ms, fps_b2b, fps_plain_ms = phase_fps(torch, np, dev, card)  # 3
+    masked = phase_fps_masked(torch, np, dev, card)  # 3d
     db_err, db_ms, db_b2b, db_plain_ms, db_bound, db_split = phase_dbscan(torch, np, dev, card, lidar)  # 3b
     db4 = phase_dbscan_batch(torch, np, dev, card, lidar, STREET_SEEDS)  # 3c
     db8 = phase_dbscan_batch(torch, np, dev, card, lidar, STREET_SEEDS_8)
     codec, frames, fps_per_encode = phase_main(torch, np, dev, card, lidar)  # 4
     db_per_encode = phase_modes(torch, np, dev, card, lidar)  # 4b
+    new_modes = phase_new_modes(torch, np, dev, card, lidar)  # 4c
     phase_cli(np, codec, frames)  # 5
     eng = phase_engine(torch, np, dev, card, lidar, codec)  # 6
     phase_datalist(np, codec, lidar)  # 7
@@ -992,7 +1276,9 @@ def main() -> int:
     # main-path run; the single-frame times and bound of phases 3 and 3b
     # stand beside them (DBSCAN's B = 8 times of phase 3c too), and
     # ``launches_per_encode`` is the kernel launches of one single-frame
-    # encode (phases 4, 4b): wrapper calls times LAUNCHES_PER_CALL.  No
+    # encode (phases 4, 4b): wrapper calls times LAUNCHES_PER_CALL.  The
+    # ``masked_*`` keys are the FPS kernel masked by per-frame counts
+    # (phase 3d; its launches per ``cpu_fps`` encode from phase 4c).  No
     # single PyTorch call computes FPS or DBSCAN labels, so ``library_ms``
     # is null.
     print(json.dumps({"kernels": [
@@ -1016,6 +1302,18 @@ def main() -> int:
             "single_frame_ms_10_back_to_back": fps_b2b,
             "single_frame_plain_ms": fps_plain_ms,
             "single_frame_bound_ms": fps_bound(1, 128000, 100)[0],
+            "masked_launches_per_encode": new_modes["cpu_fps"]["fps"] * LAUNCHES_PER_CALL["fps"],
+            "masked_shape": masked[1]["shape"],
+            "masked_ms": masked[1]["ms"],
+            "masked_ms_10_back_to_back": masked[1]["b2b"],
+            "masked_plain_ms": masked[1]["plain_ms"],
+            "masked_bound_ms": masked[1]["bound"][0],
+            "masked_bound_by": masked[1]["bound"][1],
+            "masked_batch8_shape": masked[8]["shape"],
+            "masked_batch8_ms": masked[8]["ms"],
+            "masked_batch8_ms_10_back_to_back": masked[8]["b2b"],
+            "masked_batch8_plain_ms": masked[8]["plain_ms"],
+            "masked_batch8_bound_ms": masked[8]["bound"][0],
         },
         {
             "name": "dbscan",

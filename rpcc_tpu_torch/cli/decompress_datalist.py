@@ -23,7 +23,7 @@ import time
 
 import numpy as np
 
-from rpcc_tpu_torch.cli.common import add_codec_args, config_from_args, lidar_from_args
+from rpcc_tpu_torch.cli.common import add_codec_args, config_from_args, device_from_args, lidar_from_args
 from rpcc_tpu_torch.cli.compress_datalist import _mirror_path, output_path_for
 
 
@@ -101,7 +101,7 @@ def main(argv=None) -> None:
     else:
         from rpcc_tpu_torch.parallel.engine import BatchEngine
 
-        engine = BatchEngine(lidar, cfg, args.device, batch_size=args.batch, workers=args.workers)
+        engine = BatchEngine(lidar, cfg, device_from_args(args), batch_size=args.batch, workers=args.workers)
         decode = engine.decode_blobs_points
 
     t0 = time.time()  # after start-up, as in compress_datalist

@@ -1,5 +1,5 @@
-"""The port's native host library: LZ4 blocks, the rANS lanes, the u16
-snap projection, the host frame decoder and the back-projection.
+"""The port's native host library: LZ4 blocks, the rANS lanes, the f32 and
+u16 snap projections, the host frame decoder and the back-projection.
 
 ``csrc/host/*.cpp`` are copies of ``rpcc_tpu/codec/native/*.cpp``, built
 with the reference's flags (``-ffp-contract=off`` keeps the projection
@@ -37,6 +37,13 @@ def _register(lib: ct.CDLL) -> None:
         fn = getattr(lib, name)
         fn.restype = ct.c_size_t
         fn.argtypes = [ct.c_char_p, ct.c_size_t, ct.c_char_p, ct.c_size_t]
+    lib.project_bin_raster.restype = None
+    lib.project_bin_raster.argtypes = [
+        ct.c_void_p, ct.c_int64, ct.c_int64,
+        ct.c_int32, ct.c_int32, ct.c_int32,
+        ct.c_float, ct.c_float, ct.c_float,
+        ct.c_void_p, ct.c_int32, ct.c_void_p,
+    ]
     lib.project_bin_raster_u16.restype = None
     lib.project_bin_raster_u16.argtypes = [
         ct.c_void_p, ct.c_int64, ct.c_int64,

@@ -1,6 +1,6 @@
 """Codec and LiDAR configuration (a copy of ``rpcc_tpu/config.py``, so the
-port imports nothing of ``rpcc_tpu``; its YAML files are the port's own
-copies under ``data/lidar_cfg/``).
+port imports nothing of ``rpcc_tpu``; its YAML and CSV files are the port's
+own copies under ``data/lidar_cfg/`` and ``cfgs/``).
 
 Mirrors the reference's knob surface (``cfgs/compressor.yaml:4-36`` and
 ``dataset/lidar_cfg/*.yaml`` in R-PCC) but as typed, hashable dataclasses so
@@ -24,6 +24,7 @@ import yaml
 
 _BASE_DIR = os.path.dirname(os.path.abspath(__file__))
 LIDAR_CFG_DIR = os.path.join(_BASE_DIR, "data", "lidar_cfg")
+DEFAULT_CODEC_YAML = os.path.join(_BASE_DIR, "cfgs", "compressor.yaml")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -226,3 +227,8 @@ class CodecConfig:
         kw = {k: v for k, v in kw.items() if v is not None}
         return dataclasses.replace(self, **kw)
 
+
+def load_codec_config(path: Optional[str] = None, **overrides) -> CodecConfig:
+    """The :class:`CodecConfig` of a codec YAML (default: the package's
+    ``cfgs/compressor.yaml``), with ``overrides`` that are not None."""
+    return CodecConfig.from_yaml(path or DEFAULT_CODEC_YAML, **overrides)

@@ -9,6 +9,15 @@
 //   * each of the K-1 steps updates min-d2 with d2 = (dx*dx + dy*dy) + dz*dz
 //     and picks its argmax, the larger value first and, on equal values,
 //     the lower index of the frame.
+// With a per-frame count (num_valid, read on the device) it computes the
+// masked FPS of rpcc_tpu/ops/fps.py::furthest_point_sample_planar_masked
+// (the cpu_fps mode, over a compacted point list): the seed is still index
+// 0, and points at or past the frame's count never win, as if their min-d2
+// were pinned at -1.  Every valid min-d2 is >= 0 > -1, so with a count of at
+// least 1 that is FPS over the first `count` points alone; with a count of
+// 0 every value is -1 and every pick is index 0, which is FPS over point 0
+// alone.  So only the points below max(count, 1) take part, and their
+// arithmetic and ordering are the unmasked kernel's.
 // d2 is computed with __fsub_rn/__fmul_rn/__fadd_rn so no FMA contraction
 // changes a near-tie against the plain version: the indices are equal.
 //
@@ -61,7 +70,8 @@ constexpr int kMaxCluster = 16;
 
 // A CTA's best point of a step.  Every min-d2 is >= +0, so the order of the
 // f32 bit patterns as unsigned integers is the order of the values; a CTA
-// with no points sends (0, INT_MAX), which every real point beats.
+// with no points taking part sends (0, INT_MAX), which every real point
+// beats (a min-d2 of +0 on its index).
 struct Candidate {
   unsigned v;  // __float_as_uint(min-d2)
   int i;       // index in the frame
@@ -93,11 +103,13 @@ __device__ __forceinline__ float dist2(float x, float y, float z, float x0, floa
 
 // Grid: B * C CTAs of kThreads, clusters of C along x (one per frame).
 // scratch: (B, C, spill) f32, min-d2 of the points past each CTA's
-// on-chip share (spill = chunk - on-chip points, may be 0).
+// on-chip share (spill = chunk - on-chip points, may be 0).  num_valid:
+// (B,) i32 counts, or nullptr for all n points of every frame.
 __global__ void __launch_bounds__(kThreads, 1)
 fps_cluster_kernel(const float* __restrict__ xs, const float* __restrict__ ys,
-                   const float* __restrict__ zs, int n, int k, int chunk,
-                   int spill, float* __restrict__ scratch, int32_t* __restrict__ out) {
+                   const float* __restrict__ zs, const int32_t* __restrict__ num_valid,
+                   int n, int k, int chunk, int spill, float* __restrict__ scratch,
+                   int32_t* __restrict__ out) {
   cg::cluster_group cluster = cg::this_cluster();
   const int C = static_cast<int>(cluster.num_blocks());
   const int rank = static_cast<int>(cluster.block_rank());
@@ -118,24 +130,28 @@ fps_cluster_kernel(const float* __restrict__ xs, const float* __restrict__ ys,
   const int warp = tid >> 5;
   const int base = rank * chunk;
   const int nloc = max(0, min(chunk, n - base));
-  const int nchip = min(nloc, kThreads * kRegPts);
+  const int nchip = min(nloc, kThreads * kRegPts);  // the layout: set by n alone
   const int nover = nloc - nchip;
   float* sx = s_xyz;
   float* sy = sx + nchip;
   float* sz = sy + nchip;
+  // The points taking part: [0, max(count, 1)) of the frame (see the top).
+  const int nact = num_valid == nullptr ? n : min(max(num_valid[b], 1), n);
+  const int achip = max(0, min(nchip, nact - base));
+  const int aover = max(0, min(nover, nact - base - nchip));
 
   float md[kRegPts];
 #pragma unroll
   for (int t = 0; t < kRegPts; ++t) {
     const int j = tid + t * kThreads;
     md[t] = 1e10f;
-    if (j < nchip) {
+    if (j < achip) {
       sx[j] = xs[base + j];
       sy[j] = ys[base + j];
       sz[j] = zs[base + j];
     }
   }
-  for (int j = tid; j < nover; j += kThreads) scratch[j] = 1e10f;
+  for (int j = tid; j < aover; j += kThreads) scratch[j] = 1e10f;
   if (rank == 0 && tid == 0) out[0] = 0;
   float x0 = xs[0];
   float y0 = ys[0];
@@ -150,13 +166,13 @@ fps_cluster_kernel(const float* __restrict__ xs, const float* __restrict__ ys,
 #pragma unroll
     for (int t = 0; t < kRegPts; ++t) {
       const int j = tid + t * kThreads;
-      if (j < nchip) {
+      if (j < achip) {
         const float m = fminf(md[t], dist2(sx[j], sy[j], sz[j], x0, y0, z0));
         md[t] = m;
         take_better(bv, bi, __float_as_uint(m), base + j);
       }
     }
-    for (int j = tid; j < nover; j += kThreads) {
+    for (int j = tid; j < aover; j += kThreads) {
       const int g = base + nchip + j;
       const float m = fminf(scratch[j], dist2(xs[g], ys[g], zs[g], x0, y0, z0));
       scratch[j] = m;
@@ -177,9 +193,9 @@ fps_cluster_kernel(const float* __restrict__ xs, const float* __restrict__ ys,
         Candidate c{bv, bi, 0.0f, 0.0f, 0.0f};
         if (bi != INT_MAX) {
           const int off = bi - base;
-          c.x = off < nchip ? sx[off] : xs[bi];
-          c.y = off < nchip ? sy[off] : ys[bi];
-          c.z = off < nchip ? sz[off] : zs[bi];
+          c.x = off < achip ? sx[off] : xs[bi];
+          c.y = off < achip ? sy[off] : ys[bi];
+          c.z = off < achip ? sz[off] : zs[bi];
         }
         *cluster.map_shared_rank(&s_slot[par][rank], lane) = c;
       }
@@ -253,9 +269,11 @@ extern "C" int rpcc_fps_max_active_clusters(int cluster, int smem_bytes, int* ou
 // Launch FPS over B frames of n points on `stream`, one cluster of
 // `cluster` CTAs per frame, `chunk` points per CTA; returns the
 // cudaError_t of the launch (0 on success).  xs/ys/zs: (B, n) f32,
+// num_valid: (B,) i32 device counts (masked FPS) or nullptr,
 // scratch: (B, cluster, spill) f32 with spill = chunk - min(chunk, 16384),
 // out: (B, k) i32.  smem_bytes = 12 * min(chunk, 16384).
 extern "C" int rpcc_fps_launch(const float* xs, const float* ys, const float* zs,
+                               const int32_t* num_valid,
                                int batch, int n, int k, int cluster, int chunk,
                                int smem_bytes, float* scratch, int32_t* out, void* stream) {
   static_assert(kWarps <= 32, "the second reduction stage maps warps to lanes");
@@ -271,7 +289,8 @@ extern "C" int rpcc_fps_launch(const float* xs, const float* ys, const float* zs
   cudaLaunchConfig_t cfg =
       launch_config(batch * cluster, cluster, smem_bytes, static_cast<cudaStream_t>(stream), &attr);
   const int spill = chunk - static_cast<int>(onchip);
-  e = cudaLaunchKernelEx(&cfg, fps_cluster_kernel, xs, ys, zs, n, k, chunk, spill, scratch, out);
+  e = cudaLaunchKernelEx(&cfg, fps_cluster_kernel, xs, ys, zs, num_valid, n, k, chunk, spill,
+                         scratch, out);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }

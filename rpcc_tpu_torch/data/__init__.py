@@ -1,14 +1,16 @@
 """LiDAR geometry lookup by name, and the datalist reader.
 
 The same names and YAML files as ``rpcc_tpu.data.__lidar_cfg__``; the
-YAML files are the port's own copies (``data/lidar_cfg/``).  Only the evenly
-distributed LiDARs are listed: CSV channel tables are not ported yet.
+YAML files are the port's own copies (``data/lidar_cfg/``).  A channel
+table (CSV of ``channel,vertical_angle`` rows, as in the reference's
+``dataset/transformer.py``) turns a LiDAR's evenly spaced rows into one
+row per listed channel angle; ``VELODYNE_32E_CSV`` is the HDL-32E's.
 """
 
 from __future__ import annotations
 
 import os
-from typing import List
+from typing import List, Optional
 
 from rpcc_tpu_torch.config import LIDAR_CFG_DIR, LidarConfig
 
@@ -19,11 +21,15 @@ LIDAR_YAML = {
 }
 
 
-def lidar_config(name: str) -> LidarConfig:
-    """``Velodyne64E`` -> the :class:`LidarConfig` of its YAML file."""
+VELODYNE_32E_CSV = os.path.join(LIDAR_CFG_DIR, "example-Velodyne_HDL_32E_vertical_channel_distribution.csv")
+
+
+def lidar_config(name: str, csv: Optional[str] = None) -> LidarConfig:
+    """``Velodyne64E`` -> the :class:`LidarConfig` of its YAML file, with
+    the channel table of the CSV file ``csv`` when given."""
     if name not in LIDAR_YAML:
         raise ValueError(f"unknown lidar {name!r}; choose from {sorted(LIDAR_YAML)}")
-    return LidarConfig.from_yaml(os.path.join(LIDAR_CFG_DIR, LIDAR_YAML[name]), name=name)
+    return LidarConfig.from_yaml(os.path.join(LIDAR_CFG_DIR, LIDAR_YAML[name]), csv, name=name)
 
 
 def read_datalist(path: str) -> List[str]:

@@ -14,7 +14,7 @@ import torch
 from torch import nn
 
 from rpcc_tpu_torch.config import CodecConfig, LidarConfig
-from rpcc_tpu_torch.models.encoder import check_supported, num_model_rows
+from rpcc_tpu_torch.models.encoder import num_model_rows
 from rpcc_tpu_torch.ops.contour import recover_map, unpack_bits_msb
 from rpcc_tpu_torch.ops.projection_host import build_transform_planes
 from rpcc_tpu_torch.ops.stream import expand_per_cluster, predict_stream, stream_sort, stream_to_pixel
@@ -35,7 +35,6 @@ class Decoder(nn.Module):
 
     def __init__(self, lidar: LidarConfig, cfg: CodecConfig):
         super().__init__()
-        check_supported(lidar, cfg)
         self.lidar, self.cfg = lidar, cfg
         self.num_models = num_model_rows(cfg)
         tm = build_transform_planes(lidar).reshape(3, -1)

@@ -1,9 +1,13 @@
-"""The encoder graph (port of ``rpcc_tpu/models/encoder.py``, the u16-snap
-``from_ri`` path): FPS or DBSCAN segmentation, point or plane models,
-uniform or non-uniform (salience) quantization.
+"""The encoder graph (port of ``rpcc_tpu/models/encoder.py``, the ``from_ri``
+paths): FPS (over the zero-masked grid, or with ``cpu_fps`` over the
+compacted non-ground set) or DBSCAN segmentation, point or plane models,
+uniform or non-uniform (salience) quantization, on evenly spaced LiDARs or
+ones with a channel table (CSV).
 
-Input: a (B, H, W) batch of u16 snap grids ``q``, each frame's ``delta``
-(``ri = q * delta``, projected on the host) and seed.  Output: every codec
+Input: a (B, H, W) batch of grids ``q``, each frame's ``delta`` (``ri = q
+* delta``, projected on the host: a u16 snap grid, or in
+``transfer_precision="f32"`` the exact f32 range image with delta 1) and
+seed.  Output: every codec
 artefact the host entropy-codes — segmentation, model table, the
 cluster-ordered quantized residual stream, the contour code and, in
 non-uniform mode, the per-cluster salience levels — each with a leading B.
@@ -52,19 +56,6 @@ def num_model_rows(cfg: CodecConfig) -> int:
     return rows
 
 
-def check_supported(lidar: LidarConfig, cfg: CodecConfig) -> None:
-    """Raise for the modes of ``rpcc_tpu`` this port does not carry yet."""
-    unsupported = []
-    if not lidar.even_dist:
-        unsupported.append("uneven (CSV) lidar")
-    if cfg.cpu_fps:
-        unsupported.append("cpu_fps")
-    if cfg.transfer_precision == "f32":
-        unsupported.append("transfer_precision=f32")
-    if unsupported:
-        raise NotImplementedError("not ported yet: " + ", ".join(unsupported))
-
-
 class EncoderOutput(NamedTuple):
     range_image: torch.Tensor  # (B, H, W) f32
     seg_idx: torch.Tensor  # (B, H, W) i32
@@ -83,7 +74,6 @@ class Encoder(nn.Module):
 
     def __init__(self, lidar: LidarConfig, cfg: CodecConfig, tm_planes: np.ndarray):
         super().__init__()
-        check_supported(lidar, cfg)
         self.lidar, self.cfg = lidar, cfg
         self.num_models = num_model_rows(cfg)
         self.register_buffer("tm_planes", torch.from_numpy(np.asarray(tm_planes, np.float32)))
@@ -96,8 +86,8 @@ class Encoder(nn.Module):
     def forward(
         self, q: torch.Tensor, delta: torch.Tensor, seed, step: Union[float, Sequence[float]]
     ) -> EncoderOutput:
-        """``q``: (B, H, W) integer snap grids on this module's device;
-        ``delta``: (B,) f32; ``seed``: (B,) uint32 seeds (a sequence, or a
+        """``q``: (B, H, W) integer snap grids (or f32 range images, with
+        delta 1) on this module's device; ``delta``: (B,) f32; ``seed``: (B,) uint32 seeds (a sequence, or a
         tensor); ``step``: the quantization step, or in non-uniform mode
         the step of each salience level.  A single (H, W) grid with a 0-d
         delta and an int seed gives unbatched outputs."""
@@ -119,10 +109,14 @@ class Encoder(nn.Module):
             )
         else:
             seg, ground_model, _ = segment_range_image(
-                pc_planes, ri, self.tm_planes, k_seg, cfg.ground_threshold, cfg.cluster_num
+                pc_planes, ri, self.tm_planes, k_seg, cfg.ground_threshold, cfg.cluster_num, cfg.cpu_fps
             )
 
+        # Evenly spaced rays are recomputed from the stream order; a
+        # channel table's rays ride the sort as payloads.
         payloads = [ri.reshape(B, hw)]
+        if not self.lidar.even_dist:
+            payloads += [self.tm_planes[i].reshape(1, hw).expand(B, hw) for i in range(3)]
         if not cfg.uniform:
             _, kp_map = extract_features_with_segment(
                 ri, seg, feature_region=cfg.feature_region, segments=cfg.segments,
@@ -132,7 +126,7 @@ class Encoder(nn.Module):
             payloads.append((kp_map.reshape(B, hw) > 0).to(torch.float32))
         order, carried = stream_sort(seg.reshape(B, hw), payloads, self.num_models)
         ri_s = carried[0]
-        rays_s = rays_from_perm(order, self.lidar)
+        rays_s = rays_from_perm(order, self.lidar) if self.lidar.even_dist else carried[1:4]
         if cfg.modeling_method == "point":
             model_param = point_model_table(point_means_stream(ri_s, order), self.num_models)
         else:
@@ -146,7 +140,7 @@ class Encoder(nn.Module):
         if cfg.uniform:
             step_s = torch.tensor(step, dtype=torch.float32, device=dev)
         else:
-            kp_cnt = per_cluster_sums(carried[1], order).to(torch.int32)  # exact: 0/1 sums
+            kp_cnt = per_cluster_sums(carried[-1], order).to(torch.int32)  # exact: 0/1 sums
             sal = salience_levels_from_counts(
                 kp_cnt, order.counts, cfg.level_key_point_num, cfg.ground_salience_level
             )

@@ -19,7 +19,7 @@ from rpcc_tpu_torch.codec.entropy import BasicCompressor
 from rpcc_tpu_torch.config import CodecConfig, LidarConfig
 from rpcc_tpu_torch.models.decoder import Decoder
 from rpcc_tpu_torch.models.encoder import Encoder, EncoderOutput, num_model_rows
-from rpcc_tpu_torch.ops.projection_host import build_transform_map, project_points_host_u16
+from rpcc_tpu_torch.ops.projection_host import build_transform_map, project_for_encoder
 
 
 def resolve_device(device) -> torch.device:
@@ -61,15 +61,15 @@ class RPCCCodec:
 
     # ------------------------------------------------------------- encode
     def project(self, points: np.ndarray) -> Tuple[np.ndarray, np.float32]:
-        """Host projection to the u16 snap grid: ``(q (H, W) u16, delta)``;
-        the encoder's range image is ``q * delta`` in f32."""
-        pts = np.asarray(points, np.float32)[:, :3]
-        return project_points_host_u16(pts, self.lidar, np.float32(self.cfg.step / 16.0))
+        """Host projection: ``(q (H, W), delta)``, the encoder's range image
+        being ``q * delta`` in f32.  ``q`` is the u16 snap grid, or with
+        ``transfer_precision="f32"`` the exact f32 range image (delta 1)."""
+        return project_for_encoder(points, self.lidar, self.cfg)
 
     def encode_device(self, points: np.ndarray, seed: Optional[int] = None) -> EncoderOutput:
         """Host-project, upload, run the encoder; returns device tensors."""
         q, d = self.project(points)
-        q_t = torch.from_numpy(q.astype(np.int32)).to(self.device)
+        q_t = torch.from_numpy(q if q.dtype == np.float32 else q.astype(np.int32)).to(self.device)
         d_t = torch.tensor(d, dtype=torch.float32, device=self.device)
         seed = self.cfg.seed if seed is None else seed
         return self.encoder(q_t, d_t, seed, self._step_arg)

@@ -4,7 +4,10 @@ Semantics of ``rpcc_tpu/ops/fps.py`` and of the TPU kernel
 ``rpcc_tpu/ops/fps_pallas.py::_fps_kernel``: the first pick is index 0,
 the running min squared distance starts at 1e10, and each of the K-1
 steps takes the argmax of the running minimum, the lowest index winning
-ties.
+ties.  The masked version (``rpcc_tpu/ops/fps.py::
+furthest_point_sample_planar_masked``, the ``cpu_fps`` mode) runs over the
+first ``num_valid`` points of each frame: slots at or past the count pin
+their running minimum at -1, so they never win.
 
 :func:`furthest_point_sample` dispatches on the tensors' device: the plain
 version for CPU tensors, the hand-written kernel (``csrc/fps.cu``, one
@@ -17,7 +20,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -26,18 +29,15 @@ import torch
 LAUNCHES = 0
 
 
-def furthest_point_sample_planar(
-    xs: torch.Tensor, ys: torch.Tensor, zs: torch.Tensor, num_samples: int
-) -> torch.Tensor:
-    """Plain FPS over planar (B, N) or (N,) coordinates -> (B, K) or (K,)
-    int32 indices.  ``last`` stays a tensor, so a device run never waits on
-    the host between steps."""
-    squeeze = xs.ndim == 1
-    if squeeze:
-        xs, ys, zs = xs[None], ys[None], zs[None]
+def _planar_loop(xs, ys, zs, num_samples: int, valid: Optional[torch.Tensor]) -> torch.Tensor:
+    """The K-step loop over (B, N) planes; ``valid`` (B, N) masks the
+    points that may win, or None for all.  ``last`` stays a tensor, so a
+    device run never waits on the host between steps."""
     B, n = xs.shape
     idxs = torch.zeros((B, num_samples), dtype=torch.int32, device=xs.device)
     min_d2 = torch.full((B, n), 1e10, dtype=torch.float32, device=xs.device)
+    if valid is not None:
+        min_d2 = torch.where(valid, min_d2, -1.0)
     last = torch.zeros((B, 1), dtype=torch.int64, device=xs.device)
     for i in range(1, num_samples):
         dx = xs - xs.gather(1, last)
@@ -45,12 +45,39 @@ def furthest_point_sample_planar(
         dz = zs - zs.gather(1, last)
         d2 = dx * dx + dy * dy + dz * dz
         min_d2 = torch.minimum(min_d2, d2)
+        if valid is not None:
+            min_d2 = torch.where(valid, min_d2, -1.0)
         last = torch.argmax(min_d2, dim=1, keepdim=True)  # first of equal maxima
         idxs[:, i] = last[:, 0].to(torch.int32)
-    return idxs[0] if squeeze else idxs
+    return idxs
 
 
-def _check(xs: torch.Tensor, ys: torch.Tensor, zs: torch.Tensor, num_samples: int) -> None:
+def furthest_point_sample_planar(
+    xs: torch.Tensor, ys: torch.Tensor, zs: torch.Tensor, num_samples: int
+) -> torch.Tensor:
+    """Plain FPS over planar (B, N) or (N,) coordinates -> (B, K) or (K,)
+    int32 indices."""
+    if xs.ndim == 1:
+        return _planar_loop(xs[None], ys[None], zs[None], num_samples, None)[0]
+    return _planar_loop(xs, ys, zs, num_samples, None)
+
+
+def furthest_point_sample_planar_masked(
+    xs: torch.Tensor, ys: torch.Tensor, zs: torch.Tensor, num_valid: torch.Tensor, num_samples: int
+) -> torch.Tensor:
+    """Plain masked FPS over the first ``num_valid`` points of each frame:
+    (B, N) planes and (B,) counts, or (N,) planes and a 0-d or (1,) count
+    -> (B, K) or (K,) int32 indices.  The seed is index 0 whatever the
+    count; with a count of 0 every pick is index 0."""
+    squeeze = xs.ndim == 1
+    x2, y2, z2 = (t.reshape(1, -1) if squeeze else t for t in (xs, ys, zs))
+    valid = torch.arange(x2.shape[1], device=xs.device) < num_valid.reshape(-1, 1)
+    out = _planar_loop(x2, y2, z2, num_samples, valid)
+    return out[0] if squeeze else out
+
+
+def _check(xs: torch.Tensor, ys: torch.Tensor, zs: torch.Tensor, num_samples: int,
+           num_valid: Optional[torch.Tensor] = None) -> None:
     for name, t in (("xs", xs), ("ys", ys), ("zs", zs)):
         if t.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {t.dtype}")
@@ -60,6 +87,11 @@ def _check(xs: torch.Tensor, ys: torch.Tensor, zs: torch.Tensor, num_samples: in
         raise ValueError(f"expected (N,) or (B, N) coordinates, got {tuple(xs.shape)}")
     if num_samples < 1:
         raise ValueError(f"num_samples must be >= 1, got {num_samples}")
+    if num_valid is not None:
+        if num_valid.dtype != torch.int32:
+            raise TypeError(f"num_valid must be int32, got {num_valid.dtype}")
+        if num_valid.device != xs.device or num_valid.numel() != (1 if xs.ndim == 1 else xs.shape[0]):
+            raise ValueError("num_valid must hold one count per frame, on the coordinates' device")
 
 
 # The cluster kernel's shape (csrc/fps.cu: kThreads, kRegPts): a CTA keeps
@@ -99,7 +131,7 @@ def _library():
     lib = load_cuda_library("fps.cu")
     lib.rpcc_fps_launch.restype = ctypes.c_int
     lib.rpcc_fps_launch.argtypes = (
-        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 3
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 3
     )
     lib.rpcc_fps_max_active_clusters.restype = ctypes.c_int
     lib.rpcc_fps_max_active_clusters.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
@@ -123,12 +155,15 @@ def max_active_clusters(device_index: int, cluster: int, smem_bytes: int) -> int
 
 
 def furthest_point_sample_cuda(
-    xs: torch.Tensor, ys: torch.Tensor, zs: torch.Tensor, num_samples: int
+    xs: torch.Tensor, ys: torch.Tensor, zs: torch.Tensor, num_samples: int,
+    num_valid: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """The CUDA kernel on (B, N) or (N,) f32 CUDA tensors; raises on any
-    other input.  Launches on the current stream and does not synchronize."""
+    """The CUDA kernel on (B, N) or (N,) f32 CUDA tensors, masked by the
+    int32 per-frame counts ``num_valid`` (read on the device) when given;
+    raises on any other input.  Launches on the current stream and does not
+    synchronize."""
     global LAUNCHES
-    _check(xs, ys, zs, num_samples)
+    _check(xs, ys, zs, num_samples, num_valid)
     if xs.device.type != "cuda":
         raise ValueError(f"furthest_point_sample_cuda needs CUDA tensors, got {xs.device}")
     if not (xs.is_contiguous() and ys.is_contiguous() and zs.is_contiguous()):
@@ -144,8 +179,10 @@ def furthest_point_sample_cuda(
     with torch.cuda.device(xs.device):
         out = torch.empty((B, num_samples), dtype=torch.int32, device=xs.device)
         scratch = torch.empty(max(B * plan.cluster * plan.spill, 1), dtype=torch.float32, device=xs.device)
+        counts = None if num_valid is None else num_valid.contiguous()
         err = fn(
-            x2.data_ptr(), y2.data_ptr(), z2.data_ptr(), B, n, num_samples,
+            x2.data_ptr(), y2.data_ptr(), z2.data_ptr(), None if counts is None else counts.data_ptr(),
+            B, n, num_samples,
             plan.cluster, plan.chunk, plan.smem_bytes,
             scratch.data_ptr(), out.data_ptr(), torch.cuda.current_stream().cuda_stream,
         )
@@ -156,13 +193,17 @@ def furthest_point_sample_cuda(
 
 
 def furthest_point_sample(
-    xs: torch.Tensor, ys: torch.Tensor, zs: torch.Tensor, num_samples: int
+    xs: torch.Tensor, ys: torch.Tensor, zs: torch.Tensor, num_samples: int,
+    num_valid: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """FPS on the tensors' own device: the kernel for CUDA tensors, the
-    plain version for CPU tensors."""
+    """FPS on the tensors' own device, masked by the per-frame counts
+    ``num_valid`` when given: the kernel for CUDA tensors, the plain
+    version for CPU tensors."""
     if xs.device.type == "cuda":
-        return furthest_point_sample_cuda(xs, ys, zs, num_samples)
+        return furthest_point_sample_cuda(xs, ys, zs, num_samples, num_valid)
     if xs.device.type != "cpu":
         raise ValueError(f"unsupported device {xs.device}")
-    _check(xs, ys, zs, num_samples)
-    return furthest_point_sample_planar(xs, ys, zs, num_samples)
+    _check(xs, ys, zs, num_samples, num_valid)
+    if num_valid is None:
+        return furthest_point_sample_planar(xs, ys, zs, num_samples)
+    return furthest_point_sample_planar_masked(xs, ys, zs, num_valid, num_samples)

@@ -5,7 +5,9 @@ DBSCAN mode).
   * ground plane: z < -1.5 filter, random <= 5000 subsample, seeded RANSAC;
   * FPS mode: cluster centres over the non-ground pixels (ground and zero
     pixels zeroed), through :func:`rpcc_tpu_torch.ops.fps.furthest_point_sample`;
-    per-pixel argmin over |ground depth residual| and the Euclidean
+    with ``cpu_fps``, over each frame's row-major compacted non-ground set
+    instead (zero pixels included), through the masked FPS and a
+    per-frame count; per-pixel argmin over |ground depth residual| and the Euclidean
     distances to the K centres; ids 0 = ground, 1 = zero pixels,
     2..K+1 = clusters;
   * DBSCAN mode: range-image DBSCAN (:mod:`rpcc_tpu_torch.ops.dbscan`) over
@@ -105,24 +107,39 @@ def segment_range_image(
     key: torch.Tensor,  # (B, 2)
     ground_threshold: float,
     cluster_num: int,
+    cpu_fps: bool = False,
 ) -> SegmentResult:
     """FPS-mode segmentation of a batch; a single (3, H, W) frame with a
     (2,) key gives unbatched results."""
     if point_planes.ndim == 3:
-        res = segment_range_image(point_planes[None], range_image[None], tm_planes, key[None], ground_threshold, cluster_num)
+        res = segment_range_image(
+            point_planes[None], range_image[None], tm_planes, key[None], ground_threshold, cluster_num, cpu_fps
+        )
         return SegmentResult(*(t[0] for t in res))
     xs, ys, zs = _flat_planes(point_planes)
     ri = range_image.reshape(range_image.shape[0], -1)
 
     ground_model = fit_ground_plane_planar(xs, ys, zs, key, valid=ri > 0.0)
 
-    # Non-ground mask by vertical (point-to-plane) distance; FPS runs over
-    # the zero-masked full grid, one launch for the batch.
+    # Non-ground mask by vertical (point-to-plane) distance; one FPS launch
+    # for the batch.
     vert = point_plane_distance_planar(xs, ys, zs, ground_model)
-    nonground = ((vert > ground_threshold) & (ri > 0.0)).to(ri.dtype)
-    ngx, ngy, ngz = xs * nonground, ys * nonground, zs * nonground
-    center_idx = furthest_point_sample(ngx, ngy, ngz, cluster_num).to(torch.int64)  # (B, K)
-    centers = torch.stack([ngx.gather(1, center_idx), ngy.gather(1, center_idx), ngz.gather(1, center_idx)], -1)
+    if cpu_fps:
+        # The compacted set: a stable sort on the inverted mask keeps each
+        # frame's non-ground pixels first, in row-major order.  Zero pixels
+        # stay candidates: the origin lies ~1.7 m off the ground plane.
+        mask = vert > ground_threshold
+        perm = torch.sort((~mask).to(torch.int32), dim=1, stable=True).indices
+        src = tuple(t.gather(1, perm) for t in (xs, ys, zs))
+        n_ng = mask.sum(1, dtype=torch.int32)  # stays on the device
+        center_idx = furthest_point_sample(*src, cluster_num, num_valid=n_ng)
+    else:
+        # The zero-masked full grid.
+        nonground = ((vert > ground_threshold) & (ri > 0.0)).to(ri.dtype)
+        src = (xs * nonground, ys * nonground, zs * nonground)
+        center_idx = furthest_point_sample(*src, cluster_num)
+    center_idx = center_idx.to(torch.int64)  # (B, K)
+    centers = torch.stack([t.gather(1, center_idx) for t in src], -1)
     seg = assign_clusters(point_planes, range_image, tm_planes, ground_model, centers)
     return SegmentResult(seg, ground_model, centers)
 

@@ -3,9 +3,10 @@ the encoder and decoder graphs, a host pool for projection and entropy
 coding (port of ``rpcc_tpu/parallel/engine.py``).
 
 The dataset-scale path (``compress_datalist`` / ``decompress_datalist``).
-Frames are host-projected onto the u16 snap grid into a ring of pinned
-(B, H, W) buffers, uploaded as 2-byte words on a copy stream, widened and
-encoded on a compute stream, and their live prefixes come back on the copy
+Frames are host-projected onto the u16 snap grid (or, with
+``transfer_precision="f32"``, to exact f32 range images) into a ring of
+pinned (B, H, W) buffers, uploaded as 2-byte (4-byte) words on a copy
+stream, widened and encoded on a compute stream, and their live prefixes come back on the copy
 stream while the host entropy-codes the batch before.  The pipeline
 (``encode_pipeline`` / ``decode_pipeline``) runs four stages on four
 threads:
@@ -53,11 +54,7 @@ from rpcc_tpu_torch.config import CodecConfig, LidarConfig
 from rpcc_tpu_torch.models.decoder import Decoder
 from rpcc_tpu_torch.models.encoder import Encoder, EncoderOutput, num_model_rows
 from rpcc_tpu_torch.models.pipeline import resolve_device
-from rpcc_tpu_torch.ops.projection_host import (
-    build_transform_map,
-    build_transform_planes,
-    project_points_host_u16,
-)
+from rpcc_tpu_torch.ops.projection_host import build_transform_map, build_transform_planes, project_for_encoder
 
 RING_SLOTS = 3  # pinned upload buffers in flight
 
@@ -79,15 +76,16 @@ def _timed_stage(fn, stats: dict, key: str, count: bool = False):
 
 
 class _Slot:
-    """One pinned upload buffer of the encode ring.  ``free`` is set once
-    the H2D copy of its last use is queued (``h2d`` is that copy's event),
-    so the stacker refills it only after that event fires."""
+    """One pinned upload buffer of the encode ring: u16 snap grids (as
+    int16 bits) or, with ``f32``, range images.  ``free`` is set once the
+    H2D copy of its last use is queued (``h2d`` is that copy's event), so
+    the stacker refills it only after that event fires."""
 
-    def __init__(self, B: int, H: int, W: int, pin: bool):
-        self.q = torch.empty((B, H, W), dtype=torch.int16, pin_memory=pin)  # u16 bits
+    def __init__(self, B: int, H: int, W: int, pin: bool, f32: bool):
+        self.q = torch.empty((B, H, W), dtype=torch.float32 if f32 else torch.int16, pin_memory=pin)
         self.delta = torch.empty((B,), dtype=torch.float32, pin_memory=pin)
         self.seed = torch.empty((B,), dtype=torch.int64, pin_memory=pin)
-        self.q_np = self.q.numpy().view(np.uint16)
+        self.q_np = self.q.numpy() if f32 else self.q.numpy().view(np.uint16)
         self.h2d: Optional[torch.cuda.Event] = None
         self.free = threading.Event()
         self.free.set()
@@ -154,7 +152,8 @@ class BatchEngine:
         if self._cuda:
             self._copy = torch.cuda.Stream(self.device)
             self._compute = torch.cuda.Stream(self.device)
-        self._ring = [_Slot(batch_size, self.H, self.W, self._cuda) for _ in range(RING_SLOTS)]
+        f32 = cfg.transfer_precision == "f32"
+        self._ring = [_Slot(batch_size, self.H, self.W, self._cuda, f32) for _ in range(RING_SLOTS)]
         self._ring_next = 0
         self._ring_lock = threading.Lock()
         self._pool = futures.ThreadPoolExecutor(workers)
@@ -164,7 +163,7 @@ class BatchEngine:
         self._uploader = futures.ThreadPoolExecutor(1)
         self._downloader = futures.ThreadPoolExecutor(1)
         self._tm_planar = np.ascontiguousarray(build_transform_planes(lidar).reshape(3, self.hw), np.float32)
-        self._tm_np = build_transform_map(lidar)
+        self.transform_map = build_transform_map(lidar)
 
     @property
     def _step_arg(self):
@@ -244,10 +243,9 @@ class BatchEngine:
         if slot.h2d is not None:
             slot.h2d.synchronize()
         delta = slot.delta.numpy()
-        floor = np.float32(self.cfg.step / 16.0)
 
         def one(i: int) -> None:
-            slot.q_np[i], delta[i] = project_points_host_u16(clouds[i], self.lidar, floor)
+            slot.q_np[i], delta[i] = project_for_encoder(clouds[i], self.lidar, self.cfg)
 
         try:
             self._pool_map("project", one, live)
@@ -271,8 +269,9 @@ class BatchEngine:
         with self._on("_compute"):
             if h2d is not None:
                 self._compute.wait_event(h2d)
-            q32 = q.to(torch.int32) & 0xFFFF  # u16 words arrive as int16
-            out = self.encoder(q32, delta, seed, self._step_arg)
+            if q.dtype == torch.int16:
+                q = q.to(torch.int32) & 0xFFFF  # u16 words arrive as int16
+            out = self.encoder(q, delta, seed, self._step_arg)
             done = self._record()
         return _Dispatched(out, live, done)
 
@@ -489,7 +488,7 @@ class BatchEngine:
 
     def _points_from_ris(self, ris: np.ndarray, live: int) -> List[np.ndarray]:
         """-> (H, W, 3) clouds."""
-        return [ris[i][..., None] * self._tm_np for i in range(live)]
+        return [ris[i][..., None] * self.transform_map for i in range(live)]
 
     def _points4_from_ris(self, ris: np.ndarray, live: int) -> List[np.ndarray]:
         """-> compacted (n, 4) f32 xyz0 rows per frame, the .bin save format
@@ -507,6 +506,11 @@ class BatchEngine:
             )
             out.append(buf[: int(n)])
         return out
+
+    def decode_range_images(self, blobs: Sequence[bytes]) -> np.ndarray:
+        """-> the (B, H, W) f32 range images of a batch of payloads."""
+        ris, live = self._materialize_ris(self.decode_blobs_device(blobs))
+        return ris[:live]
 
     def decode_blobs(self, blobs: Sequence[bytes]) -> List[np.ndarray]:
         """-> (H, W, 3) clouds."""

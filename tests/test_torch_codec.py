@@ -12,6 +12,7 @@ tie, a plane or a residual's rounding (see tests/test_torch_ops.py).
 import argparse
 import dataclasses
 import hashlib
+import os
 
 import jax
 import numpy as np
@@ -119,21 +120,20 @@ def test_encoder_module_matches_reference_graph():
     assert out.stream.dtype == torch.int16 and out.sequence.dtype == torch.uint16
 
 
-@pytest.mark.parametrize(
-    "override",
-    [dict(cpu_fps=True), dict(transfer_precision="f32"), dict(vertical_angles_deg=tuple(range(16)))],
-    ids=["cpu_fps", "transfer_precision", "uneven_lidar"],
-)
-def test_unported_modes_raise(override):
-    lidar_kw = {k: v for k, v in override.items() if k == "vertical_angles_deg"}
-    cfg_kw = {k: v for k, v in override.items() if k != "vertical_angles_deg"}
-    with pytest.raises(NotImplementedError):
-        RPCCCodec(dataclasses.replace(SMALL, **lidar_kw), CodecConfig(cluster_num=16, **cfg_kw), "cpu")
-
-
 def test_cluster_id_limit():
     with pytest.raises(ValueError):
         RPCCCodec(SMALL, CodecConfig(cluster_num=4094), "cpu")
+
+
+CSV = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "rpcc_tpu", "data", "lidar_cfg",
+                   "example-Velodyne_HDL_32E_vertical_channel_distribution.csv")
+CODEC_YAML = """compress_framework: 'non-uniform'
+accuracy: 0.05
+segment_method: 'DBSCAN'
+cluster_num: 50
+cpu_fps: true
+transfer_precision: 'u16'
+"""
 
 
 @pytest.mark.parametrize("flags", [
@@ -141,21 +141,30 @@ def test_cluster_id_limit():
     ["--segment_method", "DBSCAN", "--cluster_num", "40", "--DBSCAN_eps", "0.8"],
     ["--model_method", "plane", "--angle_threshold", "60", "--accuracy", "0.05"],
     ["--nonuniform", "--basic_compressor", "bzip2", "--seed", "9"],
-], ids=["defaults", "dbscan", "plane", "nonuniform"])
-def test_cli_flags_map_like_reference(flags):
-    """The port's flags land on the same CodecConfig knobs as the
-    reference's CLI (engine-only knobs aside)."""
+    ["--cpu"],
+    ["--transfer_precision", "f32"],
+    ["--compressor_yaml", "{yaml}", "--cluster_num", "30"],
+    ["--lidar", "Velodyne32E", "--channel_distribute_csv", CSV],
+], ids=["defaults", "dbscan", "plane", "nonuniform", "cpu", "transfer_precision", "compressor_yaml",
+        "channel_distribute_csv"])
+def test_cli_flags_map_like_reference(flags, tmp_path):
+    """The port's flags land on the same CodecConfig knobs and LiDAR as
+    the reference's CLI."""
+    yaml_path = tmp_path / "codec.yaml"
+    yaml_path.write_text(CODEC_YAML)
+    flags = [str(yaml_path) if f == "{yaml}" else f for f in flags]
+    base = ["--lidar", "Velodyne64E"]
     parser = argparse.ArgumentParser()
     cli_common.add_codec_args(parser)
-    cfg = cli_common.config_from_args(parser.parse_args(
-        ["--input", "a", "--output", "b", "--lidar", "Velodyne64E", "--device", "cpu", *flags]))
+    args = parser.parse_args(["--input", "a", "--output", "b", "--device", "cuda", *base, *flags])
+    cfg = cli_common.config_from_args(args)
     ref_parser = argparse.ArgumentParser()
     ref_cli.add_codec_args(ref_parser)
-    ref = ref_cli.config_from_args(ref_parser.parse_args(["--lidar", "Velodyne64E", *flags]))
-    engine_only = {"transfer_precision", "device_entropy"}
-    for f in dataclasses.fields(CodecConfig):
-        if f.name not in engine_only:
-            assert getattr(cfg, f.name) == getattr(ref, f.name), f.name
+    ref_args = ref_parser.parse_args([*base, *flags])
+    ref = ref_cli.config_from_args(ref_args)
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(ref)
+    assert dataclasses.asdict(cli_common.lidar_from_args(args)) == dataclasses.asdict(ref_cli.lidar_from_args(ref_args))
+    assert cli_common.device_from_args(args) == ("cpu" if "--cpu" in flags else "cuda")
 
 
 def test_cli_roundtrip_cpu(tmp_path, capsys):

@@ -154,3 +154,58 @@ def test_cuda_wrapper_rejects_strided_input(cuda_device):
     strided = torch.zeros(64, device=cuda_device)[::2]
     with pytest.raises(ValueError):
         fps.furthest_point_sample(strided, strided, strided, 4)
+
+
+# (shape, per-frame counts): a 64E frame at every edge of the count (none,
+# one, fewer than K, K - 1, half, all but one, all), a batch with a
+# different count per frame, N not divisible by the cluster, and a frame
+# past the on-chip capacity whose valid points reach into the streamed part.
+MASKED_CASES = [
+    *(((1, 128000, 100), (nv,)) for nv in (0, 1, 50, 99, 64000, 127999, 128000)),
+    ((8, 128000, 100), (0, 1, 50, 99, 64000, 100000, 127999, 128000)),
+    ((2, 4133, 32), (4000, 3)),
+    ((1, 400000, 16), (300000,)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape, counts", MASKED_CASES, ids=lambda v: "x".join(map(str, v)))
+def test_cuda_masked_kernel_matches_plain(cuda_device, shape, counts):
+    B, N, K = shape
+    rng = np.random.default_rng(N + K + counts[0])
+    pts = rng.uniform(-40, 40, (3, B, N)).astype(np.float32)
+    pts[:, :, N // 5 : N // 3] = 0.0  # zeroed block: exact ties
+    if N == 400000:
+        pts[:, :, 266400:267400] = 300.0  # valid far points among those a CTA streams
+        pts[:, :, 350000:351000] = 900.0  # farther still, but past the count: never picked
+    xs, ys, zs = (torch.from_numpy(p).to(cuda_device) for p in pts)
+    cnt = torch.tensor(counts, dtype=torch.int32, device=cuda_device)
+    before = fps.LAUNCHES
+    got = fps.furthest_point_sample(xs, ys, zs, K, num_valid=cnt)
+    assert fps.LAUNCHES == before + 1
+    ref = fps.furthest_point_sample_planar_masked(xs, ys, zs, cnt, K)
+    single = torch.stack([fps.furthest_point_sample_cuda(xs[b], ys[b], zs[b], K, cnt[b : b + 1]) for b in range(B)])
+    torch.cuda.synchronize(cuda_device)
+    assert torch.equal(got, ref)
+    assert torch.equal(got, single)  # a frame's indices do not depend on its batch
+    assert bool((got < torch.clamp(cnt, min=1)[:, None]).all())
+
+
+@pytest.mark.cuda
+def test_cuda_cpu_fps_raises_without_the_kernel(cuda_device, monkeypatch):
+    """cpu_fps on CUDA tensors launches the kernel or raises: it never runs
+    the plain masked loop."""
+    from rpcc_tpu_torch.config import LidarConfig
+    from rpcc_tpu_torch.ops import prng, segment
+    from rpcc_tpu_torch.ops.projection_host import build_transform_planes
+
+    def unavailable():
+        raise RuntimeError("FPS kernel unavailable")
+
+    lidar = LidarConfig(name="small", horizontal_fov_deg=360.0, vertical_angle_max_deg=2.0,
+                        vertical_angle_min_deg=-24.9, height=16, width=256)
+    tm = torch.from_numpy(build_transform_planes(lidar)).to(cuda_device)
+    ri = torch.from_numpy(np.random.default_rng(0).uniform(2, 40, (1, 16, 256)).astype(np.float32)).to(cuda_device)
+    monkeypatch.setattr(fps, "_kernel", unavailable)
+    with pytest.raises(RuntimeError, match="FPS kernel unavailable"):
+        segment.segment_range_image(ri[:, None] * tm, ri, tm, prng.prng_key([0], cuda_device), 0.1, 16, cpu_fps=True)

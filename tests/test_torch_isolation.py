@@ -22,7 +22,7 @@ from rpcc_tpu_torch import config
 from rpcc_tpu_torch.cli import common as cli_common
 from rpcc_tpu_torch.codec import bitstream, rans_codec
 from rpcc_tpu_torch.codec.entropy import BasicCompressor
-from rpcc_tpu_torch.data import LIDAR_YAML, lidar_config
+from rpcc_tpu_torch.data import LIDAR_YAML, VELODYNE_32E_CSV, lidar_config
 from rpcc_tpu_torch.ops import cuda_build
 
 torch.set_num_threads(1)
@@ -48,6 +48,12 @@ def _imported_modules(tree):
             yield from (a.name for a in node.names)
         elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
             yield node.module
+
+
+def test_scan_covers_every_package():
+    dirs = {os.path.dirname(p) for p in _port_sources()}
+    for sub in ("cli", "codec", "data", "metrics", "models", "ops", "parallel"):
+        assert os.path.join("rpcc_tpu_torch", sub) in dirs
 
 
 @pytest.mark.parametrize("path", _port_sources())
@@ -81,7 +87,7 @@ from rpcc_tpu_torch.data.synth import synth_cloud_for
 from rpcc_tpu_torch.models.pipeline import RPCCCodec
 
 small = LidarConfig(name="small64", horizontal_fov_deg=360.0, vertical_angle_max_deg=2.0,
-                    vertical_angle_min_deg=-24.9, height=16, width=256)
+                    vertical_angle_min_deg=-24.9, height=16, width=256, vertical_angles_deg=ANGLES)
 pc = synth_cloud_for(small, 2)
 cfg = CodecConfig(cluster_num=16, **MODE)
 codec = RPCCCodec(small, cfg, "cpu")
@@ -97,15 +103,20 @@ print("ok", len(names), len(blob))
 """
 
 
+UNEVEN_ANGLES = tuple(float(a) for a in np.linspace(2.0, -24.9, 16) ** 3 / 24.9 ** 2)  # denser near the top
+
+
 @pytest.mark.parametrize(
-    "mode",
-    [{}, {"segment_method": "DBSCAN"}, {"modeling_method": "plane"}, {"compress_framework": "non-uniform"}],
-    ids=["default", "dbscan", "plane", "nonuniform"],
+    "mode, angles",
+    [({}, None), ({"segment_method": "DBSCAN"}, None), ({"modeling_method": "plane"}, None),
+     ({"compress_framework": "non-uniform"}, None), ({"cpu_fps": True}, None),
+     ({"transfer_precision": "f32"}, None), ({}, UNEVEN_ANGLES)],
+    ids=["default", "dbscan", "plane", "nonuniform", "cpu_fps", "f32", "uneven"],
 )
-def test_port_runs_with_rpcc_tpu_and_jax_unimportable(mode):
+def test_port_runs_with_rpcc_tpu_and_jax_unimportable(mode, angles):
     env = dict(os.environ, PYTHONPATH=ROOT)
     proc = subprocess.run(
-        [sys.executable, "-c", f"MODE = {mode!r}\n" + _BLOCKED_RUN],
+        [sys.executable, "-c", f"MODE = {mode!r}\nANGLES = {angles!r}\n" + _BLOCKED_RUN],
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=600,
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
@@ -134,6 +145,25 @@ def test_codec_config_yaml_loader_equals_reference():
     assert dataclasses.asdict(mine) == dataclasses.asdict(ref_config.CodecConfig.from_yaml(path, accuracy=0.03))
     with pytest.raises(ValueError):
         config.CodecConfig(transfer_precision="f16")
+
+
+@pytest.mark.parametrize("overrides", [{}, {"cluster_num": 40, "transfer_precision": "f32"}], ids=["default", "overrides"])
+def test_codec_yaml_copy_loads_like_reference(overrides):
+    """The port's own cfgs/compressor.yaml gives the reference default's
+    CodecConfig, and the CLIs' default ``--compressor_yaml`` is that copy."""
+    assert config.DEFAULT_CODEC_YAML.startswith(os.path.join(ROOT, "rpcc_tpu_torch") + os.sep)
+    mine = config.load_codec_config(**overrides)
+    assert dataclasses.asdict(mine) == dataclasses.asdict(ref_config.load_codec_config(**overrides))
+    parser = argparse.ArgumentParser()
+    cli_common.add_codec_args(parser)
+    assert parser.parse_args(["--input", "a", "--output", "b"]).compressor_yaml == config.DEFAULT_CODEC_YAML
+
+
+def test_channel_csv_copy_equals_reference():
+    name = os.path.basename(VELODYNE_32E_CSV)
+    assert os.path.dirname(VELODYNE_32E_CSV) == config.LIDAR_CFG_DIR
+    with open(VELODYNE_32E_CSV, "rb") as a, open(os.path.join(ref_config.LIDAR_CFG_DIR, name), "rb") as b:
+        assert a.read() == b.read()
 
 
 @pytest.mark.parametrize("name", sorted(LIDAR_YAML))
