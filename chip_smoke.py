@@ -7,8 +7,9 @@ Usage, from the repository root:
     python3 chip_smoke.py --against CHECKOUT   # kernel times and blob hashes only
 
 ``--against`` runs the unmasked FPS kernel timings of phases 3/6 (B = 1, 8),
-the DBSCAN kernel timings of phases 3b/3c (B = 1, 4, 8), the main path's
-encodes of phase 4 and the DBSCAN-mode encodes of phases 4b/6 with the
+the DBSCAN kernel timings of phases 3b/3c (B = 1, 4, 8), the rANS kernel
+timings of phase 3e (B = 1, 8) where the checkout has that kernel, the main
+path's encodes of phase 4 and the DBSCAN-mode encodes of phases 4b/6 with the
 ``rpcc_tpu_torch``
 package of another checkout (``.`` for this one), through entry points
 every checkout of the port has, and prints the same times and sha256 lines:
@@ -45,8 +46,17 @@ Phases (each raises on failure, and the process then exits nonzero):
      kernel's per-phase split (``%globaltimer`` stamps of frame 0);
   4. the main path: ``RPCCCodec(Velodyne64E, CodecConfig(), "cuda")``
      compresses and decompresses four synthetic 64x2000 frames; error
-     bound, exact zero pixels, one FPS launch per encode, byte-identical
+     bound, exact zero pixels, one FPS launch and no rANS launch per encode
+     (the single-frame codec entropy-codes on the host), byte-identical
      repeat encodes, and the GPU-vs-CPU bpp difference;
+  3e. (run after 4) the rANS kernel (one launch per batch: a block per
+     frame and field) against its plain PyTorch version on the GPU, every
+     output exactly equal, and against the native host coder at the
+     device's lane geometry (L = 32, T = resid_T(HW)): the residual streams
+     and contours of phase 4's four frames at B = 1 and 4; stream lengths
+     0, 1 and HW; a frame with more than 512 escapes; all-zero and all-one
+     contours; a 32E channel-table frame (32x2250); phase 6's first batch
+     (eight distinct frames) at B = 8, timed there and at B = 1;
   4b. the DBSCAN, plane-model and non-uniform paths, each on two 64x2000
      multi-object frames: error bound (step, or step + max level delta),
      exact zero pixels, one DBSCAN (or FPS) launch per encode,
@@ -58,7 +68,8 @@ Phases (each raises on failure, and the process then exits nonzero):
      table (32x2250, not cut) in FPS and in DBSCAN mode; one FPS (or
      DBSCAN) wrapper call per encode;
   5. the compress/decompress CLIs with ``--device cuda`` in subprocesses;
-     compress ``--self_describing --eval`` decoded by a decompress with no
+     compress ``--profile`` names the FPS kernel in its table; compress
+     ``--self_describing --eval`` decoded by a decompress with no
      codec flags and no ``--lidar`` (then with ``--eval
      --original_point_cloud``), and the 32E channel table with ``f32`` and
      a ``--compressor_yaml`` that sets ``cpu_fps`` through both CLIs;
@@ -67,24 +78,38 @@ Phases (each raises on failure, and the process then exits nonzero):
      and the single-frame kernel runs; the launch plan (clusters of 8 at
      B = 8) and the per-phase split; both versions timed with CUDA events;
   6. the batch engine on the main path: ``BatchEngine(Velodyne64E,
-     CodecConfig(), "cuda", batch_size=8)`` encodes 20 frames through
-     ``encode_pipeline`` (batches of 8, 8, 4) and decodes them through
-     ``decode_pipeline``: blobs equal phase 4's single-frame blobs byte for
-     byte, points within bound with zero pixels dropped, a repeat run
-     byte-identical, one FPS launch per batch; the DBSCAN mode at B = 4
-     equals its single-frame blobs with one DBSCAN launch per batch (their
-     sha256 printed); encode
-     and decode frames/s at B = 1 and B = 8 (median, min and max of five
-     passes), the stage stats, and one profiled B = 8 encode (launches,
-     summed device time); the engine at B = 8 on the 32E channel table and
-     in f32 (its 4-byte ring): blobs equal the single-frame blobs, one FPS
-     launch per batch, decodes within bound;
+     CodecConfig(), "cuda", batch_size=8)`` (device entropy, the default)
+     encodes 20 frames through ``encode_pipeline`` (batches of 8, 8, 4) and
+     decodes them through ``decode_pipeline`` and the host decoder: points
+     within bound with zero pixels dropped, blobs equal the B = 1 engine's,
+     a repeat run byte-identical, one FPS and one rANS launch per batch,
+     the count of frames whose i16 stream came back; then with
+     ``device_entropy=False``: blobs equal phase 4's single-frame blobs
+     byte for byte, one FPS launch and no rANS launch per batch; the
+     DBSCAN mode at B = 4 (host entropy) equals its single-frame blobs with
+     one DBSCAN launch per batch (their sha256 printed); encode and decode
+     frames/s at B = 1 and B = 8 for both entropy settings (median, min and
+     max of five passes), the stage stats, and one profiled B = 8 encode
+     (launches, summed device time); the engine at B = 8 on the 32E channel
+     table and in f32 (its 4-byte ring), host entropy: blobs equal the
+     single-frame blobs, one FPS launch per batch, decodes within bound;
+     device entropy on the 32E channel table at B = 8 and in DBSCAN mode at
+     B = 4, each batch holding street scenes cut at 26 m (dropped returns),
+     a ground sector of at most
+     32,768 returns and a frame of random ranges (past 512 escapes): one
+     segmentation and one rANS launch per batch, the host's pick and the
+     escape fallback both taken, the i16 stream downloads counted, blobs
+     equal the B = 1 engine's, a repeat run byte-identical, decodes within
+     bound through both decoders, street-scene bytes within 2% of host
+     entropy;
   7. the datalist CLIs in subprocesses: ``compress_datalist --batch 4
-     --device cuda`` on 10 frames equals the single-frame codec per seed,
-     ``decompress_datalist`` on the host and the device backend within
-     bound and equal to each other; then both on four 32E channel-table
-     frames in f32 with ``cpu_fps`` from a ``--compressor_yaml`` and
-     ``--eval`` (one OK line per frame).
+     --device cuda`` on 10 frames at the default (device entropy) and with
+     ``--no-device_entropy``, the latter equal to the single-frame codec per
+     seed; ``decompress_datalist`` of both on the host and the device
+     backend within bound and equal to each other; then both CLIs on four
+     32E channel-table frames in f32 with ``cpu_fps`` from a
+     ``--compressor_yaml``, ``--no-device_entropy`` and ``--eval`` (one OK
+     line per frame).
 
 A time is the median of 21 CUDA-event samples of one call each, as in
 every earlier run; a kernel is also timed over 10 calls back to back per
@@ -132,12 +157,13 @@ TIMED_RUNS = 21
 BACK_TO_BACK = 10  # calls per CUDA-event sample of a kernel's ``ms_10_back_to_back``
 # Kernel launches per wrapper call, whatever the batch: DBSCAN's mask pass
 # and cluster kernel are two.
-LAUNCHES_PER_CALL = {"fps": 1, "dbscan": 2}
+LAUNCHES_PER_CALL = {"fps": 1, "dbscan": 2, "rans": 1}
 # The card's published peaks (H100 SXM, at its full 700 W): f32 outside the
 # tensor cores, and device memory.
 PEAK_F32_OPS = 67e12
 PEAK_BYTES = 3.35e12
 RATE_PASSES = 5  # phase 6: timed pipeline passes per batch size
+PLAIN_RANS_RUNS = 3  # phase 3e: samples of the plain rANS walk (~10 launches per step)
 BPP_TOL = 0.005  # GPU vs CPU encode of the same frame
 
 
@@ -207,6 +233,20 @@ def dbscan_bound(active, B: int, H: int, W: int):
     return bound(9.0 * 48 * int(active.sum()), 17.0 * B * H * W)
 
 
+def rans_bound(B: int, hw: int, H: int, W: int):
+    """rANS encode of B frames' residual streams (HW int32 + a length) and
+    contours (H x W int32): those read once, the container pieces written
+    once (u16 words over 32 lanes x resid_T and H lanes x contour_T, lane
+    counts and u64-held states, 4 x 512 + 8 i32 tables, 512 u64-held
+    escapes, 4 scalars).  Bytes only: its integer operations, tens a
+    symbol, would take less time than its bytes at the f32 rate."""
+    from rpcc_tpu_torch.ops.rans_device import contour_T, resid_T
+
+    per = (4 * hw + 4 + 2 * 32 * resid_T(hw) + 12 * 32 + 4 * 4 * 512 + 8 * 512 + 12
+           + 4 * H * W + 2 * H * contour_T(H, W) + 12 * H + 4 * 8 + 4)
+    return bound(0.0, float(B * per))
+
+
 # ------------------------------------------------------------------ scenes
 def scene_ranges(np, tm, seed: int):
     """(H, W) ranges of a multi-object street scene ray-cast on the unit-ray
@@ -257,6 +297,26 @@ def scene_cloud(np, tm, seed: int):
     r = scene_ranges(np, tm, seed)
     pts = tm * r[..., None]
     return pts[r > 0].reshape(-1, 3).astype(np.float32)
+
+
+def drop_far(np, pc, max_range: float = 26.0):
+    """A scene's returns nearer than ``max_range``: the far stretches of its
+    wall dropped, as a sensor drops weak returns (``stream_len`` < HW)."""
+    return pc[np.linalg.norm(pc, axis=1) < max_range]
+
+
+def ground_sector(np, pc):
+    """A street scene's ground returns within 0.8 rad of +x: fewer than
+    32,768 points of smooth residuals (the engine's small-frame pick)."""
+    return pc[(pc[:, 2] < -1.5) & (np.abs(np.arctan2(pc[:, 1], pc[:, 0])) < 0.8)]
+
+
+def random_cloud(np, tm, n: int, seed: int):
+    """``n`` pixels of the unit-ray table ``tm`` at uniformly random ranges
+    in 3-70 m: far more than 512 escapes."""
+    rng = np.random.default_rng(seed)
+    rays = tm.reshape(-1, 3)[rng.choice(tm.shape[0] * tm.shape[1], n, replace=False)]
+    return (rays * rng.uniform(3.0, 70.0, (n, 1))).astype(np.float32)
 
 
 def scene_long_wall(np):
@@ -324,13 +384,13 @@ def scene_narrow(np, seed: int, H: int, W: int):
 
 # ------------------------------------------------------------------ phases
 def phase_build():
-    from rpcc_tpu_torch.ops import dbscan, fps
+    from rpcc_tpu_torch.ops import dbscan, fps, rans_device
 
     t = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        for f in [pool.submit(k._kernel) for k in (fps, dbscan)]:
+    with ThreadPoolExecutor(max_workers=3) as pool:
+        for f in [pool.submit(k._kernel) for k in (fps, dbscan, rans_device)]:
             f.result()
-    print(f"[phase 1] fps.cu and dbscan.cu built and loaded in {time.perf_counter() - t:.2f} s")
+    print(f"[phase 1] fps.cu, dbscan.cu and rans.cu built and loaded in {time.perf_counter() - t:.2f} s")
 
 
 def phase_prng(torch, dev):
@@ -592,7 +652,7 @@ def phase_main(torch, np, dev, card, lidar):
     from rpcc_tpu_torch.config import CodecConfig
     from rpcc_tpu_torch.data.synth import synth_cloud_for
     from rpcc_tpu_torch.models.pipeline import RPCCCodec
-    from rpcc_tpu_torch.ops import dbscan, fps
+    from rpcc_tpu_torch.ops import dbscan, fps, rans_device
 
     cfg = CodecConfig()
     bound = cfg.step + 1e-5
@@ -601,11 +661,12 @@ def phase_main(torch, np, dev, card, lidar):
     codec.decompress(codec.compress(frames[SEEDS[0]])[0])  # warm-up
     torch.cuda.synchronize()
 
-    fps.LAUNCHES = dbscan.LAUNCHES = 0
+    fps.LAUNCHES = dbscan.LAUNCHES = rans_device.LAUNCHES = 0
     results = encode_frames(codec, frames)
     launches = fps.LAUNCHES
     check(launches == 2 * len(SEEDS), f"fps.LAUNCHES rose by {launches} over {2 * len(SEEDS)} encodes")
     check(dbscan.LAUNCHES == 0, "the FPS path launched the DBSCAN kernel")
+    check(rans_device.LAUNCHES == 0, "the single-frame codec launched the rANS kernel")
     print(f"[phase 4] fps.LAUNCHES = {launches} for {2 * len(SEEDS)} encodes")
     for s, res in results.items():
         print(f"[phase 4] default seed {s} blob sha256 {hashlib.sha256(res[1]).hexdigest()}")
@@ -630,6 +691,154 @@ def phase_main(torch, np, dev, card, lidar):
     return codec, frames, launches / (2 * len(SEEDS))
 
 
+def rans_inputs(torch, codec, clouds):
+    """(q (B, HW) int32, stream_len (B,) int32, contour (B, H, W) int32)
+    of the codec's encodes of ``clouds``: what the engine's encoder hands
+    the rANS kernel."""
+    from rpcc_tpu_torch.ops.contour import unpack_bits_msb
+
+    outs = [codec.encode_device(pc) for pc in clouds]
+    q = torch.stack([o.stream.to(torch.int32) for o in outs]).contiguous()
+    n = torch.stack([o.stream_len.to(torch.int32).reshape(()) for o in outs]).contiguous()
+    c = torch.stack([unpack_bits_msb(o.contour_packed, codec.hw).reshape(codec.H, codec.W) for o in outs])
+    return q, n, c.to(torch.int32).contiguous()
+
+
+def rans_native_check(np, res, cnt, q, n, c, what):
+    """The kernel's pieces against the port's native host coder called with
+    the device's lane geometry (L = 32, T = resid_T(HW)), on the data it
+    emits: the word prefix, counts, states, tables, escapes, q0."""
+    from rpcc_tpu_torch.codec import rans_native
+    from rpcc_tpu_torch.ops import rans_device as rd
+
+    q_np, n_np, c_np = q.cpu().numpy(), n.cpu().numpy(), c.cpu().numpy()
+    r = [t.cpu().numpy() for t in res]
+    k = [t.cpu().numpy() for t in cnt]
+    B, hw = q_np.shape
+    H, W = c_np.shape[1:]
+    packed, nw, counts, states, freqs, esc, n_esc, q0 = rans_native.delta_encode_frames(
+        [q_np[b, : n_np[b]] for b in range(B)], rd.RESID_LANES, rd.resid_T(hw), rd.ALPHABET, rd.NUM_CTX)
+    cw, cnw, ccounts, cstates, cfreqs = rans_native.contour_encode_frames(
+        np.packbits(c_np.reshape(B, -1) != 0, axis=1), H, W, rd.contour_T(H, W))
+    for b in range(B):
+        check(n_esc[b] == r[6][b], f"rans {what} frame {b}: escape count {r[6][b]} vs native {n_esc[b]}")
+        if n_esc[b] >= 0:
+            m, e = int(nw[b]), min(int(n_esc[b]), rd.ESC_CAP_DEV)
+            check(m == r[1][b] and np.array_equal(packed[b, :m], r[0][b, :m].view(np.uint16))
+                  and np.array_equal(counts[b], r[2][b]) and np.array_equal(states[b], r[3][b])
+                  and np.array_equal(freqs[b], r[4][b]) and np.array_equal(esc[b, :e], r[5][b, :e])
+                  and q0[b] == r[7][b], f"rans {what} frame {b}: residual pieces differ from the native coder")
+        m = int(cnw[b])
+        check(m == k[1][b] and np.array_equal(cw[b, :m], k[0][b, :m].view(np.uint16))
+              and np.array_equal(ccounts[b], k[2][b]) and np.array_equal(cstates[b], k[3][b])
+              and np.array_equal(cfreqs[b], k[4][b]), f"rans {what} frame {b}: contour pieces differ from the native coder")
+
+
+def rans_held(torch, np, q, n, c, what):
+    """One kernel launch on (q, n, c) held to the plain version and the
+    native coder; -> (residual pieces, contour pieces, max |kernel - plain|)."""
+    from rpcc_tpu_torch.ops import rans_device as rd
+
+    res, cnt = rd.encode_fields_cuda(q, n, c)
+    p_res, p_cnt = rd.encode_residual_field_plain(q, n), rd.encode_contour_field_plain(c)
+    torch.cuda.synchronize()
+    err = 0
+    for name, a, b in list(zip(res._fields, res, p_res)) + list(zip(cnt._fields, cnt, p_cnt)):
+        check(a.shape == b.shape and a.dtype == b.dtype, f"rans {what}: {name} shape or type differs from the plain version")
+        err = max(err, int((a.long() - b.long()).abs().max()) if a.numel() else 0)
+        check(torch.equal(a, b), f"rans kernel {name} differs from the plain version {what}")
+    rans_native_check(np, res, cnt, q, n, c, what)
+    return res, cnt, err
+
+
+def rans_split(torch, rd, q, n, c):
+    """Median over TIMED_RUNS calls of each kernel phase's time (us) in the
+    first block (frame 0's residual stream), from its %globaltimer stamps."""
+    stamps = torch.zeros(len(rd.PHASES) + 1, dtype=torch.int64, device=q.device)
+    rows = []
+    for _ in range(TIMED_RUNS):
+        rd.encode_fields_cuda(q, n, c, phase_stamps=stamps)
+        torch.cuda.synchronize()
+        rows.append(stamps.diff().cpu().tolist())
+    return {name: statistics.median(r[i] for r in rows) / 1e3 for i, name in enumerate(rd.PHASES)}
+
+
+def phase_rans(torch, np, dev, card, lidar, codec, frames):
+    """3e: the rANS kernel against its plain version and the native coder."""
+    from rpcc_tpu_torch.config import CodecConfig
+    from rpcc_tpu_torch.data import VELODYNE_32E_CSV, lidar_config
+    from rpcc_tpu_torch.data.synth import synth_cloud_for
+    from rpcc_tpu_torch.models.pipeline import RPCCCodec
+    from rpcc_tpu_torch.ops import rans_device as rd
+    from rpcc_tpu_torch.ops.projection_host import build_transform_map
+
+    q, n, c = rans_inputs(torch, codec, [frames[s] for s in SEEDS])
+    hw = codec.hw
+    err = 0
+    for b in range(len(SEEDS)):
+        res, _, e = rans_held(torch, np, q[b : b + 1], n[b : b + 1], c[b : b + 1], f"64E seed {SEEDS[b]}")
+        err = max(err, e)
+        print(f"[phase 3e] rans kernel == plain == native on 64E seed {SEEDS[b]}: stream_len {int(n[b])}, "
+              f"{int(res.n_words[0])} residual words, {int(res.n_esc[0])} escapes")
+    res4, cnt4, e = rans_held(torch, np, q, n, c, "at B=4")
+    err = max(err, e)
+    print(f"[phase 3e] rans kernel (B=4) == plain == native: residual words {res4.n_words.tolist()}, "
+          f"contour words {cnt4.n_words.tolist()}")
+
+    # Edge cases on frame 0: stream lengths 0, 1 and HW (the tail filled),
+    # a block of random residuals (> 512 escapes), all-zero and all-one contours.
+    rng = np.random.default_rng(5)
+    q0 = q[0].cpu().numpy()
+    edge = np.stack([np.zeros(hw, np.int32), np.r_[q0[:1], np.zeros(hw - 1, np.int32)], q0.copy(), q0.copy()])
+    edge[2, int(n[0]):] = rng.integers(-6, 7, hw - int(n[0]))
+    edge[3, 1000:3000] = rng.integers(-3000, 3000, 2000)
+    lens = np.array([0, 1, hw, int(n[0])], np.int32)
+    cont = np.stack([np.zeros((codec.H, codec.W), np.int32), np.ones((codec.H, codec.W), np.int32),
+                     c[1].cpu().numpy(), c[2].cpu().numpy()])
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    res, _, e = rans_held(torch, np, to(edge), to(lens), to(cont), "on the edge cases")
+    err = max(err, e)
+    check(int(res.n_esc[3]) > rd.ESC_CAP_DEV, "the random block gave no escape overflow")
+    print(f"[phase 3e] rans kernel == plain == native at stream lengths 0, 1, {hw} and with "
+          f"{int(res.n_esc[3])} escapes; all-zero and all-one contours")
+
+    lidar32 = lidar_config(CSV_LIDAR, VELODYNE_32E_CSV)
+    codec32 = RPCCCodec(lidar32, CodecConfig(), dev)
+    q32, n32, c32 = rans_inputs(torch, codec32, [scene_cloud(np, build_transform_map(lidar32), MODE_SEEDS[0])])
+    _, _, e = rans_held(torch, np, q32, n32, c32, "on the 32E channel table")
+    err = max(err, e)
+    print(f"[phase 3e] rans kernel == plain == native on a 32x2250 32E frame (T {rd.resid_T(codec32.hw)} "
+          f"residual, {rd.contour_T(32, 2250)} contour)")
+
+    # The engine's batch: phase 6's first eight frames, held at B = 8, then
+    # timed at B = 1 (frame 0) and at B = 8 on the same tensors.
+    q8, n8, c8 = rans_inputs(torch, codec, [synth_cloud_for(lidar, s) for s in BATCH_SEEDS[:8]])
+    res8, _, e = rans_held(torch, np, q8, n8, c8, "at B=8")
+    err = max(err, e)
+    print(f"[phase 3e] rans kernel (B=8, phase 6's first batch) == plain == native: stream lengths "
+          f"{n8.tolist()}, residual words {res8.n_words.tolist()}, escapes {res8.n_esc.tolist()}")
+
+    out = {"err": err}
+    for B in (1, 8):
+        qb, nb, cb = (t[:B].contiguous() for t in (q8, n8, c8))
+        run = lambda qb=qb, nb=nb, cb=cb: rd.encode_fields_cuda(qb, nb, cb)  # noqa: E731
+        ms, b2b = median_ms(torch, run), median_ms(torch, run, BACK_TO_BACK)
+        plain_ms = median_ms(torch, lambda qb=qb, nb=nb, cb=cb: (rd.encode_residual_field_plain(qb, nb),
+                                                                rd.encode_contour_field_plain(cb)),
+                             runs=PLAIN_RANS_RUNS)
+        bound_ms, bound_by = rans_bound(B, hw, codec.H, codec.W)
+        split = rans_split(torch, rd, qb, nb, cb)
+        out[B] = dict(ms=ms, b2b=b2b, plain_ms=plain_ms, bound=(bound_ms, bound_by), split=split,
+                      shape=f"B={B} HW={hw} T={rd.resid_T(hw)} contour {codec.H}x{codec.W} T={rd.contour_T(codec.H, codec.W)}")
+        print(f"[phase 3e] [{card}] rans ({out[B]['shape']}) median of {TIMED_RUNS}: kernel {ms:.4f} ms "
+              f"({b2b:.4f} ms over {BACK_TO_BACK} back to back), plain {plain_ms:.4f} ms (median of "
+              f"{PLAIN_RANS_RUNS}), bound {bound_ms:.6f} ms ({bound_by}); serial steps per lane "
+              f"{rd.resid_T(hw)} residual, {rd.contour_T(codec.H, codec.W)} contour")
+        print(f"[phase 3e] [{card}] rans B={B} frame 0 residual block phase split (us, median of {TIMED_RUNS}): "
+              + json.dumps({k: round(v, 3) for k, v in split.items()}))
+    return out
+
+
 def drive_mode(torch, np, dev, card, lidar, tag, cfg, frames, phase):
     """One codec mode through ``RPCCCodec(lidar, cfg, "cuda")``: each frame
     encoded, decoded and encoded again with the launches counted (one FPS
@@ -637,17 +846,18 @@ def drive_mode(torch, np, dev, card, lidar, tag, cfg, frames, phase):
     byte-identical repeats, and the CPU codec's bpp (within BPP_TOL) and
     decode of the card's blob.  -> (launch counts, encode_frames results)"""
     from rpcc_tpu_torch.models.pipeline import RPCCCodec
-    from rpcc_tpu_torch.ops import dbscan, fps
+    from rpcc_tpu_torch.ops import dbscan, fps, rans_device
 
     n_enc = 2 * len(frames)
     bound = (cfg.step if cfg.uniform else cfg.step + max(cfg.level_delta_acc)) + 1e-5
     codec = RPCCCodec(lidar, cfg, dev)
     codec.decompress(codec.compress(next(iter(frames.values())))[0])  # warm-up
     torch.cuda.synchronize()
-    fps.LAUNCHES = dbscan.LAUNCHES = 0
+    fps.LAUNCHES = dbscan.LAUNCHES = rans_device.LAUNCHES = 0
     results = encode_frames(codec, frames)
-    counts = {"fps": fps.LAUNCHES, "dbscan": dbscan.LAUNCHES}
+    counts = {"fps": fps.LAUNCHES, "dbscan": dbscan.LAUNCHES, "rans": rans_device.LAUNCHES}
     want = {"fps": 0, "dbscan": n_enc} if cfg.segment_method == "DBSCAN" else {"fps": n_enc, "dbscan": 0}
+    want["rans"] = 0  # the single-frame codec entropy-codes on the host
     check(counts == want, f"{tag}: kernel launches {counts} over {n_enc} encodes, expected {want}")
     print(f"[phase {phase}] {tag} ({lidar.height}x{lidar.width}): launches {counts} for {n_enc} encodes")
     bpps = check_frames(np, codec, results, bound, card, tag, phase)
@@ -760,7 +970,11 @@ def phase_cli(np, codec, frames):
         rec = os.path.join(work, "rec.bin")
         write_bin(np, src, pc)
         common = ["--lidar", LIDAR, "--device", "cuda"]
-        run_cli("compress", ["--input", src, "--output", out, *common], 5)
+        prof = run_cli("compress", ["--input", src, "--output", out, *common, "--profile"], 5)
+        check("Top device operations" in prof and "fps_cluster_kernel" in prof,
+              "compress --profile printed no table naming the FPS kernel")
+        print("[phase 5] compress --profile names the FPS kernel: "
+              + next(ln.strip() for ln in prof.splitlines() if "fps_cluster_kernel" in ln)[:120])
         run_cli("decompress", ["--input", out, "--output", rec, *common], 5)
         with open(out, "rb") as f:
             blob = f.read()
@@ -907,8 +1121,9 @@ def phase_engine(torch, np, dev, card, lidar, codec):
     """6: the batch engine on the main path at full width."""
     from rpcc_tpu_torch.config import CodecConfig
     from rpcc_tpu_torch.data.synth import synth_cloud_for
+    from rpcc_tpu_torch.models.host_decoder import HostDecoder
     from rpcc_tpu_torch.models.pipeline import RPCCCodec
-    from rpcc_tpu_torch.ops import dbscan, fps
+    from rpcc_tpu_torch.ops import dbscan, fps, rans_device
     from rpcc_tpu_torch.ops.projection_host import build_transform_map
     from rpcc_tpu_torch.parallel.engine import BatchEngine
 
@@ -936,93 +1151,131 @@ def phase_engine(torch, np, dev, card, lidar, codec):
           f"({fps_b2b:.4f} ms over {BACK_TO_BACK} back to back), plain {fps_plain_ms:.4f} ms, "
           f"bound {fps_bound_ms:.6f} ms ({fps_bound_by})")
 
-    engine = BatchEngine(lidar, cfg, dev, batch_size=B)
     work = [(b, range(i * B, i * B + len(b))) for i, b in enumerate(_batches(frames, B))]
-    list(engine.encode_pipeline(work))  # warm-up
-    torch.cuda.synchronize()
-    fps.LAUNCHES = dbscan.LAUNCHES = 0
-    stats = {}
-    blobs = [b for res in engine.encode_pipeline(work, stats=stats) for b, _ in res]
-    launches = {"fps": fps.LAUNCHES, "dbscan": dbscan.LAUNCHES}
-    check(launches == {"fps": len(work), "dbscan": 0},
-          f"engine launches {launches} for {len(work)} batches, expected one FPS launch per batch")
-    mism = [s for s, a, b in zip(BATCH_SEEDS, blobs, singles) if a != b]
-    check(not mism, f"engine blobs differ from single-frame RPCCCodec blobs for seeds {mism}")
-    again = [b for res in engine.encode_pipeline(work) for b, _ in res]
-    check(again == blobs, "a repeat engine run gave different bytes")
-    print(f"[phase 6] engine (B={B}) encoded {len(blobs)} frames in batches "
-          f"{[len(b) for b, _ in work]}: launches {launches}, blobs == single-frame RPCCCodec, "
-          f"repeat run byte-identical")
-
+    work1 = [(b, range(i, i + 1)) for i, b in enumerate(_batches(frames, 1))]
     tm = build_transform_map(lidar)
-    dec = [p for pts in engine.decode_pipeline(_batches(blobs, B)) for p in pts]
-    err_max = 0.0
-    for pc, pts in zip(frames, dec):
-        q, d = codec.project(pc)
-        ri = q.astype(np.float32) * d
-        keep = ri.reshape(-1) > 0
-        check(pts.shape == (int(keep.sum()), 4), f"decoded {pts.shape[0]} rows for {int(keep.sum())} nonzero pixels")
-        rec = np.linalg.norm(pts[:, :3].astype(np.float64), axis=1)
-        ray = np.linalg.norm(tm.reshape(-1, 3)[keep].astype(np.float64), axis=1)
-        err = float(np.abs(rec / ray - ri.reshape(-1)[keep]).max())
-        err_max = max(err_max, err)
-        check(err <= bound, f"engine decode: max_err {err} > {bound}")
-    print(f"[phase 6] engine decode_pipeline: {len(dec)} frames, rows = nonzero pixels, max_err {err_max:.6f} "
-          f"(bound {bound:.5f})")
-    print(f"[phase 6] [{card}] stage stats (B={B}, {len(blobs)} frames): "
+
+    def counted_run(engine, w):
+        """A warm-up pipeline run, then one with every launch count (and the
+        i16 stream downloads) set to 0 just before it and read just after."""
+        list(engine.encode_pipeline(w))
+        torch.cuda.synchronize()
+        fps.LAUNCHES = dbscan.LAUNCHES = rans_device.LAUNCHES = 0
+        engine.stream_downloads = 0
+        stats = {}
+        blobs = [b for res in engine.encode_pipeline(w, stats=stats) for b, _ in res]
+        launches = {"fps": fps.LAUNCHES, "dbscan": dbscan.LAUNCHES, "rans": rans_device.LAUNCHES}
+        return blobs, stats, launches, engine.stream_downloads
+
+    def decode_err(decoded_points):
+        err_max = 0.0
+        for pc, pts in zip(frames, decoded_points):
+            q, d = codec.project(pc)
+            ri = q.astype(np.float32) * d
+            keep = ri.reshape(-1) > 0
+            check(pts.shape == (int(keep.sum()), 4), f"decoded {pts.shape[0]} rows for {int(keep.sum())} nonzero pixels")
+            rec = np.linalg.norm(pts[:, :3].astype(np.float64), axis=1)
+            ray = np.linalg.norm(tm.reshape(-1, 3)[keep].astype(np.float64), axis=1)
+            err = float(np.abs(rec / ray - ri.reshape(-1)[keep]).max())
+            err_max = max(err_max, err)
+            check(err <= bound, f"engine decode: max_err {err} > {bound}")
+        return err_max
+
+    # Device entropy (the default): one rANS launch per batch, the blobs of
+    # the B = 1 engine, decodes through both decoders.
+    engine = BatchEngine(lidar, cfg, dev, batch_size=B)
+    engine1 = BatchEngine(lidar, cfg, dev, batch_size=1)
+    blobs, stats, launches, downloads = counted_run(engine, work)
+    check(launches == {"fps": len(work), "dbscan": 0, "rans": len(work)},
+          f"device-entropy engine launches {launches} for {len(work)} batches, expected one FPS and one rANS launch each")
+    again = [b for res in engine.encode_pipeline(work) for b, _ in res]
+    check(again == blobs, "a repeat device-entropy engine run gave different bytes")
+    blobs1, _, launches1, _ = counted_run(engine1, work1)
+    check(launches1 == {"fps": len(frames), "dbscan": 0, "rans": len(frames)}, f"B = 1 engine launches {launches1}")
+    mism = [s for s, a, b in zip(BATCH_SEEDS, blobs, blobs1) if a != b]
+    check(not mism, f"B = {B} device-entropy blobs differ from B = 1 blobs for seeds {mism}")
+    dev_err = decode_err([p for pts in engine.decode_pipeline(_batches(blobs, B)) for p in pts])
+    host_err = decode_err(HostDecoder(lidar, cfg).decode_blobs_points(blobs))
+    bpp_dev = sum(len(b) for b in blobs) * 8 / sum(codec.encode_device(pc).stream_len.item() for pc in frames)
+    print(f"[phase 6] device-entropy engine (B={B}) encoded {len(blobs)} frames in batches "
+          f"{[len(b) for b, _ in work]}: launches {launches}, blobs == B = 1 engine blobs, repeat run byte-identical, "
+          f"{downloads} of {len(blobs)} frames downloaded their i16 stream; decode max_err device decoder "
+          f"{dev_err:.6f}, host decoder {host_err:.6f} (bound {bound:.5f}); bpp {bpp_dev:.5f}")
+    print(f"[phase 6] [{card}] device-entropy stage stats (B={B}, {len(blobs)} frames): "
           + json.dumps({k: round(v, 6) if isinstance(v, float) else v for k, v in stats.items()}))
+
+    # Host entropy: blobs == the single-frame codec's, no rANS launch.
+    hcfg = CodecConfig(device_entropy=False)
+    hengine = BatchEngine(lidar, hcfg, dev, batch_size=B)
+    hblobs, hstats, hlaunches, _ = counted_run(hengine, work)
+    check(hlaunches == {"fps": len(work), "dbscan": 0, "rans": 0},
+          f"host-entropy engine launches {hlaunches} for {len(work)} batches, expected one FPS launch each")
+    mism = [s for s, a, b in zip(BATCH_SEEDS, hblobs, singles) if a != b]
+    check(not mism, f"host-entropy engine blobs differ from single-frame RPCCCodec blobs for seeds {mism}")
+    again = [b for res in hengine.encode_pipeline(work) for b, _ in res]
+    check(again == hblobs, "a repeat host-entropy engine run gave different bytes")
+    herr = decode_err([p for pts in hengine.decode_pipeline(_batches(hblobs, B)) for p in pts])
+    bpp_host = sum(len(b) for b in hblobs) * 8 / sum(codec.encode_device(pc).stream_len.item() for pc in frames)
+    print(f"[phase 6] host-entropy engine (B={B}): launches {hlaunches}, blobs == single-frame RPCCCodec, "
+          f"repeat run byte-identical, decode max_err {herr:.6f}; bpp {bpp_host:.5f} (device entropy "
+          f"{bpp_dev:.5f}, rel diff {abs(bpp_dev - bpp_host) / bpp_host:.5f})")
+    print(f"[phase 6] [{card}] host-entropy stage stats (B={B}, {len(hblobs)} frames): "
+          + json.dumps({k: round(v, 6) if isinstance(v, float) else v for k, v in hstats.items()}))
     print(f"[phase 6] [{card}] dispatch-bound encode cap: {len(blobs)} frames / {stats['dispatch_s']:.6f} s "
-          f"summed dispatch = {len(blobs) / stats['dispatch_s']:.3f} frames/s")
+          f"summed dispatch = {len(blobs) / stats['dispatch_s']:.3f} frames/s (device entropy), "
+          f"{len(hblobs) / hstats['dispatch_s']:.3f} (host)")
 
-    for b in (1, B):
-        eng = engine if b == B else BatchEngine(lidar, cfg, dev, batch_size=b)
-        w = [(c, range(i * b, i * b + len(c))) for i, c in enumerate(_batches(frames, b))]
-        enc = _frames_per_s(eng, lambda e, w=w: [r for r in e.encode_pipeline(w)], len(frames))
-        dec_r = _frames_per_s(eng, lambda e, b=b: [r for r in e.decode_pipeline(_batches(blobs, b))], len(frames))
-        print(f"[phase 6] [{card}] pipeline B={b}, {len(frames)} frames, median (min-max) of {RATE_PASSES} passes: "
-              f"encode {enc[0]:.3f} ({enc[1]:.3f}-{enc[2]:.3f}) frames/s, "
-              f"decode {dec_r[0]:.3f} ({dec_r[1]:.3f}-{dec_r[2]:.3f}) frames/s")
-        # The encoder graph alone: upload + launches + device, projection done before the window.
-        prepared = eng._prepare_batch(frames[:b], BATCH_SEEDS[:b])
-        n_ev, n_calls, dev_ms, wall_ms = _device_profile(torch, lambda: eng._dispatch_prepared(prepared))
-        print(f"[phase 6] [{card}] one B={b} encoder graph under torch.profiler: {n_ev} device events, "
-              f"{n_calls} kernel launch calls, summed device time {dev_ms:.3f} ms, wall {wall_ms:.3f} ms, "
-              f"idle share {1.0 - dev_ms / wall_ms:.3f}")
-        if eng is not engine:
-            eng.close()
+    hengine1 = BatchEngine(lidar, hcfg, dev, batch_size=1)
+    for tag, engines, eblobs in (("device entropy", {1: engine1, B: engine}, blobs),
+                                 ("host entropy", {1: hengine1, B: hengine}, hblobs)):
+        for b, eng in engines.items():
+            w = work1 if b == 1 else work
+            enc = _frames_per_s(eng, lambda e, w=w: [r for r in e.encode_pipeline(w)], len(frames))
+            dec_r = _frames_per_s(eng, lambda e, b=b: [r for r in e.decode_pipeline(_batches(eblobs, b))], len(frames))
+            print(f"[phase 6] [{card}] {tag} pipeline B={b}, {len(frames)} frames, median (min-max) of {RATE_PASSES} "
+                  f"passes: encode {enc[0]:.3f} ({enc[1]:.3f}-{enc[2]:.3f}) frames/s, "
+                  f"decode {dec_r[0]:.3f} ({dec_r[1]:.3f}-{dec_r[2]:.3f}) frames/s")
+            # The encoder graph alone: upload + launches + device, projection done before the window.
+            prepared = eng._prepare_batch(frames[:b], BATCH_SEEDS[:b])
+            n_ev, n_calls, dev_ms, wall_ms = _device_profile(torch, lambda: eng._dispatch_prepared(prepared))
+            print(f"[phase 6] [{card}] {tag}: one B={b} encoder graph under torch.profiler: {n_ev} device events, "
+                  f"{n_calls} kernel launch calls, summed device time {dev_ms:.3f} ms, wall {wall_ms:.3f} ms, "
+                  f"idle share {1.0 - dev_ms / wall_ms:.3f}")
+        n_ev, n_calls, dev_ms, wall_ms = _device_profile(
+            torch, lambda: engines[B].encode_frames(frames[:B], BATCH_SEEDS[:B]))
+        print(f"[phase 6] [{card}] {tag}: one B={B} encode_frames under torch.profiler: {n_ev} device events, "
+              f"{n_calls} kernel launch calls, summed device time {dev_ms:.3f} ms, wall {wall_ms:.3f} ms")
+    for eng in (engine, engine1, hengine, hengine1):
+        eng.close()
 
-    n_ev, n_calls, dev_ms, wall_ms = _device_profile(
-        torch, lambda: engine.encode_frames(frames[:B], BATCH_SEEDS[:B]))
-    print(f"[phase 6] [{card}] one B={B} encode_frames under torch.profiler: {n_ev} device events, "
-          f"{n_calls} kernel launch calls, summed device time {dev_ms:.3f} ms, wall {wall_ms:.3f} ms")
-    engine.close()
-
-    # DBSCAN at B = 4 on the street scenes.
-    dcfg = CodecConfig(segment_method="DBSCAN")
+    # DBSCAN at B = 4 on the street scenes, host entropy: its blobs are the
+    # single-frame codec's.
+    dcfg = CodecConfig(segment_method="DBSCAN", device_entropy=False)
     street = [scene_cloud(np, tm, s) for s in STREET_SEEDS]
     dcodec = RPCCCodec(lidar, dcfg, dev)
     dsingles = [dcodec.compress(pc, seed=s)[0] for pc, s in zip(street, STREET_SEEDS)]
     deng = BatchEngine(lidar, dcfg, dev, batch_size=len(street))
     deng.encode_frames(street, STREET_SEEDS)  # warm-up
     torch.cuda.synchronize()
-    fps.LAUNCHES = dbscan.LAUNCHES = 0
+    fps.LAUNCHES = dbscan.LAUNCHES = rans_device.LAUNCHES = 0
     dblobs = [b for b, _ in deng.encode_frames(street, STREET_SEEDS)]
-    db_launches = {"fps": fps.LAUNCHES, "dbscan": dbscan.LAUNCHES}
-    check(db_launches == {"fps": 0, "dbscan": 1}, f"DBSCAN engine launches {db_launches} for one batch")
+    db_launches = {"fps": fps.LAUNCHES, "dbscan": dbscan.LAUNCHES, "rans": rans_device.LAUNCHES}
+    check(db_launches == {"fps": 0, "dbscan": 1, "rans": 0}, f"DBSCAN engine launches {db_launches} for one batch")
     check(dblobs == dsingles, "DBSCAN engine blobs differ from single-frame blobs")
     deng.close()
     print(f"[phase 6] DBSCAN engine (B={len(street)}): launches {db_launches}, blobs == single-frame RPCCCodec; "
           f"sha256 {[hashlib.sha256(b).hexdigest() for b in dblobs]}")
 
-    # The 32E channel table, and f32 transfer (a 4-byte ring), at B = 8.
+    # The 32E channel table, and f32 transfer (a 4-byte ring), at B = 8,
+    # host entropy: blobs equal the single-frame codec's.
     from rpcc_tpu_torch.data import VELODYNE_32E_CSV, lidar_config
 
     lidar32 = lidar_config(CSV_LIDAR, VELODYNE_32E_CSV)
     tm32 = build_transform_map(lidar32)
     seeds = BATCH_SEEDS[:B]
     for tag, lid, ecfg, clouds in (
-        ("32E CSV", lidar32, CodecConfig(), [scene_cloud(np, tm32, s) for s in seeds]),
-        ("f32", lidar, CodecConfig(transfer_precision="f32"), frames[:B]),
+        ("32E CSV", lidar32, CodecConfig(device_entropy=False), [scene_cloud(np, tm32, s) for s in seeds]),
+        ("f32", lidar, CodecConfig(transfer_precision="f32", device_entropy=False), frames[:B]),
     ):
         ecodec = RPCCCodec(lid, ecfg, dev)
         esingles = [ecodec.compress(pc, seed=s)[0] for pc, s in zip(clouds, seeds)]
@@ -1030,10 +1283,10 @@ def phase_engine(torch, np, dev, card, lidar, codec):
         try:
             eng.encode_frames(clouds, seeds)  # warm-up
             torch.cuda.synchronize()
-            fps.LAUNCHES = dbscan.LAUNCHES = 0
+            fps.LAUNCHES = dbscan.LAUNCHES = rans_device.LAUNCHES = 0
             eblobs = [b for b, _ in eng.encode_frames(clouds, seeds)]
-            e_launches = {"fps": fps.LAUNCHES, "dbscan": dbscan.LAUNCHES}
-            check(e_launches == {"fps": 1, "dbscan": 0}, f"{tag} engine launches {e_launches} for one batch")
+            e_launches = {"fps": fps.LAUNCHES, "dbscan": dbscan.LAUNCHES, "rans": rans_device.LAUNCHES}
+            check(e_launches == {"fps": 1, "dbscan": 0, "rans": 0}, f"{tag} engine launches {e_launches} for one batch")
             check(eblobs == esingles, f"{tag} engine blobs differ from single-frame blobs")
             recs = eng.decode_range_images(eblobs)
             e_err = max(float(np.abs(r - q * d).max()) for r, (q, d) in zip(recs, map(ecodec.project, clouds)))
@@ -1042,10 +1295,93 @@ def phase_engine(torch, np, dev, card, lidar, codec):
             eng.close()
         print(f"[phase 6] {tag} engine (B={B}, {lid.height}x{lid.width}, {eng._ring[0].q.dtype} ring): launches "
               f"{e_launches}, blobs == single-frame RPCCCodec, decode max_err {e_err:.6f}")
+
+    engine_dropped_returns(torch, np, dev, lidar, street)
     return dict(fps_err=fps_err, fps_ms=fps_ms, fps_b2b=fps_b2b, fps_plain_ms=fps_plain_ms,
                 fps_bound=(fps_bound_ms, fps_bound_by),
                 fps_shape=f"B={B} N={lidar.height * lidar.width} K={cfg.cluster_num}",
-                fps_launches=launches["fps"], db_launches=db_launches["dbscan"])
+                fps_launches=launches["fps"], db_launches=db_launches["dbscan"], rans_launches=launches["rans"],
+                batches=len(work))
+
+
+def engine_dropped_returns(torch, np, dev, lidar, street):
+    """6, device entropy on frames with dropped returns: the 32E channel
+    table at B = 8 (T = resid_T(72000)) and DBSCAN mode at B = 4, each on
+    street scenes cut at 26 m (stream_len < HW: the device's T differs from
+    the host's), a ground sector (at most 32,768 returns: the host's pick
+    between its container and the device's) and random ranges (past 512
+    escapes: host-coded)."""
+    from rpcc_tpu_torch.codec.rans_codec import BZD_TRY_MAX_SYMBOLS
+    from rpcc_tpu_torch.config import CodecConfig
+    from rpcc_tpu_torch.data import VELODYNE_32E_CSV, lidar_config
+    from rpcc_tpu_torch.models.host_decoder import HostDecoder
+    from rpcc_tpu_torch.models.pipeline import RPCCCodec
+    from rpcc_tpu_torch.ops import dbscan, fps, rans_device
+    from rpcc_tpu_torch.ops.projection_host import build_transform_map
+    from rpcc_tpu_torch.ops.rans_device import ESC_CAP_DEV, resid_T
+    from rpcc_tpu_torch.parallel.engine import BatchEngine
+
+    bound = CodecConfig().step + 1e-5
+    lidar32 = lidar_config(CSV_LIDAR, VELODYNE_32E_CSV)
+    tm, tm32 = build_transform_map(lidar), build_transform_map(lidar32)
+    seeds = BATCH_SEEDS[:8]
+
+    for tag, lid, ecfg, clouds, eseeds in (
+        ("32E CSV", lidar32, CodecConfig(),
+         [drop_far(np, scene_cloud(np, tm32, s)) for s in seeds[:6]]
+         + [ground_sector(np, scene_cloud(np, tm32, seeds[6])), random_cloud(np, tm32, 20000, seeds[7])], seeds),
+        ("DBSCAN", lidar, CodecConfig(segment_method="DBSCAN"),
+         [drop_far(np, pc) for pc in street[:2]] + [ground_sector(np, street[2]),
+                                                    random_cloud(np, tm, 25000, STREET_SEEDS[3])], STREET_SEEDS),
+    ):
+        nb, hw = len(clouds), lid.height * lid.width
+        engs = [BatchEngine(lid, c, dev, batch_size=b)
+                for c, b in ((ecfg, nb), (ecfg, 1), (ecfg.replace(device_entropy=False), nb))]
+        eng, eng1, heng = engs
+        try:
+            eng.encode_frames(clouds, eseeds)  # warm-up
+            torch.cuda.synchronize()
+            fps.LAUNCHES = dbscan.LAUNCHES = rans_device.LAUNCHES = 0
+            eng.stream_downloads = 0
+            st = eng.stage_downloads(eng.encode_batch_device(clouds, eseeds))
+            eblobs = [b for b, _ in eng.finish_staged(st)]
+            downloads = eng.stream_downloads
+            e_launches = {"fps": fps.LAUNCHES, "dbscan": dbscan.LAUNCHES, "rans": rans_device.LAUNCHES}
+            seg = "dbscan" if ecfg.segment_method == "DBSCAN" else "fps"
+            want = {"fps": 0, "dbscan": 0, "rans": 1, seg: 1}
+            check(e_launches == want, f"{tag} device-entropy engine launches {e_launches} for one batch, expected {want}")
+            n, n_esc = st.stream_len[:nb], st.de_lens[2]
+            small = (n <= BZD_TRY_MAX_SYMBOLS) & (n_esc <= ESC_CAP_DEV)
+            check(bool(small.any()) and bool((n_esc > ESC_CAP_DEV).any()),
+                  f"{tag}: stream lengths {n.tolist()} and escapes {n_esc.tolist()} miss the small-frame pick "
+                  "or the escape overflow")
+            check(downloads == int((small | (n_esc > ESC_CAP_DEV)).sum()), f"{tag}: {downloads} i16 stream downloads")
+            check([b for b, _ in eng.encode_frames(clouds, eseeds)] == eblobs,
+                  f"a repeat {tag} device-entropy run gave different bytes")
+            ones = [eng1.encode_frames([pc], [s])[0][0] for pc, s in zip(clouds, eseeds)]
+            mism = [s for s, a, b in zip(eseeds, eblobs, ones) if a != b]
+            check(not mism, f"{tag}: B = {nb} device-entropy blobs differ from B = 1 blobs for seeds {mism}")
+            refs = [q * d for q, d in map(RPCCCodec(lid, ecfg, dev).project, clouds)]
+            errs = []
+            for decoded in (eng.decode_range_images(eblobs), HostDecoder(lid, ecfg).decode_blobs(eblobs)):
+                for rec, ri in zip(decoded, refs):
+                    check(bool((rec[ri == 0] == 0).all()), f"{tag}: a zero pixel decoded nonzero")
+                errs.append(max(float(np.abs(rec - ri).max()) for rec, ri in zip(decoded, refs)))
+                check(errs[-1] <= bound, f"{tag} device-entropy decode: max_err {errs[-1]} > {bound}")
+            hblobs = [b for b, _ in heng.encode_frames(clouds, eseeds)]
+            rel = [(len(a) - len(b)) / len(b) for a, b in zip(eblobs, hblobs)]
+            full = [i for i in range(nb) if not small[i] and n_esc[i] <= ESC_CAP_DEV]
+            check(bool(full) and all(n[i] < hw for i in full), f"{tag}: no frame of more than "
+                  f"{BZD_TRY_MAX_SYMBOLS} returns with dropped returns (stream lengths {n.tolist()})")
+            check(all(abs(rel[i]) <= 0.02 for i in full), f"{tag}: device vs host entropy bytes differ by {rel}")
+        finally:
+            for e in engs:
+                e.close()
+        print(f"[phase 6] {tag} device-entropy engine (B={nb}, {lid.height}x{lid.width}, T {resid_T(hw)}): launches "
+              f"{e_launches}; stream lengths {n.tolist()} of {hw}, escapes {n_esc.tolist()}; {downloads} "
+              f"of {nb} frames downloaded their i16 stream; blobs == B = 1 engine blobs, repeat run byte-identical; "
+              f"decode max_err device decoder {errs[0]:.6f}, host decoder {errs[1]:.6f} (bound {bound:.5f}); "
+              f"bytes vs host entropy (rel) {[round(r, 5) for r in rel]}")
 
 
 def phase_datalist(np, codec, lidar):
@@ -1073,10 +1409,19 @@ def phase_datalist(np, codec, lidar):
         def run(mod, *args):
             run_cli(mod, [*args, *common], 7)
 
-        out_dir = os.path.join(work, "rpcc")
-        run("compress_datalist", "--datalist", lst, "--output_dir", out_dir)
         from rpcc_tpu_torch.cli.compress_datalist import _mirror_path
 
+        # The default: device entropy.
+        dev_dir = os.path.join(work, "rpcc_dev")
+        run("compress_datalist", "--datalist", lst, "--output_dir", dev_dir)
+        dev_outs = [_mirror_path(p, dev_dir, "rpcc") for p in srcs]
+        dev_blobs = []
+        for path in dev_outs:
+            with open(path, "rb") as f:
+                dev_blobs.append(f.read())
+
+        out_dir = os.path.join(work, "rpcc")
+        run("compress_datalist", "--datalist", lst, "--output_dir", out_dir, "--no-device_entropy")
         outs = [_mirror_path(p, out_dir, "rpcc") for p in srcs]
         blobs = []
         for i, (pc, path) in enumerate(zip(frames, outs)):
@@ -1088,30 +1433,34 @@ def phase_datalist(np, codec, lidar):
                              "--seed", "3"], 7)
         with open(single, "rb") as f:
             check(f.read() == blobs[3], "datalist blob 3 != single-frame CLI --seed 3")
-        print(f"[phase 7] {len(blobs)} datalist blobs == single-frame codec per seed; "
+        print(f"[phase 7] {len(blobs)} --no-device_entropy datalist blobs == single-frame codec per seed; "
               f"frame 3 == single-frame CLI --seed 3")
 
-        lst2 = os.path.join(work, "list2.txt")
-        with open(lst2, "w") as f:
-            f.write("\n".join(outs) + "\n")
-        pts = {}
-        for backend in ("host", "device"):
-            rec_dir = os.path.join(work, "rec_" + backend)
-            run("decompress_datalist", "--datalist", lst2, "--output_dir", rec_dir, "--decode_backend", backend)
-            pts[backend] = [np.fromfile(_mirror_path(p, rec_dir, "bin"), np.float32).reshape(-1, 4) for p in outs]
-        ref = HostDecoder(lidar, cfg).decode_blobs(blobs)
-        diff = 0.0
-        for i, pc in enumerate(frames):
-            q, d = codec.project(pc)
-            ri = q.astype(np.float32) * d
-            err = float(np.abs(ref[i] - ri).max())
-            check(err <= bound, f"host decode of datalist blob {i}: max_err {err} > {bound}")
-            h, g = pts["host"][i], pts["device"][i]
-            check(h.shape == g.shape == (int((ri > 0).sum()), 4), f"frame {i}: row counts differ")
-            diff = max(diff, float(np.abs(h - g).max()))
-        check(diff <= 1e-5, f"host and device backends differ by {diff}")
-        print(f"[phase 7] both backends within bound; host vs device max |diff| {diff:.3g} "
-              f"(identical: {all(np.array_equal(a, b) for a, b in zip(pts['host'], pts['device']))})")
+        for tag, these_outs, these_blobs in (("device entropy", dev_outs, dev_blobs), ("host entropy", outs, blobs)):
+            lst2 = os.path.join(work, "list2.txt")
+            with open(lst2, "w") as f:
+                f.write("\n".join(these_outs) + "\n")
+            pts = {}
+            for backend in ("host", "device"):
+                rec_dir = os.path.join(work, f"rec_{backend}_{tag[:4]}")
+                run("decompress_datalist", "--datalist", lst2, "--output_dir", rec_dir, "--decode_backend", backend)
+                pts[backend] = [np.fromfile(_mirror_path(p, rec_dir, "bin"), np.float32).reshape(-1, 4)
+                                for p in these_outs]
+            ref = HostDecoder(lidar, cfg).decode_blobs(these_blobs)
+            diff = err_max = 0.0
+            for i, pc in enumerate(frames):
+                q, d = codec.project(pc)
+                ri = q.astype(np.float32) * d
+                err = float(np.abs(ref[i] - ri).max())
+                err_max = max(err_max, err)
+                check(err <= bound, f"host decode of {tag} datalist blob {i}: max_err {err} > {bound}")
+                h, g = pts["host"][i], pts["device"][i]
+                check(h.shape == g.shape == (int((ri > 0).sum()), 4), f"{tag} frame {i}: row counts differ")
+                diff = max(diff, float(np.abs(h - g).max()))
+            check(diff <= 1e-5, f"{tag}: host and device backends differ by {diff}")
+            print(f"[phase 7] {tag}: {len(these_blobs)} blobs ({sum(map(len, these_blobs))} bytes), both backends "
+                  f"within bound (max_err {err_max:.6f}); host vs device max |diff| {diff:.3g} (identical: "
+                  f"{all(np.array_equal(a, b) for a, b in zip(pts['host'], pts['device']))})")
 
         # The 32E channel table in f32 with cpu_fps from a YAML, and --eval.
         from rpcc_tpu_torch.data import VELODYNE_32E_CSV, lidar_config
@@ -1128,7 +1477,8 @@ def phase_datalist(np, codec, lidar):
         with open(lst32, "w") as f:
             f.write("\n".join(srcs32) + "\n")
         flags32 = ["--lidar", CSV_LIDAR, "--channel_distribute_csv", VELODYNE_32E_CSV, "--transfer_precision", "f32",
-                   "--compressor_yaml", cpu_fps_yaml(os.path.join(work, "cpu_fps.yaml")), "--device", "cuda", "--batch", "4"]
+                   "--compressor_yaml", cpu_fps_yaml(os.path.join(work, "cpu_fps.yaml")), "--device", "cuda", "--batch", "4",
+                   "--no-device_entropy"]
         out32 = os.path.join(work, "rpcc32")
         stdout = run_cli("compress_datalist", ["--datalist", lst32, "--output_dir", out32, "--eval", *flags32], 7)
         evals = [ln for ln in stdout.splitlines() if ln.startswith("eval ")]
@@ -1161,9 +1511,12 @@ def phase_datalist(np, codec, lidar):
 
 
 def phase_against(torch, np, dev, card, lidar, root: str) -> None:
-    """``--against``: the DBSCAN kernel of ``root``'s package timed as in
-    phases 3b/3c, and the sha256 of the main path's blobs of phase 4 and
-    of the DBSCAN-mode blobs of phases 4b/6."""
+    """``--against``: the FPS, DBSCAN and (where the checkout has it) rANS
+    kernels of ``root``'s package timed as in phases 3/3b/3c/3e, and the
+    sha256 of the main path's blobs of phase 4 and of the DBSCAN-mode blobs
+    of phases 4b/6."""
+    import importlib.util
+
     import rpcc_tpu_torch
     from rpcc_tpu_torch.config import CodecConfig
     from rpcc_tpu_torch.models.pipeline import RPCCCodec
@@ -1201,7 +1554,17 @@ def phase_against(torch, np, dev, card, lidar, root: str) -> None:
     for s in SEEDS:
         print(f"[phase 4] default seed {s} blob sha256 "
               f"{hashlib.sha256(codec.compress(synth_cloud_for(lidar, s))[0]).hexdigest()}")
-    cfg = CodecConfig(segment_method="DBSCAN")
+    if importlib.util.find_spec("rpcc_tpu_torch.ops.rans_device") is not None:
+        from rpcc_tpu_torch.ops import rans_device as rd
+
+        q, n, c = rans_inputs(torch, codec, [synth_cloud_for(lidar, s) for s in BATCH_SEEDS[:8]])
+        for B in (1, 8):
+            qb, nb, cb = (t[:B].contiguous() for t in (q, n, c))
+            run = lambda qb=qb, nb=nb, cb=cb: rd.encode_fields_cuda(qb, nb, cb)  # noqa: E731
+            print(f"[against] [{card}] rans (B={B}, 64x2000) of {root} median of {TIMED_RUNS}: "
+                  f"{median_ms(torch, run):.4f} ms one call, {median_ms(torch, run, BACK_TO_BACK):.4f} ms "
+                  f"over {BACK_TO_BACK} back to back")
+    cfg = CodecConfig(segment_method="DBSCAN", device_entropy=False)
     codec = RPCCCodec(lidar, cfg, dev)
     for s in MODE_SEEDS:
         print(f"[phase 4b] DBSCAN seed {s} blob sha256 "
@@ -1242,6 +1605,7 @@ def main() -> int:
         return 0
 
     # ---------------------------------------------------------------- 0
+    t_start = time.perf_counter()
     card = card_line()
     print(card)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
@@ -1264,12 +1628,14 @@ def main() -> int:
     db4 = phase_dbscan_batch(torch, np, dev, card, lidar, STREET_SEEDS)  # 3c
     db8 = phase_dbscan_batch(torch, np, dev, card, lidar, STREET_SEEDS_8)
     codec, frames, fps_per_encode = phase_main(torch, np, dev, card, lidar)  # 4
+    rans = phase_rans(torch, np, dev, card, lidar, codec, frames)  # 3e
     db_per_encode = phase_modes(torch, np, dev, card, lidar)  # 4b
     new_modes = phase_new_modes(torch, np, dev, card, lidar)  # 4c
     phase_cli(np, codec, frames)  # 5
     eng = phase_engine(torch, np, dev, card, lidar, codec)  # 6
     phase_datalist(np, codec, lidar)  # 7
     check_isolated()
+    print(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s")
 
     # ``ms``/``plain_ms``/``bound_ms`` are at the engine's shape (``shape``),
     # ``launches`` is the engine's count of wrapper calls over phase 6's
@@ -1280,7 +1646,10 @@ def main() -> int:
     # ``masked_*`` keys are the FPS kernel masked by per-frame counts
     # (phase 3d; its launches per ``cpu_fps`` encode from phase 4c).  No
     # single PyTorch call computes FPS or DBSCAN labels, so ``library_ms``
-    # is null.
+    # is null.  The rANS kernel's ``ms`` are at the engine's B = 8 on phase
+    # 6's first batch (phase 3e), its ``launches`` phase 6's main-path
+    # device-entropy run (one per batch);
+    # no PyTorch call computes a rANS encode.
     print(json.dumps({"kernels": [
         {
             "name": "fps",
@@ -1340,6 +1709,29 @@ def main() -> int:
             "batch8_ms_10_back_to_back": db8["b2b"],
             "batch8_plain_ms": db8["plain_ms"],
             "batch8_bound_ms": db8["bound"][0],
+        },
+        {
+            "name": "rans",
+            "route": "cuda",
+            "source": "rpcc_tpu_torch/csrc/rans.cu",
+            "replaces": "rpcc_tpu/ops/rans_device.py:151 (encode_field_device, XLA, not Pallas)",
+            "launches": eng["rans_launches"],
+            "launches_per_batch": eng["rans_launches"] / eng["batches"] * LAUNCHES_PER_CALL["rans"],
+            "max_abs_err": rans["err"],
+            "shape": rans[8]["shape"],
+            "ms": rans[8]["ms"],
+            "ms_10_back_to_back": rans[8]["b2b"],
+            "plain_ms": rans[8]["plain_ms"],
+            "bound_ms": rans[8]["bound"][0],
+            "bound_by": rans[8]["bound"][1],
+            "library_ms": None,
+            "single_frame_shape": rans[1]["shape"],
+            "single_frame_ms": rans[1]["ms"],
+            "single_frame_ms_10_back_to_back": rans[1]["b2b"],
+            "single_frame_plain_ms": rans[1]["plain_ms"],
+            "single_frame_bound_ms": rans[1]["bound"][0],
+            "single_frame_phase_us": {k: round(v, 3) for k, v in rans[1]["split"].items()},
+            "phase_us": {k: round(v, 3) for k, v in rans[8]["split"].items()},
         },
     ]}))
     print(json.dumps({"ok": True, "device": {

@@ -39,6 +39,9 @@ def add_codec_args(parser: argparse.ArgumentParser, datalist: bool = False) -> N
     parser.add_argument("--transfer_precision", choices=("f32", "u16", "i8", "m8"), default=None,
                         help="range-image upload: u16, i8 and m8 (the default) the u16 snap grid, "
                         "f32 exact depths.")
+    parser.add_argument("--device_entropy", action=argparse.BooleanOptionalAction, default=None,
+                        help="rANS-code the residual and contour fields on the device in the batch engine "
+                        "(rans coder only; default: the YAML's, on; --no-device_entropy codes them on the host).")
     parser.add_argument("--accuracy", type=float, default=None,
                         help="max reconstruction error (default 0.02; step = 2 * accuracy).")
     parser.add_argument("--basic_compressor", type=str, default=None,
@@ -73,6 +76,7 @@ def config_from_args(args: argparse.Namespace) -> CodecConfig:
         plane_angle_threshold=args.angle_threshold,
         seed=args.seed,
         transfer_precision=args.transfer_precision,
+        device_entropy=args.device_entropy,
     )
     if args.nonuniform:
         cfg = cfg.replace(compress_framework="non-uniform")

@@ -5,11 +5,14 @@ Usage:
         --lidar Velodyne64E --device cuda [--accuracy 0.02 --seed 0]
         [--segment_method DBSCAN --model_method plane --nonuniform ...]
         [--channel_distribute_csv table.csv --transfer_precision f32 --cpu]
-        [--compressor_yaml codec.yaml --self_describing --eval]
+        [--compressor_yaml codec.yaml --self_describing --eval --profile]
 
 ``frame.bin`` is KITTI layout: float32 (x, y, z, intensity) rows.
 ``--self_describing`` prefixes the stream with a header naming its
 configuration and LiDAR, so decompress needs no matching flags.
+``--profile`` runs one more encode under ``torch.profiler`` and prints the
+operations that took the most time: CUDA kernels on the card, CPU operators
+with ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -36,6 +39,8 @@ def main(argv=None) -> None:
     add_codec_args(parser)
     parser.add_argument("--self_describing", action="store_true",
                         help="prefix the stream with a configuration header (the reference format is headerless).")
+    parser.add_argument("--profile", action="store_true",
+                        help="profile one encode and print the operations with the most summed time.")
     args = parser.parse_args(argv)
     cfg = config_from_args(args)
     device = device_from_args(args)
@@ -71,6 +76,11 @@ def main(argv=None) -> None:
     print(f"Total (no load, no warm-up): {t3 - t2:.6f} s")
     print(f"Compression ratio: {point_num * 96 / bits:.4f}")
     print(f"BPP: {bits / point_num:.6f}")
+
+    if args.profile:
+        from rpcc_tpu_torch.utils.profiling import print_op_table
+
+        print_op_table(lambda: codec.encode_device(points), codec.device)
 
     if args.eval:
         q, d = codec.project(points)

@@ -98,7 +98,7 @@ def main(argv=None) -> None:
         """Write a batch's blobs; -> the batch indices written."""
         nonlocal done, errors
         written = []
-        for j, ((blob, fields), name) in enumerate(zip(results, names)):
+        for j, ((blob, _), name) in enumerate(zip(results, names)):
             if bi * args.batch + j in failed_loads:
                 errors += 1  # load already logged; no output written
                 continue
@@ -114,7 +114,7 @@ def main(argv=None) -> None:
                 continue
             done += 1
             written.append(j)
-            n_pts = max(int(fields["residual_quantized"].size), 1)
+            n_pts = max(int(results.stream_len[j]), 1)  # live residuals = nonzero points
             points.append(n_pts)
             sizes.append(len(blob))
             if args.output:

@@ -204,19 +204,28 @@ def compress_contour_batch(packed_list: Sequence[np.ndarray], H: int, W: int) ->
     words, n_words, counts, states, freqs = rans_native.contour_encode_frames(pb, H, W, T)
     out = []
     for i, p in enumerate(pb):
-        blob = b"".join(
-            [
-                struct.pack("<BHHH", MAGIC_BITS, T, H, W),
-                freqs[i].astype("<u2").tobytes(),
-                states[i].astype("<u4").tobytes(),
-                counts[i].astype("<u2").tobytes(),
-                words[i, : n_words[i]].astype("<u2").tobytes(),
-            ]
-        )
+        blob = build_bits_container(T, H, W, freqs[i], states[i], counts[i], words[i, : n_words[i]])
         if H * W <= CONTOUR_BZ_TRY_MAX_PIXELS:
             blob = min(blob, bytes([MAGIC_BZ]) + bz2.compress(p.tobytes()), key=len)
         out.append(blob)
     return out
+
+
+def build_bits_container(T: int, H: int, W: int, freqs: np.ndarray, states: np.ndarray,
+                         counts: np.ndarray, words: np.ndarray) -> bytes:
+    """An 'N' contour container from its pieces: ``freqs`` (4, 2),
+    ``states`` and ``counts`` (H,), ``words`` the sum(counts) u16 words."""
+    if T > 0xFFFF:
+        raise ValueError(f"bits container lane length T={T} overflows u16")
+    return b"".join(
+        [
+            struct.pack("<BHHH", MAGIC_BITS, T, H, W),
+            np.ascontiguousarray(freqs, "<u2").tobytes(),
+            np.ascontiguousarray(states, "<u4").tobytes(),
+            np.ascontiguousarray(counts, "<u2").tobytes(),
+            np.ascontiguousarray(words, "<u2").tobytes(),
+        ]
+    )
 
 
 def decompress_contour(blob: bytes) -> bytes:
@@ -296,7 +305,15 @@ def _symbolize(arr: np.ndarray):
     return sym, zz[esc_mask], (int(q[0]) if n else 0), n
 
 
-def _ctx_container(L, T, n, q0, escapes, freqs, states, counts, words, dtype) -> bytes:
+def build_ctx_container(L: int, T: int, n: int, q0: int, escapes: np.ndarray, freqs: np.ndarray,
+                        states: np.ndarray, counts: np.ndarray, words: np.ndarray, dtype) -> bytes:
+    """A 'C' container from its pieces (the native and the device encoders'
+    outputs): ``escapes`` the n_esc u32 values, ``freqs`` (NUM_CTX, ALPHABET),
+    ``states`` and ``counts`` (L,), ``words`` the sum(counts) u16 words."""
+    # Lane word counts ride the wire as u16: past 0xFFFF the container
+    # would wrap into an undecodable one.
+    if T > 0xFFFF:
+        raise ValueError(f"ctx container lane length T={T} overflows u16")
     parts = [
         struct.pack("<BBHIi", MAGIC_CTX, L.bit_length() - 1, T, n, int(q0)),
         struct.pack("<I", escapes.shape[0]),
@@ -366,7 +383,7 @@ def _compress_delta_batch_np(arrays: Sequence[np.ndarray]) -> List[bytes]:
     )
     out = []
     for i, (sym, escapes, q0, n) in enumerate(per):
-        blob = _ctx_container(
+        blob = build_ctx_container(
             L, T, n, q0, escapes, freqs[i].astype(np.int64), states[i],
             counts[i], _lane_words(words[i], counts[i]), arrays[i].dtype,
         )
@@ -405,7 +422,7 @@ def compress_delta_batch(arrays: Sequence[np.ndarray]) -> List[bytes]:
             if esc_counts[k] < 0:  # escape-capacity overflow
                 out[i] = _compress_delta_batch_np([arrays[i]])[0]
                 continue
-            out[i] = _ctx_container(
+            out[i] = build_ctx_container(
                 L, T, subs[k].size, q0s[k], escapes[k, : esc_counts[k]], freqs[k], states[k],
                 counts[k], words[k, : n_words[k]], subs[k].dtype,
             )

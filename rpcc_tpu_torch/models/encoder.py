@@ -10,7 +10,9 @@ Input: a (B, H, W) batch of grids ``q``, each frame's ``delta`` (``ri = q
 seed.  Output: every codec
 artefact the host entropy-codes — segmentation, model table, the
 cluster-ordered quantized residual stream, the contour code and, in
-non-uniform mode, the per-cluster salience levels — each with a leading B.
+non-uniform mode, the per-cluster salience levels — each with a leading B;
+with ``cfg.device_entropy`` and the ``rans`` coder also the residual and
+contour containers' pieces, coded on the device by one kernel launch.
 The batch runs as one graph (the JAX package's ``jax.vmap`` of the frame
 graph): no loop over frames and no host sync inside; a frame's outputs do
 not depend on the other frames of its batch.  A single (H, W) frame is the
@@ -31,6 +33,7 @@ from rpcc_tpu_torch.ops.contour import extract_contour, pack_bits_msb
 from rpcc_tpu_torch.ops.features import extract_features_with_segment, salience_levels_from_counts
 from rpcc_tpu_torch.ops.modeling import plane_models_stream, point_model_table
 from rpcc_tpu_torch.ops.projection_host import build_transform_planes
+from rpcc_tpu_torch.ops.rans_device import encode_fields_device
 from rpcc_tpu_torch.ops.rounding import round_half_away
 from rpcc_tpu_torch.ops.segment import segment_range_image, segment_range_image_dbscan
 from rpcc_tpu_torch.ops.stream import (
@@ -66,6 +69,22 @@ class EncoderOutput(NamedTuple):
     sequence: torch.Tensor  # (B, HW) u16 run values, tail-padded
     seq_len: torch.Tensor  # (B,) number of live run values
     salience: Optional[torch.Tensor] = None  # (B, M) u8 levels; non-uniform mode only
+    # Device entropy coding (cfg.device_entropy with the rans coder): the
+    # pieces of the residual 'C' and contour 'N' containers
+    # (ops/rans_device.py), under the reference's names.
+    de_res_words: Optional[torch.Tensor] = None  # (B, 32 * T) int16 (u16 words)
+    de_res_nw: Optional[torch.Tensor] = None  # (B,) int32
+    de_res_counts: Optional[torch.Tensor] = None  # (B, 32) int32
+    de_res_states: Optional[torch.Tensor] = None  # (B, 32) int64 (u32 states)
+    de_res_freqs: Optional[torch.Tensor] = None  # (B, 4, 512) int32
+    de_res_escapes: Optional[torch.Tensor] = None  # (B, 512) int64 (u32 values)
+    de_res_nesc: Optional[torch.Tensor] = None  # (B,) int32
+    de_res_q0: Optional[torch.Tensor] = None  # (B,) int32
+    de_cnt_words: Optional[torch.Tensor] = None  # (B, H * Tc) int16
+    de_cnt_nw: Optional[torch.Tensor] = None  # (B,) int32
+    de_cnt_counts: Optional[torch.Tensor] = None  # (B, H) int32
+    de_cnt_states: Optional[torch.Tensor] = None  # (B, H) int64
+    de_cnt_freqs: Optional[torch.Tensor] = None  # (B, 4, 2) int32
 
 
 class Encoder(nn.Module):
@@ -76,6 +95,9 @@ class Encoder(nn.Module):
         super().__init__()
         self.lidar, self.cfg = lidar, cfg
         self.num_models = num_model_rows(cfg)
+        # Device entropy coding: the knob, with the rans coder only.  The
+        # engine reads this to know which pieces the graph hands it.
+        self.device_entropy = bool(cfg.device_entropy) and cfg.basic_compressor == "rans"
         self.register_buffer("tm_planes", torch.from_numpy(np.asarray(tm_planes, np.float32)))
 
     @classmethod
@@ -152,6 +174,11 @@ class Encoder(nn.Module):
         qs = torch.where(live, qs, 0)
 
         code = extract_contour(seg)
+        de = {}
+        if self.device_entropy:
+            res, cnt = encode_fields_device(qs.contiguous(), order.stream_len.to(torch.int32), code.contour.contiguous())
+            de = {f"de_res_{k}": v for k, v in zip(("words", "nw", "counts", "states", "freqs", "escapes", "nesc", "q0"), res)}
+            de.update({f"de_cnt_{k}": v for k, v in zip(("words", "nw", "counts", "states", "freqs"), cnt)})
         return EncoderOutput(
             range_image=ri,
             seg_idx=seg,
@@ -162,4 +189,5 @@ class Encoder(nn.Module):
             sequence=code.sequence.to(torch.uint16),
             seq_len=code.seq_len,
             salience=salience,
+            **de,
         )

@@ -1,0 +1,327 @@
+"""Device rANS encode of the two big bitstream fields: plain PyTorch version
++ the CUDA kernel's wrapper (port of ``rpcc_tpu/ops/rans_device.py``).
+
+The engine's default path (``cfg.device_entropy`` with the ``rans`` coder)
+entropy-codes the residual stream and the contour plane on the device and
+downloads compressed words instead of the fields.  The pieces are those of
+the host coders' containers, so the host decoders read them unchanged:
+
+* residual ('C'): delta + zigzag over the live stream (positions at or past
+  ``stream_len`` are zero deltas), zigzag values >= ESCAPE become the ESCAPE
+  symbol with the value on an escape list in stream order (the first
+  ESC_CAP_DEV of them, plus the total count; a frame past the cap is coded
+  on the host), 32 live-aware lanes of ``resid_T(HW)`` steps, a 4-context
+  model on the previous symbol of the lane, histograms over the live
+  positions only;
+* contour ('N'): the (H, W) bits sheared into a diagonal wavefront (row r
+  delayed r steps), H lanes of ``contour_T(H, W)`` steps, ctx = 2 * above
+  + left.
+
+Each lane's symbols are walked in reverse (16-bit renormalization, at most
+one word per symbol); the packed words are the emitted words lane-major in
+emission order, followed by the words of the steps that emitted nothing, in
+the same order (the reference's stable sort of the (lane, step) keys), so
+every output equals the reference's element for element.  A zigzag value
+of 2^31 or more (a residual delta of 2^30 or more, which a quantized range
+residual never reaches) is an escape here, where the reference's int32
+would wrap it negative.
+
+:func:`encode_fields_device` dispatches on the tensors' device: the plain
+versions for CPU tensors, one launch of the hand-written kernel
+(``csrc/rans.cu``) for CUDA tensors.  A CUDA tensor never falls back to the
+plain version: if the kernel cannot build or launch, the call raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+
+from rpcc_tpu_torch.ops.rans import M, RANS_L, cumulative, normalize_freqs, wavefront_bit_context, zigzag_magnitude_context
+
+RESID_LANES = 32  # = codec/rans_codec.py MAX_LANES: a container field
+ESC_CAP_DEV = 512  # per-frame escape capacity; past it the frame is coded on the host
+ALPHABET = 512
+ESCAPE = ALPHABET - 1
+NUM_CTX = 4
+_T_BUCKET = 16  # = codec/rans_codec.py T_BUCKET
+MAX_CONTOUR_ROWS = 512  # one thread per contour lane in a block of csrc/rans.cu
+
+# Launches of the CUDA kernel since the count was last reset (one per call
+# of :func:`encode_fields_cuda`, whatever fields it codes).
+LAUNCHES = 0
+# Spans timed by ``phase_stamps`` (csrc/rans.cu), in the first block (frame
+# 0's residual stream, or its contour when no stream is coded).
+PHASES = ("histogram", "normalize", "tables", "walk", "pack")
+
+
+def resid_T(hw: int) -> int:
+    """Steps per lane of the device residual container of an HW-pixel grid."""
+    t = -(-hw // RESID_LANES)
+    return -(-t // _T_BUCKET) * _T_BUCKET
+
+
+def contour_T(H: int, W: int) -> int:
+    """Steps per lane of the wavefront contour container (geometry-fixed)."""
+    return -(-(W + H - 1) // _T_BUCKET) * _T_BUCKET
+
+
+class ResidualPieces(NamedTuple):
+    words: torch.Tensor  # (B, 32 * T) int16: u16 words, the first n_words the container's
+    n_words: torch.Tensor  # (B,) int32
+    counts: torch.Tensor  # (B, 32) int32 words per lane
+    states: torch.Tensor  # (B, 32) int64 final u32 states
+    freqs: torch.Tensor  # (B, NUM_CTX, ALPHABET) int32 normalized tables
+    escapes: torch.Tensor  # (B, ESC_CAP_DEV) int64 u32 escape values in stream order, 0-filled
+    n_esc: torch.Tensor  # (B,) int32 total escapes (may exceed ESC_CAP_DEV)
+    q0: torch.Tensor  # (B,) int32 first stream value
+
+
+class ContourPieces(NamedTuple):
+    words: torch.Tensor  # (B, H * T) int16
+    n_words: torch.Tensor  # (B,) int32
+    counts: torch.Tensor  # (B, H) int32
+    states: torch.Tensor  # (B, H) int64
+    freqs: torch.Tensor  # (B, 4, 2) int32
+
+
+# ------------------------------------------------------------------ plain
+def _walk_and_pack(key: torch.Tensor, freqs: torch.Tensor, live_lane: torch.Tensor):
+    """The renormalization walk of every lane in reverse, and the packing.
+
+    ``key`` (B, L, T) int64 joint (ctx, symbol) index into the flattened
+    ``freqs`` (B, C, A); ``live_lane`` (B, L) live steps per lane (the rest
+    are neither coded nor emit).  -> (words (B, L*T) int16, n_words,
+    counts, states int64)."""
+    B, L, T = key.shape
+    dev = key.device
+    ftab = freqs.reshape(B, -1).to(torch.int64)
+    ctab = cumulative(freqs).reshape(B, -1).to(torch.int64)
+    f_all = ftab.gather(1, key.reshape(B, -1)).reshape(B, L, T)
+    c_all = ctab.gather(1, key.reshape(B, -1)).reshape(B, L, T)
+    x = torch.full((B, L), RANS_L, dtype=torch.int64, device=dev)
+    words = torch.empty((B, L, T), dtype=torch.int64, device=dev)  # emission order
+    emit = torch.empty((B, L, T), dtype=torch.bool, device=dev)
+    for i, t in enumerate(range(T - 1, -1, -1)):
+        active = t < live_lane
+        f = torch.where(active, f_all[:, :, t], 1)
+        e = active & ((x >> 18) >= f)
+        words[:, :, i] = x & 0xFFFF
+        emit[:, :, i] = e
+        x = torch.where(e, x >> 16, x)
+        x = torch.where(active, (x // f) * M + c_all[:, :, t] + x % f, x)
+    counts = emit.sum(-1, dtype=torch.int64)
+    off = torch.cumsum(counts, -1) - counts  # exclusive, over lanes
+    n_words = counts.sum(-1)
+    lane_base = torch.arange(L, device=dev, dtype=torch.int64) * T
+    dest = torch.where(
+        emit,
+        off[..., None] + torch.cumsum(emit, -1) - 1,
+        n_words[:, None, None] + (lane_base - off)[..., None] + torch.cumsum(~emit, -1) - 1,
+    )
+    packed = torch.zeros((B, L * T), dtype=torch.int64, device=dev).scatter_(1, dest.reshape(B, -1), words.reshape(B, -1))
+    packed = torch.where(packed >= 0x8000, packed - 0x10000, packed).to(torch.int16)
+    return packed, n_words.to(torch.int32), counts.to(torch.int32), x
+
+
+def encode_residual_field_plain(q: torch.Tensor, stream_len: torch.Tensor) -> ResidualPieces:
+    """Plain version over (B, HW) int quantized residual streams (zero past
+    ``stream_len``) and (B,) live lengths: the residual container's pieces."""
+    B, hw = q.shape
+    L, T = RESID_LANES, resid_T(hw)
+    dev = q.device
+    q = q.to(torch.int64)
+    n = stream_len.to(torch.int64).clamp(0, hw).reshape(B, 1)
+    iota = torch.arange(hw, device=dev)
+    live = iota < n
+    d = torch.where(live & (iota > 0), q - torch.nn.functional.pad(q[:, :-1], (1, 0)), 0)
+    d = ((d + 2**31) & 0xFFFFFFFF) - 2**31  # int32 wrap, as the reference's int32 delta
+    zz = torch.where(d >= 0, 2 * d, -2 * d - 1) & 0xFFFFFFFF  # the u32 zigzag value
+    is_esc = zz >= ESCAPE
+    n_esc = is_esc.sum(-1, dtype=torch.int32)
+    rank = torch.cumsum(is_esc, -1) - 1
+    slot = torch.where(is_esc & (rank < ESC_CAP_DEV), rank, ESC_CAP_DEV)
+    escapes = torch.zeros((B, ESC_CAP_DEV + 1), dtype=torch.int64, device=dev).scatter_(1, slot, zz)[:, :ESC_CAP_DEV]
+    sym = torch.where(is_esc, ESCAPE, zz)
+    sym = torch.nn.functional.pad(sym, (0, L * T - hw)).reshape(B, L, T)
+    ctx = zigzag_magnitude_context(torch.nn.functional.pad(sym[:, :, :-1], (1, 0)))
+    key = (ctx * ALPHABET + sym).reshape(B, -1)
+    flat_live = torch.arange(L * T, device=dev) < n
+    K = NUM_CTX * ALPHABET
+    hist = torch.zeros((B, K + 1), dtype=torch.int64, device=dev)
+    hist.scatter_add_(1, torch.where(flat_live, key, K), torch.ones_like(key))
+    freqs = normalize_freqs(hist[:, :K].reshape(B, NUM_CTX, ALPHABET))
+    live_lane = (n - torch.arange(L, device=dev) * T).clamp(0, T)
+    words, n_words, counts, states = _walk_and_pack(torch.where(flat_live, key, 0).reshape(B, L, T), freqs, live_lane)
+    return ResidualPieces(words, n_words, counts, states, freqs, escapes, n_esc, q[:, 0].to(torch.int32))
+
+
+def encode_contour_field_plain(contour: torch.Tensor) -> ContourPieces:
+    """Plain version over (B, H, W) contour planes (nonzero = 1): the
+    wavefront contour container's pieces."""
+    B, H, W = contour.shape
+    T = contour_T(H, W)
+    dev = contour.device
+    bits = (contour != 0).to(torch.int64)
+    col = (torch.arange(W, device=dev)[None, :] + torch.arange(H, device=dev)[:, None]).expand(B, H, W)
+    sym = torch.zeros((B, H, T), dtype=torch.int64, device=dev).scatter_(2, col, bits)  # row r delayed r steps
+    left = torch.nn.functional.pad(sym[:, :, :-1], (1, 0))
+    ctx = wavefront_bit_context(left.transpose(1, 2)).transpose(1, 2)
+    ctx[:, :, 0] = 0
+    key = (ctx * 2 + sym).reshape(B, -1)
+    hist = torch.zeros((B, 8), dtype=torch.int64, device=dev).scatter_add_(1, key, torch.ones_like(key))
+    freqs = normalize_freqs(hist.reshape(B, 4, 2))
+    live_lane = torch.full((B, H), T, dtype=torch.int64, device=dev)
+    words, n_words, counts, states = _walk_and_pack(key.reshape(B, H, T), freqs, live_lane)
+    return ContourPieces(words, n_words, counts, states, freqs)
+
+
+# ------------------------------------------------------------------ kernel
+@functools.lru_cache(maxsize=None)
+def _library():
+    from rpcc_tpu_torch.ops.cuda_build import load_cuda_library
+
+    lib = load_cuda_library("rans.cu")
+    lib.rpcc_rans_encode_launch.restype = ctypes.c_int
+    lib.rpcc_rans_encode_launch.argtypes = (
+        [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3  # q, stream_len, B_res, hw, T_res
+        + [ctypes.c_void_p] + [ctypes.c_int] * 4  # contour, B_cnt, H, W, T_cnt
+        + [ctypes.c_void_p] * 8  # residual outputs
+        + [ctypes.c_void_p] * 5  # contour outputs
+        + [ctypes.c_void_p] * 4  # fc scratch, word scratch, phase stamps, stream
+    )
+    return lib
+
+
+def _kernel():
+    return _library().rpcc_rans_encode_launch
+
+
+def _check_residual(q: torch.Tensor, stream_len: torch.Tensor) -> None:
+    if q.dtype != torch.int32 or stream_len.dtype != torch.int32:
+        raise TypeError(f"q and stream_len must be int32, got {q.dtype} and {stream_len.dtype}")
+    if q.ndim != 2 or q.shape[1] < 1 or stream_len.shape != (q.shape[0],):
+        raise ValueError(f"expected (B, HW) q and (B,) stream_len, got {tuple(q.shape)} and {tuple(stream_len.shape)}")
+    if stream_len.device != q.device:
+        raise ValueError("q and stream_len must share a device")
+    if RESID_LANES * resid_T(q.shape[1]) * max(q.shape[0], 1) >= 2**31:
+        raise ValueError("residual batch exceeds 2^31 lane steps")
+
+
+def _check_contour(contour: torch.Tensor) -> None:
+    if contour.dtype != torch.int32:
+        raise TypeError(f"contour must be int32, got {contour.dtype}")
+    if contour.ndim != 3 or contour.shape[1] < 1 or contour.shape[2] < 1:
+        raise ValueError(f"expected a (B, H, W) contour, got {tuple(contour.shape)}")
+    B, H, W = contour.shape
+    if H * contour_T(H, W) * max(B, 1) >= 2**31:
+        raise ValueError("contour batch exceeds 2^31 lane steps")
+
+
+def encode_fields_cuda(
+    q: Optional[torch.Tensor], stream_len: Optional[torch.Tensor], contour: Optional[torch.Tensor],
+    phase_stamps: Optional[torch.Tensor] = None,
+) -> Tuple[Optional[ResidualPieces], Optional[ContourPieces]]:
+    """The CUDA kernel on CUDA tensors: the residual pieces of (B, HW) int32
+    ``q`` with (B,) int32 ``stream_len`` and the contour pieces of a
+    (B', H, W) int32 ``contour``, either of them None, in one launch on the
+    current stream (no synchronize); raises on any other input.
+    ``phase_stamps``, an int64 CUDA tensor of ``len(PHASES) + 1`` elements,
+    receives the first block's ``%globaltimer`` (ns) at the bounds of its
+    phases."""
+    global LAUNCHES
+    if q is None and contour is None:
+        raise ValueError("nothing to encode")
+    tensors = [t for t in (q, stream_len, contour) if t is not None]
+    dev = tensors[0].device
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+        raise ValueError(f"encode_fields_cuda needs CUDA tensors on one device, got {[str(t.device) for t in tensors]}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("q, stream_len and contour must be contiguous")
+    if phase_stamps is not None and (
+        phase_stamps.device != dev or phase_stamps.dtype != torch.int64
+        or phase_stamps.numel() != len(PHASES) + 1 or not phase_stamps.is_contiguous()
+    ):
+        raise ValueError(f"phase_stamps must be a contiguous int64 tensor of {len(PHASES) + 1} on {dev}")
+    br = hw = t_res = 0
+    if q is not None:
+        _check_residual(q, stream_len)
+        br, hw = q.shape
+        t_res = resid_T(hw)
+    bc = H = W = t_cnt = 0
+    if contour is not None:
+        _check_contour(contour)
+        bc, H, W = contour.shape
+        if H > MAX_CONTOUR_ROWS:
+            raise ValueError(f"the kernel codes at most {MAX_CONTOUR_ROWS} contour rows, got {H}")
+        t_cnt = contour_T(H, W)
+    fn = _kernel()
+    n_scratch = br * RESID_LANES * t_res + bc * H * t_cnt
+    with torch.cuda.device(dev):
+        def empty(shape, dtype):
+            return torch.empty(shape, dtype=dtype, device=dev)
+
+        res = cnt = None
+        if q is not None:
+            res = ResidualPieces(
+                empty((br, RESID_LANES * t_res), torch.int16), empty((br,), torch.int32),
+                empty((br, RESID_LANES), torch.int32), empty((br, RESID_LANES), torch.int64),
+                empty((br, NUM_CTX, ALPHABET), torch.int32), empty((br, ESC_CAP_DEV), torch.int64),
+                empty((br,), torch.int32), empty((br,), torch.int32),
+            )
+        if contour is not None:
+            cnt = ContourPieces(
+                empty((bc, H * t_cnt), torch.int16), empty((bc,), torch.int32), empty((bc, H), torch.int32),
+                empty((bc, H), torch.int64), empty((bc, 4, 2), torch.int32),
+            )
+        fc_scratch = empty((max(n_scratch, 1),), torch.int32)
+        word_scratch = empty((max(n_scratch, 1),), torch.int16)
+        ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+        err = fn(
+            ptr(q), ptr(stream_len), br, hw, t_res,
+            ptr(contour), bc, H, W, t_cnt,
+            *([p.data_ptr() for p in res] if res is not None else [None] * 8),
+            *([p.data_ptr() for p in cnt] if cnt is not None else [None] * 5),
+            fc_scratch.data_ptr(), word_scratch.data_ptr(), ptr(phase_stamps),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"rANS kernel launch failed: cudaError_t {err}")
+    LAUNCHES += 1
+    return res, cnt
+
+
+def encode_fields_device(
+    q: Optional[torch.Tensor], stream_len: Optional[torch.Tensor], contour: Optional[torch.Tensor]
+) -> Tuple[Optional[ResidualPieces], Optional[ContourPieces]]:
+    """Both fields' container pieces on the tensors' own device: one kernel
+    launch for CUDA tensors, the plain versions for CPU tensors.  Either
+    field may be None."""
+    tensors = [t for t in (q, stream_len, contour) if t is not None]
+    if not tensors:
+        raise ValueError("nothing to encode")
+    if tensors[0].device.type == "cuda":
+        return encode_fields_cuda(q, stream_len, contour)
+    if any(t.device.type != "cpu" for t in tensors):
+        raise ValueError(f"unsupported devices {[str(t.device) for t in tensors]}")
+    res = cnt = None
+    if q is not None:
+        _check_residual(q, stream_len)
+        res = encode_residual_field_plain(q, stream_len)
+    if contour is not None:
+        _check_contour(contour)
+        cnt = encode_contour_field_plain(contour)
+    return res, cnt
+
+
+def encode_residual_field_device(q: torch.Tensor, stream_len: torch.Tensor) -> ResidualPieces:
+    """The residual pieces alone (:func:`encode_fields_device`)."""
+    return encode_fields_device(q, stream_len, None)[0]
+
+
+def encode_contour_field_device(contour: torch.Tensor) -> ContourPieces:
+    """The contour pieces alone (:func:`encode_fields_device`)."""
+    return encode_fields_device(None, None, contour)[1]

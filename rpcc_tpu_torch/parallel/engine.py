@@ -7,7 +7,12 @@ Frames are host-projected onto the u16 snap grid (or, with
 ``transfer_precision="f32"``, to exact f32 range images) into a ring of
 pinned (B, H, W) buffers, uploaded as 2-byte (4-byte) words on a copy
 stream, widened and encoded on a compute stream, and their live prefixes come back on the copy
-stream while the host entropy-codes the batch before.  The pipeline
+stream while the host entropy-codes the batch before.  With
+``cfg.device_entropy`` (the default) and the ``rans`` coder, the encoder
+graph also codes the residual and contour containers in one kernel launch
+(``ops/rans_device.py``), and what comes back is their compressed words
+and small pieces, which the host assembles into the same containers the
+host decoders read.  The pipeline
 (``encode_pipeline`` / ``decode_pipeline``) runs four stages on four
 threads:
 
@@ -26,13 +31,15 @@ copy that reads it, so the caching allocator never hands its memory to the
 next batch while a copy still reads it.
 
 A batch holds only its live frames: a ragged last batch is a smaller B,
-and a frame's ``.rpcc`` bytes equal the single-frame codec's for the same
-seed (the graph and the entropy coder are both independent of the frame's
-neighbours).  The JAX engine's TPU transfer codes (i8/d8/m8, bucketed
-prefix lengths, the u8 sequence cast, the mesh) are not ported: the wire is
-the u16 snap grid up and the i16/u16 live prefixes down, and decode brings
-back the (B, H, W) f32 range image, so the device backend's points match
-the host backend's within f32 ulps.
+and a frame's ``.rpcc`` bytes are independent of its neighbours (the
+graph and the entropy coders are): with ``device_entropy=False`` they equal
+the single-frame codec's for the same seed, and with device entropy the
+B = 1 engine's and ``rpcc_tpu``'s device containers for the same stream.
+The JAX engine's TPU transfer codes (i8/d8/m8, bucketed prefix lengths, the
+u8 sequence cast, the mesh) are not ported: the wire is the u16 snap grid
+up and the i16/u16 live prefixes (or compressed words) down, and decode
+brings back the (B, H, W) f32 range image, so the device backend's points
+match the host backend's within f32 ulps.
 """
 
 from __future__ import annotations
@@ -47,6 +54,7 @@ from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from rpcc_tpu_torch.codec import rans_codec
 from rpcc_tpu_torch.codec.bitstream import pack_bitstream, unpack_bitstream
 from rpcc_tpu_torch.codec.entropy import BasicCompressor
 from rpcc_tpu_torch.codec.native import native_lib
@@ -55,6 +63,7 @@ from rpcc_tpu_torch.models.decoder import Decoder
 from rpcc_tpu_torch.models.encoder import Encoder, EncoderOutput, num_model_rows
 from rpcc_tpu_torch.models.pipeline import resolve_device
 from rpcc_tpu_torch.ops.projection_host import build_transform_map, build_transform_planes, project_for_encoder
+from rpcc_tpu_torch.ops.rans_device import ESC_CAP_DEV, RESID_LANES, contour_T, resid_T
 
 RING_SLOTS = 3  # pinned upload buffers in flight
 
@@ -109,6 +118,21 @@ class _Staged(NamedTuple):
     host: Dict[str, Optional[torch.Tensor]]  # live prefixes, host memory
     copied: Optional[torch.cuda.Event]  # the D2H copies' end on the copy stream
     out: EncoderOutput  # keeps the copies' sources referenced until ``copied``
+    # Device entropy: (3, B) residual words, contour words and escapes per
+    # frame, and the frames whose i16 stream prefix was downloaded (rows of
+    # host["stream"], in order).
+    de_lens: Optional[np.ndarray] = None
+    stream_rows: Optional[np.ndarray] = None
+
+
+class EncodedBatch(list):
+    """One ``(.rpcc payload, fields)`` per frame of a batch, and each frame's
+    live residual count (its point count) in ``stream_len``: with device
+    entropy the fields hold no residual stream to count."""
+
+    def __init__(self, items, stream_len: np.ndarray):
+        super().__init__(items)
+        self.stream_len = stream_len
 
 
 class _DecodePrepared(NamedTuple):
@@ -148,6 +172,7 @@ class BatchEngine:
         self.encoder = Encoder.for_lidar(lidar, cfg).to(self.device)
         self.decoder = Decoder(lidar, cfg).to(self.device)
         self.entropy = BasicCompressor(method_name=cfg.basic_compressor, contour_shape=(self.H, self.W))
+        self.stream_downloads = 0  # frames whose i16 stream came back beside their device containers
         self._cuda = self.device.type == "cuda"
         if self._cuda:
             self._copy = torch.cuda.Stream(self.device)
@@ -287,30 +312,56 @@ class BatchEngine:
     def stage_downloads(self, dispatched: _Dispatched) -> _Staged:
         """Pipeline stage 3: wait for the batch, read its (B,) lengths (the
         one host sync per batch) and queue the D2H copies of the exact live
-        prefixes on the copy stream."""
+        prefixes on the copy stream.  With device entropy those are the
+        compressed word prefixes and the containers' small pieces, and the
+        i16 stream prefix only of the frames the host codes too: past
+        ESC_CAP_DEV escapes, or small enough for the host's adaptive pick."""
         out, live, done = dispatched
         with self._on("_copy"):
             if done is not None:
                 self._copy.wait_event(done)
-            lens = torch.stack([out.stream_len.to(torch.int64), out.seq_len.to(torch.int64)]).cpu().numpy()
-            m_stream = max(int(lens[0].max()), 1)
+            rows = [out.stream_len, out.seq_len]
+            if self.encoder.device_entropy:
+                rows += [out.de_res_nw, out.de_cnt_nw, out.de_res_nesc]
+            lens = torch.stack([r.to(torch.int64) for r in rows]).cpu().numpy()
             m_seq = max(int(lens[1].max()), 1)
             host = {
-                "stream": self._download(out.stream[:, :m_stream]),
                 "sequence": self._download(out.sequence.view(torch.int16)[:, :m_seq]),
-                "contour": self._download(out.contour_packed),
                 "models": self._download(out.model_param),
                 "salience": self._download(out.salience),
             }
+            de_lens = stream_rows = None
+            if self.encoder.device_entropy:
+                de_lens = lens[2:]
+                host.update(
+                    res_words=self._download(out.de_res_words[:, : max(int(de_lens[0].max()), 1)]),
+                    cnt_words=self._download(out.de_cnt_words[:, : max(int(de_lens[1].max()), 1)]),
+                    **{k: self._download(getattr(out, "de_" + k)) for k in (
+                        "res_counts", "res_states", "res_freqs", "res_escapes", "res_q0",
+                        "cnt_counts", "cnt_states", "cnt_freqs")},
+                )
+                stream_rows = np.flatnonzero((de_lens[2] > ESC_CAP_DEV) | (lens[0] <= rans_codec.BZD_TRY_MAX_SYMBOLS))
+                self.stream_downloads += int(stream_rows.size)
+                if stream_rows.size:
+                    m = max(int(lens[0][stream_rows].max()), 1)
+                    sel = out.stream[:, :m].index_select(0, torch.from_numpy(stream_rows).to(out.stream.device))
+                    host["stream"] = self._download(sel)
+            else:
+                host["stream"] = self._download(out.stream[:, : max(int(lens[0].max()), 1)])
+                host["contour"] = self._download(out.contour_packed)
             copied = self._record()
-        return _Staged(live, lens[0], lens[1], host, copied, out)
+        return _Staged(live, lens[0], lens[1], host, copied, out, de_lens, stream_rows)
 
-    def finish_staged(self, st: _Staged) -> List[Tuple[bytes, Dict[str, np.ndarray]]]:
+    def finish_staged(self, st: _Staged) -> EncodedBatch:
         """Pipeline stage 4: wait for the copies, entropy-code (big fields
-        batched through the native coder, the rest on the pool), frame."""
+        batched through the native coder, the rest on the pool), frame;
+        with device entropy, assemble the big fields' containers instead."""
         if st.copied is not None:
             st.copied.synchronize()
         h = {k: None if v is None else v.numpy() for k, v in st.host.items()}
+        if st.de_lens is not None:
+            return EncodedBatch(self._pool_map("entropy", lambda i: self._device_entropy_frame(st, h, i), st.live),
+                                st.stream_len[: st.live])
         seq = h["sequence"].view(np.uint16)
         dicts = []
         for i in range(st.live):
@@ -326,13 +377,51 @@ class BatchEngine:
         compressed = self.entropy.compress_dict_batch(
             dicts, pool_map=lambda fn, n: self._pool_map("entropy", fn, n)
         )
-        return [(pack_bitstream(c, uniform=self.cfg.uniform), f) for c, f in zip(compressed, dicts)]
+        return EncodedBatch([(pack_bitstream(c, uniform=self.cfg.uniform), f) for c, f in zip(compressed, dicts)],
+                            st.stream_len[: st.live])
 
-    def finalize_encoded(self, dispatched: _Dispatched) -> List[Tuple[bytes, Dict[str, np.ndarray]]]:
+    def _device_entropy_frame(self, st: _Staged, h: Dict[str, np.ndarray], i: int) -> Tuple[bytes, Dict[str, np.ndarray]]:
+        """One frame's payload from its device-coded pieces (the reference's
+        ``_finish_device_entropy``): the residual container as coded, or the
+        host's when the frame overflowed the escape list, or the smaller of
+        the two for a frame of at most BZD_TRY_MAX_SYMBOLS residuals; the
+        contour container as coded.  The fields hold only what the host
+        sees: the sequence, the model table and the salience levels."""
+        n = int(st.stream_len[i])
+        res_nw, cnt_nw, n_esc = (int(v) for v in st.de_lens[:, i])
+        q16 = None
+        if i in st.stream_rows:
+            q16 = h["stream"][int(np.searchsorted(st.stream_rows, i)), :n].copy()
+        if n_esc > ESC_CAP_DEV:
+            resid = rans_codec.compress_delta_batch([q16])[0]
+        else:
+            resid = rans_codec.build_ctx_container(
+                RESID_LANES, resid_T(self.hw), n, int(h["res_q0"][i]), h["res_escapes"][i, :n_esc],
+                h["res_freqs"][i], h["res_states"][i], h["res_counts"][i],
+                h["res_words"][i, :res_nw].view(np.uint16), np.int16,
+            )
+            if n <= rans_codec.BZD_TRY_MAX_SYMBOLS:
+                resid = min(resid, rans_codec.compress_delta_batch([q16])[0], key=len)
+        contour = rans_codec.build_bits_container(
+            contour_T(self.H, self.W), self.H, self.W, h["cnt_freqs"][i], h["cnt_states"][i],
+            h["cnt_counts"][i], h["cnt_words"][i, :cnt_nw].view(np.uint16),
+        )
+        fields = {
+            "idx_sequence": h["sequence"].view(np.uint16)[i, : st.seq_len[i]].copy(),
+            "plane_param": h["models"][i].astype(np.float32),
+        }
+        if h["salience"] is not None:
+            fields["salience_level"] = h["salience"][i].copy()
+        compressed = self.entropy.compress_dict({k: v for k, v in fields.items() if k != "idx_sequence"})
+        compressed.update(residual_quantized=resid, contour_map=contour,
+                          idx_sequence=rans_codec.compress_seq_u16(fields["idx_sequence"]))
+        return pack_bitstream(compressed, uniform=self.cfg.uniform), fields
+
+    def finalize_encoded(self, dispatched: _Dispatched) -> EncodedBatch:
         """Download and entropy-code one dispatched batch."""
         return self.finish_staged(self.stage_downloads(dispatched))
 
-    def encode_frames(self, clouds: Sequence[np.ndarray], seeds=None) -> List[Tuple[bytes, Dict[str, np.ndarray]]]:
+    def encode_frames(self, clouds: Sequence[np.ndarray], seeds=None) -> EncodedBatch:
         """One synchronous batch -> list of (.rpcc payload, fields)."""
         return self.finalize_encoded(self.encode_batch_device(clouds, seeds))
 

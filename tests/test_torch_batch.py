@@ -2,8 +2,9 @@
 the batch it rides in.
 
   * ragged sets of 5 frames through the batch engine at batch 2 (2, 2, 1)
-    and 5 give, per frame, the single-frame codec's ``.rpcc`` bytes, in all
-    five codec modes of tests/test_torch_codec.py;
+    and 5 give, per frame, the single-frame codec's ``.rpcc`` bytes with
+    host entropy coding, and the batch-1 engine's with device entropy
+    coding, in all five codec modes of tests/test_torch_codec.py;
   * batched threefry draws equal ``jax.vmap`` of ``jax.random`` bit for bit;
   * the batched DBSCAN plain version equals its per-frame runs;
   * the batched ``fit_plane_weighted`` equals its per-frame runs bit for bit
@@ -43,9 +44,8 @@ def mode(request):
     return dict(cfg=cfg, clouds=clouds, seeds=seeds, singles=singles)
 
 
-@pytest.mark.parametrize("batch", [2, 5])
-def test_batched_blobs_equal_single_frame(mode, batch):
-    engine = BatchEngine(SMALL, mode["cfg"], "cpu", batch_size=batch, workers=2)
+def _engine_blobs(cfg, mode, batch):
+    engine = BatchEngine(SMALL, cfg, "cpu", batch_size=batch, workers=2)
     try:
         blobs = []
         for i in range(0, 5, batch):
@@ -53,7 +53,20 @@ def test_batched_blobs_equal_single_frame(mode, batch):
             blobs += [b for b, _ in res]
     finally:
         engine.close()
+    return blobs
+
+
+@pytest.mark.parametrize("batch", [2, 5])
+def test_batched_blobs_equal_single_frame(mode, batch):
+    blobs = _engine_blobs(mode["cfg"].replace(device_entropy=False), mode, batch)
     assert [b == s for b, s in zip(blobs, mode["singles"])] == [True] * 5
+
+
+@pytest.mark.parametrize("batch", [2, 5])
+def test_batched_device_entropy_blobs_equal_batch_one(mode, batch):
+    cfg = mode["cfg"].replace(device_entropy=True)
+    blobs, ones = _engine_blobs(cfg, mode, batch), _engine_blobs(cfg, mode, 1)
+    assert [b == s for b, s in zip(blobs, ones)] == [True] * 5
 
 
 @pytest.mark.parametrize("shape", [(), (7,), (100, 10), (20000,)])

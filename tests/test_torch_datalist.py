@@ -1,8 +1,10 @@
 """The port's datalist CLIs on the CPU (``rpcc_tpu_torch.cli.compress_datalist``
 and ``decompress_datalist``), run in-process on small VLP-16 frames.
 
-Frame i of the list is encoded with seed ``--seed + i`` and its ``.rpcc``
-equals the single-frame codec's for that seed byte for byte; both decode
+Frame i of the list is encoded with seed ``--seed + i`` and, with
+``--no-device_entropy``, its ``.rpcc`` equals the single-frame codec's for
+that seed byte for byte; at the default (device entropy) it equals the
+B = 1 engine's and decodes within the bound; both decode
 backends write the host decoder's points bit for bit; outputs mirror the
 input paths, replacing only the trailing extension and never escaping
 ``--output_dir``; ``--skip_existing`` resumes; ``--keep_going`` isolates a
@@ -27,6 +29,7 @@ torch.set_num_threads(1)
 LIDAR = "VelodyneVLP16"
 N_FRAMES = 5
 BASE = ["--lidar", LIDAR, "--device", "cpu", "--batch", "2", "--workers", "2"]
+HOST = ["--no-device_entropy"]  # host entropy: blobs equal the single-frame codec's
 
 
 def _write_frames(root, n=N_FRAMES):
@@ -55,7 +58,7 @@ def compressed(tmp_path_factory):
     paths, clouds = _write_frames(root)
     lst = _datalist(os.path.join(root, "list.txt"), paths)
     out = os.path.join(root, "rpcc")
-    compress_datalist.main(["--datalist", lst, "--output_dir", out, "--seed", "5", *BASE])
+    compress_datalist.main(["--datalist", lst, "--output_dir", out, "--seed", "5", *HOST, *BASE])
     outs = [compress_datalist._mirror_path(p, out, "rpcc") for p in paths]
     return dict(root=root, paths=paths, clouds=clouds, lst=lst, out=out, outs=outs)
 
@@ -97,7 +100,7 @@ def test_skip_existing_resumes(compressed, capsys):
     os.remove(victim)
     capsys.readouterr()
     compress_datalist.main(["--datalist", compressed["lst"], "--output_dir", compressed["out"],
-                            "--seed", "5", "--skip_existing", *BASE])
+                            "--seed", "5", "--skip_existing", *HOST, *BASE])
     assert "4 done, 1 to go" in capsys.readouterr().out
     with open(victim, "rb") as f:
         # The resumed list holds one frame, so it is frame 0 of that run
@@ -115,8 +118,8 @@ def test_keep_going_skips_a_bad_input(tmp_path, capsys):
     lst = _datalist(str(tmp_path / "list.txt"), entries)
     out = str(tmp_path / "out")
     with pytest.raises(ValueError):
-        compress_datalist.main(["--datalist", lst, "--output_dir", out, *BASE])
-    compress_datalist.main(["--datalist", lst, "--output_dir", out, "--keep_going", *BASE])
+        compress_datalist.main(["--datalist", lst, "--output_dir", out, *HOST, *BASE])
+    compress_datalist.main(["--datalist", lst, "--output_dir", out, "--keep_going", *HOST, *BASE])
     text = capsys.readouterr().out
     assert "ERROR loading" in text and "1 errors" in text
     assert not os.path.exists(compress_datalist._mirror_path(bad, out, "rpcc"))
@@ -157,3 +160,31 @@ def test_decompress_rejects_non_rpcc_entries(tmp_path):
 )
 def test_mirror_path_replaces_only_the_extension(entry, want):
     assert compress_datalist._mirror_path(entry, "out", "rpcc") == want
+
+
+def test_device_entropy_default_equals_b1_engine_and_decodes(compressed, capsys):
+    """The default datalist run codes the big fields on the device: each
+    blob equals the B = 1 engine's for its seed, decodes within the bound,
+    and ``--output`` prints each frame's BPP over its live residual count."""
+    from rpcc_tpu_torch.parallel.engine import BatchEngine
+
+    out = os.path.join(compressed["root"], "rpcc_dev")
+    capsys.readouterr()
+    compress_datalist.main(["--datalist", compressed["lst"], "--output_dir", out, "--seed", "5", "--output", *BASE])
+    text = capsys.readouterr().out
+    lidar, cfg = lidar_config(LIDAR), CodecConfig()
+    assert cfg.device_entropy
+    engine = BatchEngine(lidar, cfg, "cpu", batch_size=1, workers=1)
+    codec = RPCCCodec(lidar, cfg, "cpu")
+    blobs = []
+    for i, (pc, path) in enumerate(zip(compressed["clouds"], compressed["paths"])):
+        with open(compress_datalist._mirror_path(path, out, "rpcc"), "rb") as f:
+            blobs.append(f.read())
+        res = engine.encode_frames([pc], [5 + i])
+        assert blobs[-1] == res[0][0], i
+        bits = len(blobs[-1]) * 8
+        assert f"BPP: {bits / int(res.stream_len[0]):.4f}" in text
+    engine.close()
+    for rec, pc in zip(HostDecoder(lidar, cfg).decode_blobs(blobs), compressed["clouds"]):
+        q, d = codec.project(pc)
+        assert np.abs(rec - q.astype(np.float32) * d).max() <= cfg.step + 1e-5

@@ -52,7 +52,7 @@ def _imported_modules(tree):
 
 def test_scan_covers_every_package():
     dirs = {os.path.dirname(p) for p in _port_sources()}
-    for sub in ("cli", "codec", "data", "metrics", "models", "ops", "parallel"):
+    for sub in ("cli", "codec", "data", "metrics", "models", "ops", "parallel", "utils"):
         assert os.path.join("rpcc_tpu_torch", sub) in dirs
 
 
@@ -97,6 +97,14 @@ q, d = codec.project(pc)
 bound = cfg.step if cfg.uniform else cfg.step + max(cfg.level_delta_acc)
 err = float(np.abs(ri - q.astype(np.float32) * d).max())
 assert err <= bound + 1e-5, err
+if not MODE and ANGLES is None:  # the engine's device entropy coding too
+    from rpcc_tpu_torch.parallel.engine import BatchEngine
+    engine = BatchEngine(small, cfg, "cpu", batch_size=2, workers=1)
+    assert cfg.device_entropy and engine.encoder.device_entropy
+    blobs = [b for b, _ in engine.encode_frames([pc, pc], [0, 1])]
+    engine.close()
+    _, ri2, _ = codec.decompress(blobs[0])
+    assert float(np.abs(ri2 - q.astype(np.float32) * d).max()) <= bound + 1e-5
 loaded = [m for m, v in sys.modules.items() if v is not None and m.split(".")[0] in ("jax", "jaxlib", "rpcc_tpu")]
 assert not loaded, loaded
 print("ok", len(names), len(blob))

@@ -99,8 +99,10 @@ def test_f32_bpp_close_to_reference(run):
     assert run["port"].compress(run["pc"])[0] == run["blob"]
 
 
-def test_f32_engine_blobs_equal_single_frame():
-    cfg = CodecConfig(cluster_num=16, transfer_precision="f32")
+def _f32_engine_run(device_entropy: bool):
+    """Host entropy: the single-frame codec's bytes; device entropy: the
+    batch-1 engine's."""
+    cfg = CodecConfig(cluster_num=16, transfer_precision="f32", device_entropy=device_entropy)
     clouds = [synth_scene(seed=s) for s in range(3)]
     codec = RPCCCodec(SMALL, cfg, "cpu")
     engine = BatchEngine(SMALL, cfg, "cpu", batch_size=2, workers=2)
@@ -108,13 +110,26 @@ def test_f32_engine_blobs_equal_single_frame():
         assert all(slot.q.dtype == torch.float32 for slot in engine._ring)  # 4 B/px ring
         work = [(clouds[:2], [7, 8]), (clouds[2:], [9])]
         blobs = [b for res in engine.encode_pipeline(work) for b, _ in res]
-        assert blobs == [codec.compress(pc, seed=s)[0] for pc, s in zip(clouds, (7, 8, 9))]
+        if device_entropy:
+            one = BatchEngine(SMALL, cfg, "cpu", batch_size=1, workers=1)
+            assert blobs == [one.encode_frames([pc], [s])[0][0] for pc, s in zip(clouds, (7, 8, 9))]
+            one.close()
+        else:
+            assert blobs == [codec.compress(pc, seed=s)[0] for pc, s in zip(clouds, (7, 8, 9))]
         recs = np.concatenate([engine.decode_range_images(blobs[:2]), engine.decode_range_images(blobs[2:])])
         for rec, pc in zip(recs, clouds):
             ri = projection_host.project_points_host(pc, SMALL)
             assert np.abs(rec - ri).max() <= bound(cfg)
     finally:
         engine.close()
+
+
+def test_f32_engine_blobs_equal_single_frame():
+    _f32_engine_run(False)
+
+
+def test_f32_engine_device_entropy_blobs_equal_batch_one():
+    _f32_engine_run(True)
 
 
 def test_f32_cli_roundtrip(tmp_path):
