@@ -8,7 +8,9 @@ Usage, from the repository root:
 
 ``--against`` runs the unmasked FPS kernel timings of phases 3/6 (B = 1, 8),
 the DBSCAN kernel timings of phases 3b/3c (B = 1, 4, 8), the rANS kernel
-timings of phase 3e (B = 1, 8) where the checkout has that kernel, the main
+timings of phase 3e (B = 1, 8) where the checkout has that kernel (with both
+blocks' phase split where it stamps both) and phase 6's main-path
+device-entropy engine run (20 frames at B = 8, their blobs' sha256), the main
 path's encodes of phase 4 and the DBSCAN-mode encodes of phases 4b/6 with the
 ``rpcc_tpu_torch``
 package of another checkout (``.`` for this one), through entry points
@@ -56,7 +58,11 @@ Phases (each raises on failure, and the process then exits nonzero):
      and contours of phase 4's four frames at B = 1 and 4; stream lengths
      0, 1 and HW; a frame with more than 512 escapes; all-zero and all-one
      contours; a 32E channel-table frame (32x2250); phase 6's first batch
-     (eight distinct frames) at B = 8, timed there and at B = 1;
+     (eight distinct frames) at B = 8, timed there and at B = 1, with the
+     phase split of frame 0's residual and contour blocks and the walk's ns
+     per step; the walk loop's dependent instructions per step and the
+     chain floor they model, as ``python -m
+     rpcc_tpu_torch.utils.rans_sass`` prints them (not a check);
   4b. the DBSCAN, plane-model and non-uniform paths, each on two 64x2000
      multi-object frames: error bound (step, or step + max level delta),
      exact zero pixels, one DBSCAN (or FPS) launch per encode,
@@ -752,15 +758,24 @@ def rans_held(torch, np, q, n, c, what):
 
 
 def rans_split(torch, rd, q, n, c):
-    """Median over TIMED_RUNS calls of each kernel phase's time (us) in the
-    first block (frame 0's residual stream), from its %globaltimer stamps."""
-    stamps = torch.zeros(len(rd.PHASES) + 1, dtype=torch.int64, device=q.device)
+    """Medians over TIMED_RUNS calls of each kernel phase's time (us) in
+    frame 0's residual block and in frame 0's contour block, from their
+    %globaltimer stamps, with each block's span and its end (us) after the
+    first of the two blocks started."""
+    k = len(rd.PHASES) + 1
+    stamps = torch.zeros(len(rd.STAMP_BLOCKS) * k, dtype=torch.int64, device=q.device)
     rows = []
     for _ in range(TIMED_RUNS):
         rd.encode_fields_cuda(q, n, c, phase_stamps=stamps)
         torch.cuda.synchronize()
-        rows.append(stamps.diff().cpu().tolist())
-    return {name: statistics.median(r[i] for r in rows) / 1e3 for i, name in enumerate(rd.PHASES)}
+        rows.append(stamps.reshape(-1, k).cpu().tolist())
+    out = {}
+    for bi, block in enumerate(rd.STAMP_BLOCKS):
+        med = lambda f: statistics.median(f(r) for r in rows) / 1e3  # noqa: E731
+        out[block] = {name: med(lambda r, i=i: r[bi][i + 1] - r[bi][i]) for i, name in enumerate(rd.PHASES)}
+        out[block]["span"] = med(lambda r: r[bi][-1] - r[bi][0])
+        out[block]["ends_at"] = med(lambda r: r[bi][-1] - min(b[0] for b in r))
+    return out
 
 
 def phase_rans(torch, np, dev, card, lidar, codec, frames):
@@ -819,6 +834,7 @@ def phase_rans(torch, np, dev, card, lidar, codec, frames):
           f"{n8.tolist()}, residual words {res8.n_words.tolist()}, escapes {res8.n_esc.tolist()}")
 
     out = {"err": err}
+    T_res, T_cnt = rd.resid_T(hw), rd.contour_T(codec.H, codec.W)
     for B in (1, 8):
         qb, nb, cb = (t[:B].contiguous() for t in (q8, n8, c8))
         run = lambda qb=qb, nb=nb, cb=cb: rd.encode_fields_cuda(qb, nb, cb)  # noqa: E731
@@ -828,14 +844,25 @@ def phase_rans(torch, np, dev, card, lidar, codec, frames):
                              runs=PLAIN_RANS_RUNS)
         bound_ms, bound_by = rans_bound(B, hw, codec.H, codec.W)
         split = rans_split(torch, rd, qb, nb, cb)
-        out[B] = dict(ms=ms, b2b=b2b, plain_ms=plain_ms, bound=(bound_ms, bound_by), split=split,
-                      shape=f"B={B} HW={hw} T={rd.resid_T(hw)} contour {codec.H}x{codec.W} T={rd.contour_T(codec.H, codec.W)}")
+        ns_step = {"residual": split["residual"]["walk"] * 1e3 / T_res, "contour": split["contour"]["walk"] * 1e3 / T_cnt}
+        out[B] = dict(ms=ms, b2b=b2b, plain_ms=plain_ms, bound=(bound_ms, bound_by), split=split, ns_step=ns_step,
+                      shape=f"B={B} HW={hw} T={T_res} contour {codec.H}x{codec.W} T={T_cnt}")
         print(f"[phase 3e] [{card}] rans ({out[B]['shape']}) median of {TIMED_RUNS}: kernel {ms:.4f} ms "
               f"({b2b:.4f} ms over {BACK_TO_BACK} back to back), plain {plain_ms:.4f} ms (median of "
               f"{PLAIN_RANS_RUNS}), bound {bound_ms:.6f} ms ({bound_by}); serial steps per lane "
-              f"{rd.resid_T(hw)} residual, {rd.contour_T(codec.H, codec.W)} contour")
-        print(f"[phase 3e] [{card}] rans B={B} frame 0 residual block phase split (us, median of {TIMED_RUNS}): "
-              + json.dumps({k: round(v, 3) for k, v in split.items()}))
+              f"{T_res} residual, {T_cnt} contour")
+        for block in rd.STAMP_BLOCKS:
+            print(f"[phase 3e] [{card}] rans B={B} frame 0 {block} block phase split (us, median of {TIMED_RUNS}): "
+                  + json.dumps({k: round(v, 3) for k, v in split[block].items()})
+                  + f"; walk {ns_step[block]:.2f} ns per step")
+
+    # The step's dependent chain in the walk loop's SASS and the chain floor
+    # it models, printed as they come (the analysis and its own checks are
+    # rpcc_tpu_torch/utils/rans_sass.py's; its exit code gates nothing here).
+    proc = subprocess.run([sys.executable, "-m", "rpcc_tpu_torch.utils.rans_sass"], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    for line in (proc.stdout + proc.stderr).strip().splitlines()[-4:]:
+        print(f"[phase 3e] rans_sass: {line}")
     return out
 
 
@@ -1557,13 +1584,26 @@ def phase_against(torch, np, dev, card, lidar, root: str) -> None:
     if importlib.util.find_spec("rpcc_tpu_torch.ops.rans_device") is not None:
         from rpcc_tpu_torch.ops import rans_device as rd
 
-        q, n, c = rans_inputs(torch, codec, [synth_cloud_for(lidar, s) for s in BATCH_SEEDS[:8]])
+        frames = [synth_cloud_for(lidar, s) for s in BATCH_SEEDS]
+        q, n, c = rans_inputs(torch, codec, frames[:8])
         for B in (1, 8):
             qb, nb, cb = (t[:B].contiguous() for t in (q, n, c))
             run = lambda qb=qb, nb=nb, cb=cb: rd.encode_fields_cuda(qb, nb, cb)  # noqa: E731
             print(f"[against] [{card}] rans (B={B}, 64x2000) of {root} median of {TIMED_RUNS}: "
                   f"{median_ms(torch, run):.4f} ms one call, {median_ms(torch, run, BACK_TO_BACK):.4f} ms "
                   f"over {BACK_TO_BACK} back to back")
+            if hasattr(rd, "STAMP_BLOCKS"):  # a kernel that stamps both blocks
+                print(f"[against] [{card}] rans (B={B}, 64x2000) phase split (us): "
+                      + json.dumps({b: {k: round(v, 3) for k, v in sp.items()}
+                                    for b, sp in rans_split(torch, rd, qb, nb, cb).items()}))
+        # Phase 6's main-path run: the device-entropy engine at B = 8 on 20 frames.
+        engine = BatchEngine(lidar, CodecConfig(), dev, batch_size=8)
+        try:
+            work = [(b, range(i * 8, i * 8 + len(b))) for i, b in enumerate(_batches(frames, 8))]
+            blobs = [b for res in engine.encode_pipeline(work) for b, _ in res]
+        finally:
+            engine.close()
+        print(f"[phase 6] device-entropy engine (B=8) sha256 {[hashlib.sha256(b).hexdigest() for b in blobs]}")
     cfg = CodecConfig(segment_method="DBSCAN", device_entropy=False)
     codec = RPCCCodec(lidar, cfg, dev)
     for s in MODE_SEEDS:
@@ -1730,8 +1770,10 @@ def main() -> int:
             "single_frame_ms_10_back_to_back": rans[1]["b2b"],
             "single_frame_plain_ms": rans[1]["plain_ms"],
             "single_frame_bound_ms": rans[1]["bound"][0],
-            "single_frame_phase_us": {k: round(v, 3) for k, v in rans[1]["split"].items()},
-            "phase_us": {k: round(v, 3) for k, v in rans[8]["split"].items()},
+            "single_frame_phase_us": {b: {k: round(v, 3) for k, v in sp.items()} for b, sp in rans[1]["split"].items()},
+            "phase_us": {b: {k: round(v, 3) for k, v in sp.items()} for b, sp in rans[8]["split"].items()},
+            "single_frame_ns_per_step": rans[1]["ns_step"],
+            "ns_per_step": rans[8]["ns_step"],
         },
     ]}))
     print(json.dumps({"ok": True, "device": {

@@ -48,14 +48,18 @@ ALPHABET = 512
 ESCAPE = ALPHABET - 1
 NUM_CTX = 4
 _T_BUCKET = 16  # = codec/rans_codec.py T_BUCKET
-MAX_CONTOUR_ROWS = 512  # one thread per contour lane in a block of csrc/rans.cu
+MAX_CONTOUR_ROWS = 512  # csrc/rans.cu: contour lanes a block codes (walked 128 at a time)
+# csrc/rans.cu: a contour histogram thread counts 4 * ceil(H * T / 2048) steps
+# (512 threads, 4 a round) in 16-bit fields, so ceil(H * T / 2048) <= 16383.
+MAX_CONTOUR_STEPS = 16383 * 2048
 
 # Launches of the CUDA kernel since the count was last reset (one per call
 # of :func:`encode_fields_cuda`, whatever fields it codes).
 LAUNCHES = 0
-# Spans timed by ``phase_stamps`` (csrc/rans.cu), in the first block (frame
-# 0's residual stream, or its contour when no stream is coded).
-PHASES = ("histogram", "normalize", "tables", "walk", "pack")
+# Spans timed by ``phase_stamps`` (csrc/rans.cu) in two blocks: frame 0's
+# residual stream (stamps 0-4) and frame 0's contour (stamps 5-9).
+PHASES = ("histogram", "normalize", "walk", "pack")
+STAMP_BLOCKS = ("residual", "contour")
 
 
 def resid_T(hw: int) -> int:
@@ -179,6 +183,55 @@ def encode_contour_field_plain(contour: torch.Tensor) -> ContourPieces:
     return ContourPieces(words, n_words, counts, states, freqs)
 
 
+# ------------------------------------------------------------------ the kernel's arithmetic
+class StepConstants(NamedTuple):
+    """csrc/rans.cu's per-symbol record, as int64 tensors of the shape of
+    the frequencies.  With ``t = umulhi(m, x)`` and ``u = t + ((x - t) >>
+    sh1)``, ``x // f == u >> sh2`` and ``(x >> 16) // f == u >> (sh2 + 16)``
+    for every u32 ``x``: Granlund-Montgomery's round-up method with ``l =
+    ceil(log2 f)``, whose multiplier for ``f << 16`` is the one for ``f``.
+    The renormalization test is ``x > xm1`` (``xm1 = (f << 18) - 1`` in
+    u32: never true at ``f = M``), and the update needs ``M - f``."""
+
+    m: torch.Tensor
+    xm1: torch.Tensor
+    sh1: torch.Tensor
+    sh2: torch.Tensor
+    m_minus_f: torch.Tensor
+
+
+def step_constants(freqs: torch.Tensor) -> StepConstants:
+    """The kernel's step constants for frequencies in [0, M] (0, which no
+    coded step reads, as 1): the tests' twin of ``csrc/rans.cu::make_record``."""
+    f = freqs.to(torch.int64).clamp(min=1)
+    l = sum((f > (1 << k)).to(torch.int64) for k in range(15))  # ceil(log2 f), f <= 2^14
+    m = ((1 << 32) * ((1 << l) - f)) // f + 1
+    return StepConstants(m, ((f << 18) - 1) & 0xFFFFFFFF, l.clamp(max=1), (l - 1).clamp(min=0), M - f)
+
+
+def _umulhi(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The high 32 bits of the u32 product a * b, in int64 without overflow."""
+    return (a * (b >> 16) + ((a * (b & 0xFFFF)) >> 16)) >> 16
+
+
+def twin_quotients(x: torch.Tensor, k: StepConstants):
+    """``(x // f, (x >> 16) // f)`` as the kernel computes them: one
+    multiply-high, then shifts and adds."""
+    t = _umulhi(k.m, x)
+    u = t + ((x - t) >> k.sh1)
+    return u >> k.sh2, u >> (k.sh2 + 16)
+
+
+def twin_step(x: torch.Tensor, c: torch.Tensor, k: StepConstants):
+    """One reverse rANS step as the kernel writes it, branch-free, on u32
+    states held in int64: -> (new state, the word written, emitted)."""
+    emit = x > k.xm1
+    q_keep, q_emit = twin_quotients(x, k)
+    word = x & 0xFFFF
+    x = (torch.where(emit, x >> 16, x) + c + torch.where(emit, q_emit, q_keep) * k.m_minus_f) & 0xFFFFFFFF
+    return x, word, emit
+
+
 # ------------------------------------------------------------------ kernel
 @functools.lru_cache(maxsize=None)
 def _library():
@@ -191,7 +244,7 @@ def _library():
         + [ctypes.c_void_p] + [ctypes.c_int] * 4  # contour, B_cnt, H, W, T_cnt
         + [ctypes.c_void_p] * 8  # residual outputs
         + [ctypes.c_void_p] * 5  # contour outputs
-        + [ctypes.c_void_p] * 4  # fc scratch, word scratch, phase stamps, stream
+        + [ctypes.c_void_p] * 4  # key scratch, word scratch, phase stamps, stream
     )
     return lib
 
@@ -221,6 +274,15 @@ def _check_contour(contour: torch.Tensor) -> None:
         raise ValueError("contour batch exceeds 2^31 lane steps")
 
 
+def check_contour_fits_kernel(H: int, W: int) -> None:
+    """Raises unless the CUDA kernel codes an H x W contour (the plain
+    version has no such limits)."""
+    if H > MAX_CONTOUR_ROWS:
+        raise ValueError(f"the kernel codes at most {MAX_CONTOUR_ROWS} contour rows, got {H}")
+    if H * contour_T(H, W) > MAX_CONTOUR_STEPS:
+        raise ValueError(f"a contour of {H} x {W} has more than {MAX_CONTOUR_STEPS} lane steps")
+
+
 def encode_fields_cuda(
     q: Optional[torch.Tensor], stream_len: Optional[torch.Tensor], contour: Optional[torch.Tensor],
     phase_stamps: Optional[torch.Tensor] = None,
@@ -229,9 +291,10 @@ def encode_fields_cuda(
     ``q`` with (B,) int32 ``stream_len`` and the contour pieces of a
     (B', H, W) int32 ``contour``, either of them None, in one launch on the
     current stream (no synchronize); raises on any other input.
-    ``phase_stamps``, an int64 CUDA tensor of ``len(PHASES) + 1`` elements,
-    receives the first block's ``%globaltimer`` (ns) at the bounds of its
-    phases."""
+    ``phase_stamps``, an int64 CUDA tensor of ``len(STAMP_BLOCKS) *
+    (len(PHASES) + 1)`` elements, receives the ``%globaltimer`` (ns) at the
+    bounds of the phases of frame 0's residual block, then of its contour
+    block (a field not coded leaves its stamps as they were)."""
     global LAUNCHES
     if q is None and contour is None:
         raise ValueError("nothing to encode")
@@ -241,11 +304,12 @@ def encode_fields_cuda(
         raise ValueError(f"encode_fields_cuda needs CUDA tensors on one device, got {[str(t.device) for t in tensors]}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("q, stream_len and contour must be contiguous")
+    n_stamps = len(STAMP_BLOCKS) * (len(PHASES) + 1)
     if phase_stamps is not None and (
         phase_stamps.device != dev or phase_stamps.dtype != torch.int64
-        or phase_stamps.numel() != len(PHASES) + 1 or not phase_stamps.is_contiguous()
+        or phase_stamps.numel() != n_stamps or not phase_stamps.is_contiguous()
     ):
-        raise ValueError(f"phase_stamps must be a contiguous int64 tensor of {len(PHASES) + 1} on {dev}")
+        raise ValueError(f"phase_stamps must be a contiguous int64 tensor of {n_stamps} on {dev}")
     br = hw = t_res = 0
     if q is not None:
         _check_residual(q, stream_len)
@@ -255,8 +319,7 @@ def encode_fields_cuda(
     if contour is not None:
         _check_contour(contour)
         bc, H, W = contour.shape
-        if H > MAX_CONTOUR_ROWS:
-            raise ValueError(f"the kernel codes at most {MAX_CONTOUR_ROWS} contour rows, got {H}")
+        check_contour_fits_kernel(H, W)
         t_cnt = contour_T(H, W)
     fn = _kernel()
     n_scratch = br * RESID_LANES * t_res + bc * H * t_cnt
@@ -277,7 +340,7 @@ def encode_fields_cuda(
                 empty((bc, H * t_cnt), torch.int16), empty((bc,), torch.int32), empty((bc, H), torch.int32),
                 empty((bc, H), torch.int64), empty((bc, 4, 2), torch.int32),
             )
-        fc_scratch = empty((max(n_scratch, 1),), torch.int32)
+        key_scratch = empty((max(n_scratch, 1),), torch.int16)
         word_scratch = empty((max(n_scratch, 1),), torch.int16)
         ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
         err = fn(
@@ -285,7 +348,7 @@ def encode_fields_cuda(
             ptr(contour), bc, H, W, t_cnt,
             *([p.data_ptr() for p in res] if res is not None else [None] * 8),
             *([p.data_ptr() for p in cnt] if cnt is not None else [None] * 5),
-            fc_scratch.data_ptr(), word_scratch.data_ptr(), ptr(phase_stamps),
+            key_scratch.data_ptr(), word_scratch.data_ptr(), ptr(phase_stamps),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:

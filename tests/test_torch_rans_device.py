@@ -11,6 +11,9 @@ Tolerances and why:
   * they also equal the port's native host coder called with the device's
     lane geometry (L = 32, T = resid_T(HW)) on the data it emits (the word
     prefix, counts, states, tables, escapes);
+  * the kernel's step arithmetic (``rans_device.step_constants`` /
+    ``twin_step``) equals ``//``, ``%`` and the reference's step exactly,
+    and a walk driven by it gives every output of the plain encoders;
   * blobs of the device-entropy engine decode within the codec's bound, and
     its bpp is within 2% of host coding (``tests/test_engine.py:109``'s
     tolerance: the device container keeps the grid's T, not the frame's).
@@ -202,6 +205,136 @@ def test_wrapper_checks_inputs():
         rans_device.encode_fields_device(None, None, None)
     with pytest.raises(ValueError):
         rans_device.encode_fields_cuda(q, torch.zeros(2, dtype=torch.int32), None)  # CPU tensors: never the plain version
+
+
+@pytest.mark.parametrize("H, W, fits", [
+    (128, 262001, True), (128, 262002, False),  # H * T = 16383 * 2048, then 16384 * 2048
+    (120, 279497, False),  # H * T = 65535 * 512: a histogram thread would count 65536 steps
+    (512, 65009, True), (512, 65010, False), (512, 2, True), (513, 2, False),
+])
+def test_kernel_contour_limits_at_the_edge(H, W, fits):
+    T = rans_device.contour_T(H, W)
+    # csrc/rans.cu: a contour histogram thread counts 4 * ceil(H * T / 2048)
+    # steps in 16-bit fields, and a block codes at most 512 lanes.
+    assert fits == (H <= 512 and 4 * -(-H * T // 2048) <= 65535)
+    if fits:
+        rans_device.check_contour_fits_kernel(H, W)
+    else:
+        with pytest.raises(ValueError):
+            rans_device.check_contour_fits_kernel(H, W)
+
+
+def test_plain_contour_has_no_kernel_limit():
+    contour = torch.from_numpy(np.random.default_rng(3).integers(0, 2, (1, rans_device.MAX_CONTOUR_ROWS + 1, 2),
+                                                                 dtype=np.int32))
+    got = rans_device.encode_contour_field_device(contour)
+    ref = rans_device.encode_contour_field_plain(contour)
+    for name, a, b in zip(RES_NAMES, got, ref):
+        assert torch.equal(a, b), name
+
+
+# ------------------------------------------------------------ the kernel's arithmetic
+def _twin_xs(f):
+    """The dividends the twin is checked on for every frequency f."""
+    xs = [torch.zeros_like(f), torch.ones_like(f), f - 1, f, f + 1, f * 2**18 - 1, torch.full_like(f, 2**32 - 1)]
+    for k in (2**17, 2**18 - 1):
+        xs += [k * f - 1, k * f]
+    return xs
+
+
+@pytest.mark.parametrize("kind", ["edges", "random"])
+def test_twin_quotient_is_exact(kind):
+    """csrc/rans.cu's multiply-high division equals // and % for every f in
+    [1, 2^14], and its quotient of x >> 16 (an emitting step's) equals
+    (x >> 16) // f: at the named dividends, and on 10^5 seeded random pairs
+    with x below f * 2^18 (the states a step divides) and 10^5 over all of
+    u32."""
+    if kind == "edges":
+        f = torch.arange(1, rans.M + 1, dtype=torch.int64)
+        pairs = [(f, x) for x in _twin_xs(f)]
+    else:
+        rng = np.random.default_rng(11)
+        f = torch.from_numpy(rng.integers(1, rans.M + 1, 10**5))
+        x = torch.from_numpy(rng.integers(0, 2**62, 10**5)) % (f * 2**18)
+        pairs = [(f, x), (f, torch.from_numpy(rng.integers(0, 2**32, 10**5)))]
+    for f, x in pairs:
+        k = rans_device.step_constants(f)
+        assert (k.m >= 1).all() and (k.m < 2**32).all() and (k.sh2 <= 13).all()
+        q, q_emit = rans_device.twin_quotients(x, k)
+        assert torch.equal(q, x // f)
+        assert torch.equal(x - q * f, x % f)
+        assert torch.equal(q_emit, (x >> 16) // f)
+
+
+def test_twin_step_equals_the_reference_step():
+    """One branch-free step with the kernel's record == the reference's
+    renormalize-then-(x // f) * M + c + x % f, on states across [2^16, 2^32),
+    including f = M (xm1 = 2^32 - 1: never emits)."""
+    rng = np.random.default_rng(12)
+    f = torch.from_numpy(np.r_[rng.integers(1, rans.M + 1, 10**5), [rans.M] * 1000])
+    c = torch.from_numpy(rng.integers(0, rans.M, f.numel())) % (rans.M - f + 1)
+    x = torch.from_numpy(rng.integers(rans.RANS_L, 2**32, f.numel()))
+    got, word, emit = rans_device.twin_step(x, c, rans_device.step_constants(f))
+    want_emit = (x >> 18) >= f
+    xr = torch.where(want_emit, x >> 16, x)
+    assert torch.equal(emit, want_emit) and torch.equal(word, x & 0xFFFF)
+    assert torch.equal(got, (xr // f) * rans.M + c + xr % f)
+    assert (got < 2**32).all()
+
+
+def _twin_walk_and_pack(key, freqs, live_lane):
+    """``rans_device._walk_and_pack`` as csrc/rans.cu computes it: steps past
+    a lane's live length take the dead record (f = M, c = 0); each step is
+    ``twin_step`` on the gathered record, writing its word to the front of
+    the lane's row if emitted, else to the back; the pack copies each row's
+    emitted prefix forward and its suffix reversed."""
+    B, L, T = key.shape
+    M = rans.M
+    f = torch.cat([freqs.reshape(B, -1).to(torch.int64), torch.full((B, 1), M)], 1)
+    c = torch.cat([rans.cumulative(freqs).reshape(B, -1).to(torch.int64), torch.zeros((B, 1), dtype=torch.int64)], 1)
+    key = torch.where(torch.arange(T) < live_lane[..., None], key, f.shape[1] - 1).reshape(B, L * T)
+    k = rans_device.step_constants(f)
+    x = torch.full((B, L), rans.RANS_L, dtype=torch.int64)
+    rows = torch.zeros((B, L, T), dtype=torch.int64)
+    ne = torch.zeros((B, L), dtype=torch.int64)
+    nn = torch.zeros((B, L), dtype=torch.int64)
+    for t in range(T - 1, -1, -1):
+        kt = key.reshape(B, L, T)[:, :, t]
+        rec = rans_device.StepConstants(*(v.gather(1, kt) for v in k))
+        x, word, emit = rans_device.twin_step(x, c.gather(1, kt), rec)
+        rows.scatter_(2, torch.where(emit, ne, T - 1 - nn)[..., None], word[..., None])
+        ne += emit
+        nn += ~emit
+    off = torch.cumsum(ne, -1) - ne
+    nw = ne.sum(-1)
+    packed = torch.zeros((B, L * T), dtype=torch.int64)
+    for b in range(B):
+        for lane in range(L):
+            e, o = int(ne[b, lane]), int(off[b, lane])
+            packed[b, o : o + e] = rows[b, lane, :e]
+            s = int(nw[b]) + lane * T - o
+            packed[b, s : s + T - e] = rows[b, lane, e:].flip(0)
+    packed = torch.where(packed >= 0x8000, packed - 0x10000, packed).to(torch.int16)
+    return packed, nw.to(torch.int32), ne.to(torch.int32), x
+
+
+@pytest.mark.parametrize("field, case", [("residual", c) for c in ("full", "third", "one", "zero", "few_escapes", "many_escapes")]
+                         + [("contour", k) for k in ("runs", "random", "all_zero", "all_one")])
+def test_twin_walk_equals_plain_encoders(monkeypatch, field, case):
+    """A walk driven by the kernel's step twin gives every output of the
+    plain encoders on the reference cases above."""
+    if field == "residual":
+        q, n = _residual_case(case, 16 * 256)
+        args = (torch.from_numpy(q)[None], torch.tensor([n], dtype=torch.int32))
+        encode = rans_device.encode_residual_field_plain
+    else:
+        args = (torch.from_numpy(_contours(16, 256)[case])[None],)
+        encode = rans_device.encode_contour_field_plain
+    want = encode(*args)
+    monkeypatch.setattr(rans_device, "_walk_and_pack", _twin_walk_and_pack)
+    got = encode(*args)
+    for name, a, b in zip(want._fields, got, want):
+        assert torch.equal(a, b), name
 
 
 # ------------------------------------------------------------ containers
@@ -411,13 +544,40 @@ def test_compress_profile_prints_a_table(tmp_path, capsys):
     assert len(rows) >= 5, text
 
 
+def test_sass_walk_loop_chain_per_step():
+    """rpcc_tpu_torch.utils.rans_sass on a made-up disassembly: an innermost
+    loop of 8 steps, each a multiply-high and an add on x, is a chain of 2 a
+    step; a loop without 8 multiply-highs is not the walk's."""
+    from rpcc_tpu_torch.utils import rans_sass
+
+    line = "        /*{:04x}*/                   {} ;"
+    body = ["        Function : rans_encode_kernel", line.format(0, "MOV R4, c[0x0][0x28]"), ".L_x_1:"]
+    addr = 16
+    for _ in range(8):
+        for inst in ("IMAD.HI.U32 R5, R9, R4, RZ", "LDS R9, [R2+0x4]", "IADD3 R4, R5, R4, RZ"):
+            body.append(line.format(addr, inst))
+            addr += 16
+    body.append(line.format(addr, "@P0 BRA `(.L_x_1)"))
+    body += [".L_x_2:", line.format(addr + 16, "IMAD.HI.U32 R5, R9, R4, RZ"), line.format(addr + 32, "BRA `(.L_x_2)")]
+    loops = rans_sass.walk_loops("\n".join(body))
+    assert [(lp["steps"], lp["chain"], lp["instructions"]) for lp in loops] == [(8, 16, 25)]
+    assert loops[0]["chain_per_step"] == 2.0
+
+
 # ------------------------------------------------------------ the card
 def _card_inputs(dev, B, H, W, stream_lens, esc_frames=()):
+    """Seeded frames; ``esc_frames`` holds frame indices (uniform random
+    residuals, far past 512 escapes) or (frame, m) pairs (a ramp of exactly
+    m escapes at the stream's start)."""
     rng = np.random.default_rng(B * 1000 + H)
     hw = H * W
     q = np.round(rng.normal(0, 4, (B, hw))).astype(np.int32)
-    for b in esc_frames:
-        q[b] = rng.integers(-3000, 3000, hw)
+    for e in esc_frames:
+        if isinstance(e, tuple):
+            b, m = e
+            q[b] = 5000 * np.minimum(np.arange(hw), m)
+        else:
+            q[e] = rng.integers(-3000, 3000, hw)
     for b, n in enumerate(stream_lens):
         q[b, n:] = 0
     ids = np.cumsum(rng.random((B, H, W)) < 0.1, axis=2)
@@ -427,11 +587,21 @@ def _card_inputs(dev, B, H, W, stream_lens, esc_frames=()):
     return to(q), to(np.asarray(stream_lens, np.int32)), to(contour)
 
 
+# csrc/rans.cu walks in chunks of 128 steps (64 for contours of more than 64
+# rows).  At 16x1100 the residual T is 560 (4 chunks + 48) and the contour T
+# 1120 (8 chunks + 96): the stream lengths end one step before, at and after
+# a chunk boundary of lane 0 (t = 432) and of lane 3 (t = 48).
+_CHUNK_EDGES = [431, 432, 433, 3 * 560 + 47, 3 * 560 + 48, 3 * 560 + 49]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize(
     "B, H, W, lens, esc",
-    [(1, 64, 2000, [100000], ()), (3, 16, 256, [4096, 1, 0], (0,)), (2, 32, 2250, [72000, 30000], (1,))],
-    ids=["64E", "edges", "32E"],
+    [(1, 64, 2000, [100000], ()), (3, 16, 256, [4096, 1, 0], (0,)), (2, 32, 2250, [72000, 30000], (1,)),
+     (6, 16, 1100, _CHUNK_EDGES, ()), (1, 1, 40, [40], ()), (1, 33, 100, [3300], ()), (1, 129, 100, [12900], ()),
+     (1, rans_device.MAX_CONTOUR_ROWS, 40, [40 * rans_device.MAX_CONTOUR_ROWS], ()), (2, 16, 1100, [17600, 17600], ((0, 512), (1, 513))),
+     (2, 3, 101, [303, 200], ())],
+    ids=["64E", "edges", "32E", "chunk_edges", "H1", "H33", "H129", "H_max", "escapes_512_513", "odd_hw"],
 )
 def test_cuda_kernel_equals_plain(cuda_device, B, H, W, lens, esc):
     q, n, contour = _card_inputs(cuda_device, B, H, W, lens, esc)
@@ -445,8 +615,31 @@ def test_cuda_kernel_equals_plain(cuda_device, B, H, W, lens, esc):
         assert torch.equal(a, b), name
     for name, a, b in zip(RES_NAMES, cnt, ref_cnt):
         assert torch.equal(a, b), name
-    if esc:
-        assert int(res.n_esc[esc[0]]) > rans_device.ESC_CAP_DEV
+    for e in esc:
+        if isinstance(e, tuple):
+            assert int(res.n_esc[e[0]]) == e[1]
+        else:
+            assert int(res.n_esc[e]) > rans_device.ESC_CAP_DEV
+
+
+@pytest.mark.cuda
+def test_cuda_phase_stamps_time_both_blocks(cuda_device):
+    q, n, contour = _card_inputs(cuda_device, 2, 64, 2000, [128000, 90000])
+    stamps = torch.zeros(len(rans_device.STAMP_BLOCKS) * (len(rans_device.PHASES) + 1), dtype=torch.int64,
+                         device=cuda_device)
+    rans_device.encode_fields_cuda(q, n, contour, phase_stamps=stamps)
+    torch.cuda.synchronize(cuda_device)
+    for block in stamps.cpu().reshape(len(rans_device.STAMP_BLOCKS), -1):
+        assert (block > 0).all() and (block.diff() >= 0).all(), block
+    with pytest.raises(ValueError):
+        rans_device.encode_fields_cuda(q, n, contour, phase_stamps=stamps[:5])
+
+
+@pytest.mark.cuda
+def test_cuda_wrapper_rejects_too_many_contour_rows(cuda_device):
+    contour = torch.zeros((1, rans_device.MAX_CONTOUR_ROWS + 1, 8), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError):
+        rans_device.encode_fields_cuda(None, None, contour)
 
 
 @pytest.mark.cuda
