@@ -73,6 +73,26 @@ Phases (each raises on failure, and the process then exits nonzero):
      ``transfer_precision="f32"`` on the 64E, and the HDL-32E channel
      table (32x2250, not cut) in FPS and in DBSCAN mode; one FPS (or
      DBSCAN) wrapper call per encode;
+  4d. the point-cloud entry: ``make_encoder(Velodyne64E, CodecConfig(),
+     from_ri=False)`` on phase 4's four frames, two street scenes and a
+     random 120,000-point cloud: the in-graph range image against the host's
+     native f32 projection and the CPU's in-graph one (support agreement
+     >= 0.9999, >= 0.999 of the depths within rtol 2e-6; the differing
+     pixels counted), one FPS and one rANS launch per encode, repeat encodes
+     byte-identical, blobs assembled as the engine assembles its
+     device-entropy containers decoded by the host decoder within step +
+     1e-5 of the in-graph range image, bpp within 0.5% of the CPU's
+     encode and of the f32 host-projected engine encode; the same in
+     DBSCAN mode on the street scenes (one DBSCAN wrapper call per encode)
+     and on the 32E channel table (32x2250, rows by the nearest channel
+     angle); a zero-padded B = 8 ``make_batch_encoder`` batch equal to its
+     B = 1 encodes; ``build_dataset(datalist, lidar_type="Velodyne64E")``
+     over four ``.bin`` frames on the card and ``spot_check_datalist``;
+     ``codec/api.py`` round-tripping one frame's fields on the card; the
+     in-graph projection timed at (1|8, 128000) points (one call and 10
+     back to back) beside the host's f32 projection and its byte bound,
+     and the from-points encode's wall and profiled device time at B = 1
+     and 8;
   5. the compress/decompress CLIs with ``--device cuda`` in subprocesses;
      compress ``--profile`` names the FPS kernel in its table; compress
      ``--self_describing --eval`` decoded by a decompress with no
@@ -131,7 +151,9 @@ result.
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
+import io
 import json
 import os
 import shutil
@@ -949,6 +971,276 @@ def phase_new_modes(torch, np, dev, card, lidar):
     return per_encode
 
 
+# ------------------------------------------------------- 4d: raw points
+def random_fov_cloud(np, lidar, n: int, seed: int):
+    """``n`` points uniformly random in the LiDAR's field of view (any
+    azimuth, an elevation between its lowest and highest rows, 3-70 m): off
+    the scan grid, many sharing a pixel."""
+    rng = np.random.default_rng(seed)
+    az = rng.uniform(-np.pi, np.pi, n)
+    el = rng.uniform(lidar.vertical_min, lidar.vertical_max, n)
+    r = rng.uniform(3.0, 70.0, n)
+    return np.stack([r * np.cos(el) * np.cos(az), r * np.cos(el) * np.sin(az), r * np.sin(el)], -1).astype(np.float32)
+
+
+def projection_agreement(np, ri, ref, what: str):
+    """The in-graph range image ``ri`` against ``ref`` at the JAX package's
+    device-vs-host bounds (tests/test_host_projection.py:127-139): support
+    agreement >= 0.9999 and, where both have a return, >= 0.999 of the
+    depths within rtol 2e-6.  -> (differing pixels, support agreement,
+    share of close depths)."""
+    support = float(((ri > 0) == (ref > 0)).mean())
+    both = (ri > 0) & (ref > 0)
+    close = float(np.isclose(ri[both], ref[both], rtol=2e-6, atol=0).mean()) if both.any() else 1.0
+    check(support >= 0.9999 and close >= 0.999,
+          f"{what}: support agreement {support}, close depths {close} (bounds 0.9999, 0.999)")
+    return int((ri != ref).sum()), support, close
+
+
+def assemble_blobs(torch, engine, out, batched: bool = False):
+    """The ``.rpcc`` payloads of encoder outputs on the engine's device, put
+    together as the batch engine puts together its device-entropy
+    containers (``BatchEngine.finalize_encoded``)."""
+    from rpcc_tpu_torch.parallel.engine import _Dispatched
+
+    if not batched:
+        out = type(out)(*(None if x is None else x[None] for x in out))
+    done = None
+    if engine.device.type == "cuda":
+        done = torch.cuda.Event()
+        done.record()
+    return [b for b, _ in engine.finalize_encoded(_Dispatched(out, out.range_image.shape[0], done))]
+
+
+def outputs_equal(torch, a, b) -> bool:
+    return all((x is None) == (y is None) and (x is None or torch.equal(x, y)) for x, y in zip(a, b))
+
+
+def drive_points(torch, np, dev, card, tag, lid, cfg, clouds, seeds):
+    """4d: ``make_encoder(lid, cfg, from_ri=False)`` on each cloud: the
+    in-graph range image against the host's f32 projection and the CPU's
+    in-graph one; one segmentation (FPS or DBSCAN wrapper) call and one
+    rANS launch per encode; repeat encodes byte-identical; blobs, assembled
+    as the engine assembles device-entropy containers, decoded by the host
+    decoder within step + 1e-5 of the in-graph range image; bpp within
+    BPP_TOL of the CPU's encode and of the engine's f32 host-projected
+    encode of the same frame.  -> (device encoder, {name: (outputs, blob)})"""
+    from rpcc_tpu_torch.models.encoder import make_encoder
+    from rpcc_tpu_torch.models.host_decoder import HostDecoder
+    from rpcc_tpu_torch.ops import dbscan, fps, rans_device
+    from rpcc_tpu_torch.ops.projection import project_points
+    from rpcc_tpu_torch.ops.projection_host import project_points_host
+    from rpcc_tpu_torch.parallel.engine import BatchEngine
+
+    seg = "dbscan" if cfg.segment_method == "DBSCAN" else "fps"
+    want = {"fps": 0, "dbscan": 0, "rans": 1, seg: 1}
+    bound = cfg.step + 1e-5
+    encode = make_encoder(lid, cfg, from_ri=False, device=dev)
+    encode_cpu = make_encoder(lid, cfg, from_ri=False, device="cpu")
+    va, va_cpu = encode.__self__.v_angles, encode_cpu.__self__.v_angles
+    check(lid.even_dist == (va is None), f"{tag}: the channel table's rows need the encoder's angle table")
+    engine = BatchEngine(lid, cfg, dev, batch_size=8, workers=2)
+    cpu_engine = BatchEngine(lid, cfg, "cpu", batch_size=8, workers=2)
+    f32_engine = BatchEngine(lid, cfg.replace(transfer_precision="f32"), dev, batch_size=8, workers=2)
+    host = HostDecoder(lid, cfg)
+    results = {}
+    try:
+        f32 = f32_engine.encode_frames(list(clouds.values()), seeds)
+        encode(next(iter(clouds.values())), seeds[0], cfg.step)  # warm-up
+        torch.cuda.synchronize()
+        for i, ((name, pc), seed) in enumerate(zip(clouds.items(), seeds)):
+            ri = project_points(torch.from_numpy(pc).to(dev), lid, va).cpu().numpy()
+            agree = {k: projection_agreement(np, ri, r, f"{tag} {name}: card vs {k} projection") for k, r in (
+                ("host f32", project_points_host(pc, lid)),
+                ("cpu in-graph", project_points(torch.from_numpy(pc), lid, va_cpu).numpy()))}
+
+            fps.LAUNCHES = dbscan.LAUNCHES = rans_device.LAUNCHES = 0
+            out = encode(pc, seed, cfg.step)
+            torch.cuda.synchronize()
+            launches = {"fps": fps.LAUNCHES, "dbscan": dbscan.LAUNCHES, "rans": rans_device.LAUNCHES}
+            check(launches == want, f"{tag} {name}: launches {launches} for one encode, expected {want}")
+            check(bool((out.range_image.cpu().numpy() == ri).all()), f"{tag} {name}: the encoder's range image "
+                  "differs from the projection's")
+            blob = assemble_blobs(torch, engine, out)[0]
+            again = encode(pc, seed, cfg.step)
+            check(outputs_equal(torch, out, again) and assemble_blobs(torch, engine, again)[0] == blob,
+                  f"{tag} {name}: a repeat encode gave different outputs or bytes")
+            rec = host.decode_blobs([blob])[0]
+            err = float(np.abs(rec - ri).max())
+            check(err <= bound and bool((rec[ri == 0] == 0).all()),
+                  f"{tag} {name}: host decode max_err {err} > {bound}, or a zero pixel decoded nonzero")
+            out_cpu = encode_cpu(pc, seed, cfg.step)
+            blob_cpu = assemble_blobs(torch, cpu_engine, out_cpu)[0]
+            n = int(out.stream_len)
+            bpp = {"card": len(blob) * 8 / n, "cpu": len(blob_cpu) * 8 / int(out_cpu.stream_len),
+                   "f32 host-projected": len(f32[i][0]) * 8 / int(f32.stream_len[i])}
+            rel = {k: (v - bpp["card"]) / v for k, v in bpp.items() if k != "card"}
+            check(all(abs(r) <= BPP_TOL for r in rel.values()), f"{tag} {name}: bpp {bpp} differ by more than {BPP_TOL}")
+            print(f"[phase 4d] [{card}] {tag} {name} ({pc.shape[0]} points, {lid.height}x{lid.width}): projection "
+                  + ", ".join(f"vs {k}: {d} px differ, support {s:.6f}, close {c:.6f}" for k, (d, s, c) in agree.items())
+                  + f"; launches {launches}; {n} returns, bpp card {bpp['card']:.5f} cpu {bpp['cpu']:.5f} f32 "
+                  f"host-projected {bpp['f32 host-projected']:.5f}; host decode max_err {err:.6f} "
+                  f"(bound {bound:.5f}); repeat encode byte-identical True")
+            results[name] = (out, blob)
+    finally:
+        for e in (engine, cpu_engine, f32_engine):
+            e.close()
+    return encode, results
+
+
+def time_points(torch, np, dev, card, lidar, cfg):
+    """4d timings: the in-graph projection (one call, and BACK_TO_BACK back
+    to back, CUDA events; its device time and launches a call under
+    torch.profiler) at (1, 128000) and (8, 128000) points beside the host's
+    native f32 projection of the same frames, with its byte bound;
+    the from-points encode's wall time (median of RATE_PASSES) and its device
+    time under torch.profiler, at B = 1 and 8 (printed)."""
+    from rpcc_tpu_torch.data.synth import synth_cloud_for
+    from rpcc_tpu_torch.models.encoder import make_batch_encoder, make_encoder
+    from rpcc_tpu_torch.ops.projection import project_points
+    from rpcc_tpu_torch.ops.projection_host import project_points_host
+
+    frames = [synth_cloud_for(lidar, s) for s in range(8)]
+    n = frames[0].shape[0]
+    check(all(f.shape == (128000, 3) for f in frames), "the 64E synthetic frames are not 128,000 points each")
+    encode = make_encoder(lidar, cfg, from_ri=False, device=dev)
+    encode_b = make_batch_encoder(lidar, cfg, from_ri=False, device=dev)
+    for B in (1, 8):
+        pts = torch.from_numpy(np.stack(frames[:B])).to(dev)
+        one = median_ms(torch, lambda: project_points(pts, lidar))
+        b2b = median_ms(torch, lambda: project_points(pts, lidar), BACK_TO_BACK)
+        host = []
+        for _ in range(TIMED_RUNS):
+            t = time.perf_counter()
+            for f in frames[:B]:
+                project_points_host(f, lidar)
+            host.append((time.perf_counter() - t) * 1e3)
+        bound_ms, bound_by = bound(0.0, 12.0 * B * n + 4.0 * B * lidar.height * lidar.width)
+        p_ev, p_calls, p_dev, p_wall = _device_profile(
+            torch, lambda: [project_points(pts, lidar) for _ in range(BACK_TO_BACK)])
+
+        def run():
+            if B == 1:
+                return encode(frames[0], 0, cfg.step)
+            return encode_b(np.stack(frames), list(range(8)), cfg.step)
+
+        run()
+        torch.cuda.synchronize()
+        walls = []
+        for _ in range(RATE_PASSES):
+            t = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t) * 1e3)
+        n_ev, calls, dev_ms, prof_wall = _device_profile(torch, run)
+        print(f"[phase 4d] [{card}] in-graph projection ({B}, {n}) median of {TIMED_RUNS}: {one:.4f} ms one call, "
+              f"{b2b:.4f} ms over {BACK_TO_BACK} back to back; host native f32 projection of the same "
+              f"{B} frame(s) {statistics.median(host):.4f} ms; bound {bound_ms:.6f} ms ({bound_by}); under "
+              f"torch.profiler, a call: {p_ev / BACK_TO_BACK:.1f} device events, {p_calls / BACK_TO_BACK:.1f} launch "
+              f"calls, device time {p_dev / BACK_TO_BACK:.4f} ms of {p_wall / BACK_TO_BACK:.4f} ms wall")
+        print(f"[phase 4d] [{card}] from-points encode B={B}: wall median {statistics.median(walls):.3f} ms "
+              f"(min {min(walls):.3f}, max {max(walls):.3f}, {RATE_PASSES} passes); under torch.profiler "
+              f"{n_ev} device events, {calls} launch calls, device time {dev_ms:.3f} ms of {prof_wall:.3f} ms "
+              f"wall (idle {1 - dev_ms / prof_wall:.3f})")
+
+
+def phase_points(torch, np, dev, card, lidar, frames):
+    """4d: the point-cloud entry on the card (``make_encoder`` /
+    ``make_batch_encoder`` with ``from_ri=False``), the dataset layer and
+    the codec API.  -> kernel launches per from-points encode"""
+    from rpcc_tpu_torch.codec import api
+    from rpcc_tpu_torch.codec.entropy import BasicCompressor
+    from rpcc_tpu_torch.config import CodecConfig
+    from rpcc_tpu_torch.data import VELODYNE_32E_CSV, build_dataset, lidar_config
+    from rpcc_tpu_torch.data.dataset import DatasetTemplate, spot_check_datalist
+    from rpcc_tpu_torch.data.synth import synth_cloud_for
+    from rpcc_tpu_torch.models.encoder import make_batch_encoder, num_model_rows
+    from rpcc_tpu_torch.ops import dbscan, fps, rans_device
+    from rpcc_tpu_torch.ops.projection_host import build_transform_map, project_points_host
+    from rpcc_tpu_torch.parallel.engine import BatchEngine
+
+    cfg = CodecConfig()
+    tm = build_transform_map(lidar)
+    clouds = {f"synth {s}": frames[s] for s in SEEDS}
+    clouds.update({f"street {s}": scene_cloud(np, tm, s) for s in MODE_SEEDS})
+    clouds["random"] = random_fov_cloud(np, lidar, 120000, 7)
+    seeds = list(range(len(clouds)))
+    encode, results = drive_points(torch, np, dev, card, "default", lidar, cfg, clouds, seeds)
+    streets = {k: v for k, v in clouds.items() if k.startswith("street")}
+    drive_points(torch, np, dev, card, "DBSCAN", lidar, CodecConfig(segment_method="DBSCAN"), streets, seeds[:2])
+    lidar32 = lidar_config(CSV_LIDAR, VELODYNE_32E_CSV)
+    tm32 = build_transform_map(lidar32)
+    drive_points(torch, np, dev, card, "32E CSV (argmin rows)", lidar32, cfg,
+                 {f"street {s}": scene_cloud(np, tm32, s) for s in MODE_SEEDS}, seeds[:2])
+
+    # A zero-padded B = 8 batch of uneven clouds equals its B = 1 encodes.
+    batch_clouds = list(clouds.values()) + [synth_cloud_for(lidar, 4)[::3]]
+    seeds8 = list(range(100, 108))
+    batch = np.zeros((8, max(c.shape[0] for c in batch_clouds), 3), np.float32)
+    for b, c in enumerate(batch_clouds):
+        batch[b, : c.shape[0]] = c
+    encode_b = make_batch_encoder(lidar, cfg, from_ri=False, device=dev)
+    fps.LAUNCHES = dbscan.LAUNCHES = rans_device.LAUNCHES = 0
+    out_b = encode_b(torch.from_numpy(batch).to(dev), seeds8, cfg.step)
+    torch.cuda.synchronize()
+    launches_b = {"fps": fps.LAUNCHES, "dbscan": dbscan.LAUNCHES, "rans": rans_device.LAUNCHES}
+    check(launches_b == {"fps": 1, "dbscan": 0, "rans": 1}, f"B = 8 from-points batch launches {launches_b}")
+    engine = BatchEngine(lidar, cfg, dev, batch_size=8, workers=2)
+    try:
+        blobs_b = assemble_blobs(torch, engine, out_b, batched=True)
+        for b, (c, s) in enumerate(zip(batch_clouds, seeds8)):
+            single = encode(c, s, cfg.step)
+            check(outputs_equal(torch, type(out_b)(*(None if x is None else x[b] for x in out_b)), single),
+                  f"B = 8 from-points frame {b} differs from its B = 1 encode")
+            check(assemble_blobs(torch, engine, single)[0] == blobs_b[b], f"B = 8 from-points blob {b} differs")
+    finally:
+        engine.close()
+    print(f"[phase 4d] from-points batch (8, {batch.shape[1]}, 3), zero-padded, {[c.shape[0] for c in batch_clouds]} "
+          f"points: launches {launches_b}; every output and blob == its B = 1 encode")
+
+    # The dataset layer and the codec API on the card.
+    work = tempfile.mkdtemp(prefix=".chip_smoke_", dir=ROOT)
+    try:
+        paths = []
+        for s in SEEDS:
+            paths.append(os.path.join(work, f"{s:06d}.bin"))
+            write_bin(np, paths[-1], frames[s])
+        datalist = os.path.join(work, "list.txt")
+        with open(datalist, "w") as f:
+            f.write("\n".join(paths) + "\n")
+        ds = build_dataset(datalist, lidar_type=LIDAR)
+        check(ds.device.type == "cuda" and len(ds) == len(SEEDS), f"build_dataset: device {ds.device}, {len(ds)} frames")
+        ds_lidar = ds.PCTransformer.lidar
+        for i, path in enumerate(paths):
+            pc, ri, original, name = ds[i]
+            check(name == path and ri.shape == (ds_lidar.height, ds_lidar.width, 1) and pc.shape == ri.shape[:2] + (3,),
+                  f"dataset item {i}: {name}, {ri.shape}, {pc.shape}")
+            projection_agreement(np, ri[..., 0], project_points_host(original, ds_lidar), f"dataset item {i}")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            spot_check_datalist(DatasetTemplate, datalist, LIDAR, max_frames=len(SEEDS))
+        lines = buf.getvalue().strip().splitlines()
+        check(len(lines) == len(SEEDS) and all("chamfer" in ln and "F1" in ln for ln in lines),
+              f"spot_check_datalist printed {lines}")
+        for ln in lines:
+            print(f"[phase 4d] [{card}] spot_check_datalist: {os.path.basename(ln)}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out0 = results[f"synth {SEEDS[0]}"][0]
+    n0 = int(out0.stream_len)
+    seg0, models0, stream0 = out0.seg_idx.cpu().numpy(), out0.model_param.cpu().numpy(), out0.stream[:n0].cpu().numpy()
+    bc = BasicCompressor(method_name=cfg.basic_compressor, contour_shape=(lidar.height, lidar.width))
+    _, compressed = api.compress_point_cloud(bc, models0, seg0, None, stream0)
+    resid, idx_map, sal, plane = api.decompress_point_cloud(compressed, bc, num_model_rows(cfg), lidar.height, lidar.width)
+    check(np.array_equal(idx_map, seg0) and np.array_equal(resid, stream0) and np.array_equal(plane, models0)
+          and sal is None, "codec api round trip on the card changed a field")
+    print(f"[phase 4d] dataset: {len(ds)} frames through build_dataset(lidar_type={LIDAR!r}) on {ds.device}; codec "
+          f"api round trip of synth {SEEDS[0]}'s fields on the card: {sum(map(len, compressed.values()))} bytes, "
+          "seg map, residuals and models equal")
+    time_points(torch, np, dev, card, lidar, cfg)
+    return {"fps": 1, "dbscan": LAUNCHES_PER_CALL["dbscan"], "rans": 1}
+
+
 def run_cli(mod, args, phase):
     """``python -m rpcc_tpu_torch.cli.<mod> <args>`` in a subprocess; -> its
     standard output (raises on a nonzero exit)."""
@@ -1671,6 +1963,7 @@ def main() -> int:
     rans = phase_rans(torch, np, dev, card, lidar, codec, frames)  # 3e
     db_per_encode = phase_modes(torch, np, dev, card, lidar)  # 4b
     new_modes = phase_new_modes(torch, np, dev, card, lidar)  # 4c
+    points_launches = phase_points(torch, np, dev, card, lidar, frames)  # 4d
     phase_cli(np, codec, frames)  # 5
     eng = phase_engine(torch, np, dev, card, lidar, codec)  # 6
     phase_datalist(np, codec, lidar)  # 7
@@ -1689,7 +1982,9 @@ def main() -> int:
     # is null.  The rANS kernel's ``ms`` are at the engine's B = 8 on phase
     # 6's first batch (phase 3e), its ``launches`` phase 6's main-path
     # device-entropy run (one per batch);
-    # no PyTorch call computes a rANS encode.
+    # no PyTorch call computes a rANS encode.  ``launches_per_points_encode``
+    # is each kernel's launches in one from-points encode (phase 4d: FPS in
+    # the default mode, DBSCAN in its mode, rANS in both).
     print(json.dumps({"kernels": [
         {
             "name": "fps",
@@ -1698,6 +1993,7 @@ def main() -> int:
             "replaces": "rpcc_tpu/ops/fps_pallas.py:31",
             "launches": eng["fps_launches"],
             "launches_per_encode": fps_per_encode * LAUNCHES_PER_CALL["fps"],
+            "launches_per_points_encode": points_launches["fps"],
             "max_abs_err": max(fps_err, eng["fps_err"]),
             "shape": eng["fps_shape"],
             "ms": eng["fps_ms"],
@@ -1731,6 +2027,7 @@ def main() -> int:
             "replaces": "rpcc_tpu/ops/dbscan_pallas.py:42",
             "launches": eng["db_launches"],
             "launches_per_encode": db_per_encode * LAUNCHES_PER_CALL["dbscan"],
+            "launches_per_points_encode": points_launches["dbscan"],
             "max_abs_err": max(db_err, db4["err"], db8["err"]),
             "shape": f"B={len(STREET_SEEDS)} H=64 W=2000",
             "ms": db4["ms"],
@@ -1757,6 +2054,7 @@ def main() -> int:
             "replaces": "rpcc_tpu/ops/rans_device.py:151 (encode_field_device, XLA, not Pallas)",
             "launches": eng["rans_launches"],
             "launches_per_batch": eng["rans_launches"] / eng["batches"] * LAUNCHES_PER_CALL["rans"],
+            "launches_per_points_encode": points_launches["rans"],
             "max_abs_err": rans["err"],
             "shape": rans[8]["shape"],
             "ms": rans[8]["ms"],

@@ -1,6 +1,6 @@
-"""The encoder graph (port of ``rpcc_tpu/models/encoder.py``, the ``from_ri``
-paths): FPS (over the zero-masked grid, or with ``cpu_fps`` over the
-compacted non-ground set) or DBSCAN segmentation, point or plane models,
+"""The encoder graph (port of ``rpcc_tpu/models/encoder.py``): FPS (over
+the zero-masked grid, or with ``cpu_fps`` over the compacted non-ground
+set) or DBSCAN segmentation, point or plane models,
 uniform or non-uniform (salience) quantization, on evenly spaced LiDARs or
 ones with a channel table (CSV).
 
@@ -17,10 +17,16 @@ The batch runs as one graph (the JAX package's ``jax.vmap`` of the frame
 graph): no loop over frames and no host sync inside; a frame's outputs do
 not depend on the other frames of its batch.  A single (H, W) frame is the
 B = 1 case, returned without the batch dimension.
+
+Raw (N, 3) clouds (the reference's ``from_ri=False`` entry) are projected
+on the module's device (``ops/projection.py``) and run through the same
+graph as f32 range images with delta 1: :meth:`Encoder.encode_points`,
+:func:`make_encoder` and :func:`make_batch_encoder`.
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional, Sequence, Union
 
 import numpy as np
@@ -32,6 +38,7 @@ from rpcc_tpu_torch.ops import prng
 from rpcc_tpu_torch.ops.contour import extract_contour, pack_bits_msb
 from rpcc_tpu_torch.ops.features import extract_features_with_segment, salience_levels_from_counts
 from rpcc_tpu_torch.ops.modeling import plane_models_stream, point_model_table
+from rpcc_tpu_torch.ops.projection import project_points
 from rpcc_tpu_torch.ops.projection_host import build_transform_planes
 from rpcc_tpu_torch.ops.rans_device import encode_fields_device
 from rpcc_tpu_torch.ops.rounding import round_half_away
@@ -99,6 +106,12 @@ class Encoder(nn.Module):
         # engine reads this to know which pieces the graph hands it.
         self.device_entropy = bool(cfg.device_entropy) and cfg.basic_compressor == "rans"
         self.register_buffer("tm_planes", torch.from_numpy(np.asarray(tm_planes, np.float32)))
+        # The in-graph projection's channel table, built as the reference's
+        # encoder builds it (degrees * pi / 180 in float64, then f32).
+        v_angles = None
+        if not lidar.even_dist:
+            v_angles = torch.tensor([a * math.pi / 180.0 for a in lidar.vertical_angles_deg], dtype=torch.float32)
+        self.register_buffer("v_angles", v_angles)
 
     @classmethod
     def for_lidar(cls, lidar: LidarConfig, cfg: CodecConfig) -> "Encoder":
@@ -191,3 +204,36 @@ class Encoder(nn.Module):
             salience=salience,
             **de,
         )
+
+    @torch.no_grad()
+    def encode_points(self, points, seed, step: Union[float, Sequence[float]]) -> EncoderOutput:
+        """Raw points through the graph: an (N, >=3) cloud with an int seed,
+        or a zero-padded (B, N, >=3) batch with (B,) seeds (a tensor, numpy
+        array or sequence), projected on this module's device and encoded
+        as f32 range images with delta 1 (``ri * 1.0`` is exact)."""
+        dev = self.tm_planes.device
+        pts = torch.as_tensor(points, dtype=torch.float32, device=dev)
+        if pts.ndim not in (2, 3) or pts.shape[-1] < 3:
+            raise ValueError(f"points must be (N, >=3) or (B, N, >=3), got {tuple(pts.shape)}")
+        ri = project_points(pts[..., :3], self.lidar, self.v_angles)
+        ones = torch.ones(ri.shape[:-2], dtype=torch.float32, device=dev)
+        return self(ri, ones, seed, step)
+
+
+def make_encoder(lidar: LidarConfig, cfg: CodecConfig, from_ri: bool = False, device="cuda"):
+    """The single-frame encoder on ``device`` (the card unless the CPU is
+    asked for): ``encode(points (N, >=3), seed, step)``, or with
+    ``from_ri=True`` the :class:`Encoder` itself, called as ``encode(q (H,
+    W), delta, seed, step)`` (the reference's ``make_encoder``)."""
+    from rpcc_tpu_torch.models.pipeline import resolve_device
+
+    enc = Encoder.for_lidar(lidar, cfg).to(resolve_device(device))
+    return enc if from_ri else enc.encode_points
+
+
+def make_batch_encoder(lidar: LidarConfig, cfg: CodecConfig, from_ri: bool = False, device="cuda"):
+    """The batched encoder on ``device``: ``encode(points (B, N, >=3)
+    zero-padded, seeds (B,), step)``, or with ``from_ri=True`` the
+    :class:`Encoder` over (B, H, W) grids with (B,) deltas and seeds (the
+    reference's ``make_batch_encoder`` without a mesh)."""
+    return make_encoder(lidar, cfg, from_ri, device)

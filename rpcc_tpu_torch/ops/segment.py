@@ -203,3 +203,19 @@ def assign_clusters(
     seg = torch.where(seg > 0, seg + 1, seg)  # room for the zero-pixel class 1
     seg = torch.where(range_image.reshape(*lead, -1) == 0.0, 1, seg).to(torch.int32)
     return seg.reshape(range_image.shape)
+
+
+def segment_index_clean(seg_idx: torch.Tensor) -> torch.Tensor:
+    """Remove 1-pixel salt from an (H, W) or (B, H, W) seg map
+    (``cpp_modules.cpp:226-246``).  Not on the codec's path.
+
+    The C++ walks each row left to right **in place**: if ``v[w+2] == v[w]``
+    and ``v[w+1] != v[w]`` then ``v[w+1] = v[w]``, where ``v[w]`` may just
+    have been rewritten.  Writes only ever go to ``w+1``, so reads of
+    ``w+1`` and ``w+2`` see original values: a loop over columns, each step
+    over every row at once, reproduces the cascade."""
+    out = seg_idx.clone()
+    for w in range(seg_idx.shape[-1] - 2):
+        prev, nxt = out[..., w], seg_idx[..., w + 1]
+        out[..., w + 1] = torch.where((seg_idx[..., w + 2] == prev) & (nxt != prev), prev, nxt)
+    return out

@@ -1,1 +1,1 @@
-"""Helpers around the codec (profiling)."""
+"""Helpers around the codec: profiling, stage timers and traces, sizes, headless renderers."""

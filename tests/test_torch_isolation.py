@@ -52,7 +52,7 @@ def _imported_modules(tree):
 
 def test_scan_covers_every_package():
     dirs = {os.path.dirname(p) for p in _port_sources()}
-    for sub in ("cli", "codec", "data", "metrics", "models", "ops", "parallel", "utils"):
+    for sub in ("cli", "codec", "data", "data/datasets", "metrics", "models", "ops", "parallel", "utils"):
         assert os.path.join("rpcc_tpu_torch", sub) in dirs
 
 
