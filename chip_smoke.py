@@ -21,7 +21,8 @@ them.
 Phases (each raises on failure, and the process then exits nonzero):
   0. environment: card name and power limit, torch/CUDA versions; the port
      imports neither jax nor ``rpcc_tpu`` (checked again at the end);
-  1. build the CUDA kernels from the sources in the checkout, one nvcc per
+  1. build the CUDA kernels (``fps.cu``, ``dbscan.cu``, ``rans.cu``,
+     ``rans_decode.cu``) from the sources in the checkout, one nvcc per
      source, all started together (timed);
   2. threefry draws on the GPU equal the CPU draws bit for bit;
   3. the FPS kernel (one thread-block cluster per frame) against its plain
@@ -128,6 +129,21 @@ Phases (each raises on failure, and the process then exits nonzero):
      equal the B = 1 engine's, a repeat run byte-identical, decodes within
      bound through both decoders, street-scene bytes within 2% of host
      entropy;
+  3f. (run after 6) the rANS decode kernel (one launch per field group: a
+     block per frame, a thread per lane) against its plain PyTorch version
+     on the GPU and the native host decoder, every symbol equal, and the
+     codec's ``RPCC_RANS_DEVICE=default`` backend's bytes against the
+     native backend's: phase 6's first batch (eight distinct frames, device
+     containers) at B = 8 and B = 1, phase 4's four host-coded frames, a
+     mixed-T batch (device containers and cut street scenes), stream lengths
+     0, 1 and HW and a few hundred escapes (device) and > 512 escapes
+     (host), two order-0 'D' containers, a 32x2250 32E frame; a corrupt
+     escape list and a 513-row contour raising; the engine's decode of phase
+     6's 20 blobs on both backends, range images equal, two decode launches
+     per batch; the kernel, the plain version and the native host decode
+     timed on phase 6's first batch at B = 1 and 8 beside the byte bound
+     and a modelled chain floor, the codec's and the engine's decode on
+     both backends;
   7. the datalist CLIs in subprocesses: ``compress_datalist --batch 4
      --device cuda`` on 10 frames at the default (device entropy) and with
      ``--no-device_entropy``, the latter equal to the single-frame codec per
@@ -158,6 +174,7 @@ import json
 import os
 import shutil
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
@@ -185,13 +202,21 @@ TIMED_RUNS = 21
 BACK_TO_BACK = 10  # calls per CUDA-event sample of a kernel's ``ms_10_back_to_back``
 # Kernel launches per wrapper call, whatever the batch: DBSCAN's mask pass
 # and cluster kernel are two.
-LAUNCHES_PER_CALL = {"fps": 1, "dbscan": 2, "rans": 1}
+LAUNCHES_PER_CALL = {"fps": 1, "dbscan": 2}
 # The card's published peaks (H100 SXM, at its full 700 W): f32 outside the
 # tensor cores, and device memory.
 PEAK_F32_OPS = 67e12
 PEAK_BYTES = 3.35e12
 RATE_PASSES = 5  # phase 6: timed pipeline passes per batch size
-PLAIN_RANS_RUNS = 3  # phase 3e: samples of the plain rANS walk (~10 launches per step)
+PLAIN_RANS_RUNS = 3  # phases 3e, 3f: samples of the plain rANS walks (~10-15 launches per step)
+HOST_RUNS = 21  # phase 3f: samples of a host-clock time (the native host decode)
+# Phase 3f: the decode step's dependent chain, a model (not measured): a
+# residual step is two dependent shared loads (slot -> symbol, symbol ->
+# {f, c}) and four dependent integer instructions, a contour step one shared
+# load (its context's pair) and five; each load's latency is assumed.
+SMEM_LOAD_CYCLES = 30
+INT_CYCLES = 4
+DECODE_CHAIN_CYCLES = {"residual": 2 * SMEM_LOAD_CYCLES + 4 * INT_CYCLES, "contour": SMEM_LOAD_CYCLES + 5 * INT_CYCLES}
 BPP_TOL = 0.005  # GPU vs CPU encode of the same frame
 
 
@@ -415,10 +440,10 @@ def phase_build():
     from rpcc_tpu_torch.ops import dbscan, fps, rans_device
 
     t = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=3) as pool:
-        for f in [pool.submit(k._kernel) for k in (fps, dbscan, rans_device)]:
+    with ThreadPoolExecutor(max_workers=4) as pool:
+        for f in [pool.submit(k) for k in (fps._kernel, dbscan._kernel, rans_device._kernel, rans_device._decode_kernel)]:
             f.result()
-    print(f"[phase 1] fps.cu, dbscan.cu and rans.cu built and loaded in {time.perf_counter() - t:.2f} s")
+    print(f"[phase 1] fps.cu, dbscan.cu, rans.cu and rans_decode.cu built and loaded in {time.perf_counter() - t:.2f} s")
 
 
 def phase_prng(torch, dev):
@@ -888,6 +913,270 @@ def phase_rans(torch, np, dev, card, lidar, codec, frames):
     return out
 
 
+# ------------------------------------------------------------------ 3f: rANS decode
+def rans_decode_bound(lanes_list):
+    """rANS decode of field groups: the words the containers hold, each
+    lane's count, live steps (i32) and u64-held state, and the i32 tables
+    read once; the (B, L, T) i32 symbols written once.  Bytes only: its
+    integer operations, a few a symbol, would take less at the f32 rate."""
+    nbytes = sum(2 * int(g.counts.sum()) + 16 * g.counts.size + 4 * g.freqs.size + 4 * g.words.size
+                 for g in lanes_list)
+    return bound(0.0, float(nbytes))
+
+
+@contextlib.contextmanager
+def rans_backend(name: str):
+    """The port's codec decoding with ``RPCC_RANS_DEVICE=name`` in the block."""
+    from rpcc_tpu_torch.codec import rans_codec
+
+    old, rans_codec._RANS_DEVICE = rans_codec._RANS_DEVICE, name
+    try:
+        yield
+    finally:
+        rans_codec._RANS_DEVICE = old
+
+
+def upload_lanes(dev, lanes):
+    """A codec ``Lanes`` group's tensors on ``dev``, as the decode wrapper uploads them."""
+    from rpcc_tpu_torch.ops import rans_device
+
+    return rans_device.upload_decode_lanes(*lanes[:5], dev)
+
+
+def host_median_ms(fn, runs: int = HOST_RUNS) -> float:
+    fn()
+    times = []
+    for _ in range(runs):
+        t = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(times)
+
+
+def decode_held(torch, np, dev, lanes, what):
+    """One decode kernel launch on a field group's lanes held to the plain
+    version on the card and to the native host decoder -> max |kernel - plain|."""
+    from rpcc_tpu_torch.codec import rans_native
+    from rpcc_tpu_torch.ops import rans_device as rd
+
+    args = upload_lanes(dev, lanes)
+    got = rd.decode_streams_cuda(*args, lanes.mode)
+    plain = rd.decode_streams_plain(*args, lanes.mode)
+    torch.cuda.synchronize()
+    check(got.shape == plain.shape and got.dtype == plain.dtype, f"rans decode {what}: shape or type differs")
+    err = int((got.long() - plain.long()).abs().max())
+    check(err == 0, f"rans decode kernel differs from the plain version {what}")
+    native = rans_native.decode_ctx_batch(lanes.words, lanes.counts, lanes.states, lanes.freqs, lanes.words.shape[2],
+                                          lanes.mode, lives=lanes.lives)
+    check(np.array_equal(got.cpu().numpy(), native), f"rans decode kernel differs from the native decoder {what}")
+    return err
+
+
+def residual_containers(np, res, lens, hw: int):
+    """'C' containers of the encode kernel's residual pieces at the
+    device's lane geometry, as the engine assembles them."""
+    from rpcc_tpu_torch.codec import rans_codec
+    from rpcc_tpu_torch.ops import rans_device as rd
+
+    words, nw, counts, states, freqs, escapes, n_esc, q0 = (t.cpu().numpy() for t in res)
+    return [rans_codec.build_ctx_container(rd.RESID_LANES, rd.resid_T(hw), int(lens[b]), int(q0[b]),
+                                           escapes[b, :n_esc[b]], freqs[b].astype(np.int64), states[b],
+                                           counts[b].astype(np.uint16), words[b, :nw[b]].view(np.uint16), np.int16)
+            for b in range(len(lens))]
+
+
+def order0_container(np, arr):
+    """A 'D' (order-0) container of an int16 stream in the reference's
+    layout (``rpcc_tpu/codec/rans_codec.py``: header, escapes, one table,
+    states, counts, words, dtype), coded by the port's native coder with one
+    context.  The port decodes 'D'; nothing of it emits one."""
+    from rpcc_tpu_torch.codec import rans_codec, rans_native
+
+    sym, escapes, q0, n = rans_codec._symbolize(arr)
+    L = rans_codec._lanes_for(max(n, 1))
+    T = -(-max(1, -(-n // L)) // rans_codec.T_BUCKET) * rans_codec.T_BUCKET
+    sym3d = np.zeros((1, L, T), np.int32)
+    sym3d.reshape(-1)[:n] = sym
+    words, counts, states, freqs = rans_native.encode_ctx_batch(sym3d, np.zeros_like(sym3d), rans_codec.ALPHABET, 1)
+    return b"".join([
+        struct.pack("<BBHIi", rans_codec.MAGIC_DELTA, L.bit_length() - 1, T, n, q0),
+        struct.pack("<I", escapes.shape[0]), escapes.astype("<u4").tobytes(),
+        rans_codec._pack_table(freqs[0, 0].astype(np.int64)), states[0].astype("<u4").tobytes(),
+        counts[0].astype("<u2").tobytes(), rans_codec._lane_words(words[0], counts[0]).tobytes(),
+        struct.pack("<B", 0),
+    ])
+
+
+def phase_rans_decode(torch, np, dev, card, lidar, codec, frames, eng):
+    """3f: the rANS decode kernel against its plain version and the native
+    decoder, the codec's ``RPCC_RANS_DEVICE=default`` backend against the
+    native one, the engine's decode of phase 6's blobs on it, and times."""
+    from rpcc_tpu_torch.codec import rans_codec, rans_native
+    from rpcc_tpu_torch.codec.bitstream import unpack_bitstream
+    from rpcc_tpu_torch.config import CodecConfig
+    from rpcc_tpu_torch.data import VELODYNE_32E_CSV, lidar_config
+    from rpcc_tpu_torch.models.pipeline import RPCCCodec
+    from rpcc_tpu_torch.ops import rans_device as rd
+    from rpcc_tpu_torch.ops.projection_host import build_transform_map
+    from rpcc_tpu_torch.parallel.engine import BatchEngine
+    from rpcc_tpu_torch.utils.rans_sass import max_sm_clock_mhz
+
+    cfg = CodecConfig()
+    hw = codec.hw
+    fields = lambda blob: unpack_bitstream(blob, uniform=cfg.uniform)  # noqa: E731
+    main = [fields(b) for b in eng["blobs"]]
+    res8, cnt8 = [f["residual_quantized"] for f in main[:8]], [f["contour_map"] for f in main[:8]]
+    check(all(r[:2] == bytes([rans_codec.MAGIC_CTX, 5]) for r in res8) and all(c[0] == rans_codec.MAGIC_BITS for c in cnt8),
+          "phase 6's first batch is not eight device containers")
+    host4 = [fields(codec.compress(frames[s])[0]) for s in SEEDS]
+    tm = build_transform_map(lidar)
+    cut = [fields(codec.compress(drop_far(np, scene_cloud(np, tm, s)))[0])["residual_quantized"] for s in MODE_SEEDS]
+    mixed_T = {struct.unpack_from("<H", b, 2)[0] for b in res8[:2] + cut}
+    check(all(b[:2] == bytes([rans_codec.MAGIC_CTX, 5]) for b in cut) and len(mixed_T) > 1,
+          f"the cut street scenes give no mixed-T batch of 32-lane containers (T {sorted(mixed_T)})")
+    # Device containers at stream lengths 0, 1, HW and with ~300 escapes
+    # (150 spikes, two escapes each); a host container past 512 escapes.
+    rng = np.random.default_rng(7)
+    q = np.round(rng.normal(0, 3, (4, hw))).astype(np.int32)
+    q[3, 100:1000:6] = rng.integers(-3000, 3000, 150)
+    lens = np.array([0, 1, hw, hw // 2], np.int32)
+    for b in range(4):
+        q[b, lens[b]:] = 0
+    res, _ = rd.encode_fields_cuda(torch.from_numpy(q).to(dev), torch.from_numpy(lens).to(dev), None)
+    check(0 < int(res.n_esc[3]) <= rd.ESC_CAP_DEV, f"the edge frame has {int(res.n_esc[3])} escapes")
+    edge = residual_containers(np, res, lens, hw)
+    many = rans_codec.compress_delta_batch([rng.integers(-3000, 3000, hw).astype(np.int16)])[0]
+    stream0 = np.frombuffer(rans_codec.decompress(host4[0]["residual_quantized"]), np.int16)
+    d_blobs = [order0_container(np, stream0), order0_container(np, stream0[:1000])]
+    lidar32 = lidar_config(CSV_LIDAR, VELODYNE_32E_CSV)
+    f32e = fields(RPCCCodec(lidar32, cfg, dev).compress(scene_cloud(np, build_transform_map(lidar32), MODE_SEEDS[0]))[0])
+    cases = [
+        ("phase 6's first batch (B=8, device containers)", res8, cnt8),
+        ("phase 6's frame 0 (B=1)", res8[:1], cnt8[:1]),
+        ("phase 4's host-coded frames (B=4)", [h["residual_quantized"] for h in host4], [h["contour_map"] for h in host4]),
+        ("a mixed-T batch (device T 4000, cut street scenes)", res8[:2] + cut, []),
+        (f"stream lengths 0, 1, HW, {int(res.n_esc[3])} escapes (device) and > 512 escapes (host)", edge + [many], []),
+        ("'D' containers (order-0)", d_blobs, []),
+        ("a 32x2250 32E frame", [f32e["residual_quantized"]], [f32e["contour_map"]]),
+    ]
+    err = 0
+    for what, res_blobs, cnt_blobs in cases:
+        groups = {}
+        for b in res_blobs:
+            groups.setdefault(b[:2], []).append(b)
+        shapes = []
+        for g in groups.values():
+            lanes = rans_codec.delta_lanes(g)
+            err = max(err, decode_held(torch, np, dev, lanes, f"on {what}"))
+            shapes.append(f"{chr(g[0][0])} {lanes.words.shape} T {sorted({struct.unpack_from('<H', b, 2)[0] for b in g})}")
+        if cnt_blobs:
+            lanes, H, W = rans_codec.contour_lanes(cnt_blobs)
+            err = max(err, decode_held(torch, np, dev, lanes, f"on {what}'s contours"))
+            shapes.append(f"N {lanes.words.shape}")
+        for fn, blobs in ((rans_codec.decompress_delta_batch, res_blobs), (rans_codec.decompress_contour_batch, cnt_blobs)):
+            if blobs:
+                with rans_backend("cpu"):
+                    want = fn(blobs)
+                with rans_backend("default"):
+                    check(fn(blobs) == want, f"the default backend's bytes differ from the native backend's on {what}")
+        print(f"[phase 3f] rans decode kernel == plain == native, default backend bytes == native on {what}: "
+              + "; ".join(shapes))
+
+    # Raises: a corrupt escape list (one more listed than decoded), a contour
+    # of 513 rows (past the kernel's limit; the native decoder takes it).
+    bad = bytearray(edge[3])
+    (n_esc,) = struct.unpack_from("<I", bad, 12)
+    bad[12:16] = struct.pack("<I", n_esc + 1)
+    bad[16 + 4 * n_esc:16 + 4 * n_esc] = struct.pack("<I", 7)
+    H, W = rd.MAX_CONTOUR_ROWS + 1, 8
+    tall_bits = np.packbits(rng.random(H * W) < 0.1)
+    T_tall = rd.contour_T(H, W)
+    cw, cnw, ccounts, cstates, cfreqs = rans_native.contour_encode_frames(tall_bits[None], H, W, T_tall)
+    tall = rans_codec.build_bits_container(T_tall, H, W, cfreqs[0], cstates[0], ccounts[0].astype(np.uint16),
+                                           cw[0, :cnw[0]])
+    with rans_backend("cpu"):
+        check(rans_codec.decompress_contour_batch([tall]) == [tall_bits.tobytes()], "the native decoder of 513 rows")
+    for what, fn, blob in (("a corrupt escape list", rans_codec.decompress_delta_batch, bytes(bad)),
+                           (f"a contour of {H} rows", rans_codec.decompress_contour_batch, tall)):
+        with rans_backend("default"):
+            try:
+                fn([blob])
+            except ValueError as e:
+                print(f"[phase 3f] the default backend raises on {what}: {e}")
+            else:
+                raise RuntimeError(f"the default backend decoded {what}")
+
+    # End to end: the engine's decode of phase 6's 20 blobs on each backend;
+    # on the card one decode launch per field group (residual, contour) per batch.
+    B = 8
+    engine = BatchEngine(lidar, cfg, dev, batch_size=B)
+    batches = _batches(eng["blobs"], B)
+    try:
+        with rans_backend("cpu"):
+            want = [engine.decode_range_images(b) for b in batches]
+            cpu_ms = host_median_ms(lambda: engine.decode_range_images(batches[0]), RATE_PASSES)
+        with rans_backend("default"):
+            engine.decode_range_images(batches[0])  # warm-up
+            torch.cuda.synchronize()
+            rd.DECODE_LAUNCHES = 0
+            got = [engine.decode_range_images(b) for b in batches]
+            launches = rd.DECODE_LAUNCHES
+            dev_ms = host_median_ms(lambda: engine.decode_range_images(batches[0]), RATE_PASSES)
+    finally:
+        engine.close()
+    check(all(np.array_equal(a, b) for a, b in zip(got, want)), "the engine's range images differ between the backends")
+    check(launches == 2 * len(batches), f"{launches} decode launches for {len(batches)} engine batches, expected 2 each")
+    print(f"[phase 3f] engine decode of phase 6's {len(eng['blobs'])} blobs in batches {[len(b) for b in batches]} "
+          f"with RPCC_RANS_DEVICE=default: range images == the cpu backend's, {launches} decode launches")
+
+    out = {"err": err, "launches": launches, "batches": len(batches)}
+    clock = max_sm_clock_mhz()
+    for Bt in (1, B):
+        rl = rans_codec.delta_lanes(res8[:Bt])
+        cl = rans_codec.contour_lanes(cnt8[:Bt])[0]
+        row = {}
+        for field, lanes in (("residual", rl), ("contour", cl)):
+            args = upload_lanes(dev, lanes)
+            T = lanes.words.shape[2]
+            run = lambda a=args, m=lanes.mode: rd.decode_streams_cuda(*a, m)  # noqa: E731
+            short = upload_lanes(dev, lanes._replace(words=lanes.words[:, :, :16], lives=np.minimum(lanes.lives, 16)))
+            row[field] = dict(
+                ms=median_ms(torch, run), b2b=median_ms(torch, run, BACK_TO_BACK),
+                tables_ms=median_ms(torch, lambda a=short, m=lanes.mode: rd.decode_streams_cuda(*a, m)),
+                plain_ms=median_ms(torch, lambda a=args, m=lanes.mode: rd.decode_streams_plain(*a, m),
+                                   runs=PLAIN_RANS_RUNS),
+                host_ms=host_median_ms(lambda g=lanes: rans_codec.decode_lanes(g)),
+                bound=rans_decode_bound([lanes]), floor_ms=T * DECODE_CHAIN_CYCLES[field] / (clock * 1e3),
+                shape=f"{tuple(lanes.words.shape)}", steps=T,
+            )
+            r = row[field]
+            print(f"[phase 3f] [{card}] rans decode {field} B={Bt} {r['shape']} median of {TIMED_RUNS}: kernel "
+                  f"{r['ms']:.4f} ms ({r['b2b']:.4f} ms over {BACK_TO_BACK} back to back; {r['ms'] * 1e6 / T:.2f} ns "
+                  f"a step), at T = 16 (tables and launch) {r['tables_ms']:.4f} ms; plain {r['plain_ms']:.4f} ms "
+                  f"(median of {PLAIN_RANS_RUNS}); native host decode {r['host_ms']:.4f} ms (median of {HOST_RUNS}); "
+                  f"bound {r['bound'][0]:.6f} ms ({r['bound'][1]}); chain floor, a model, not measured: "
+                  f"{r['floor_ms']:.6f} ms ({T} steps x {DECODE_CHAIN_CYCLES[field]} assumed cycles at {clock:.0f} MHz)")
+        both = lambda k: row["residual"][k] + row["contour"][k]  # noqa: E731
+        out[Bt] = dict(row, ms=both("ms"), b2b=both("b2b"), plain_ms=both("plain_ms"), host_ms=both("host_ms"),
+                       bound=rans_decode_bound([rl, cl]),
+                       shape=f"B={Bt} residual {row['residual']['shape']} + contour {row['contour']['shape']}")
+        # The codec's decode of the batch's two big fields, host work included.
+        packed = main[:Bt]
+        with rans_backend("cpu"):
+            cpu_fields = host_median_ms(lambda: rans_codec.batch_decode_big_fields(packed), RATE_PASSES)
+        with rans_backend("default"):
+            dev_fields = host_median_ms(lambda: rans_codec.batch_decode_big_fields(packed), RATE_PASSES)
+        out[Bt].update(codec_cpu_ms=cpu_fields, codec_default_ms=dev_fields)
+        print(f"[phase 3f] [{card}] B={Bt}: both fields' kernels {out[Bt]['ms']:.4f} ms against the native host decode "
+              f"{out[Bt]['host_ms']:.4f} ms; batch_decode_big_fields (parse, assemble, decode, finalize), median of "
+              f"{RATE_PASSES}: cpu backend {cpu_fields:.3f} ms, default backend {dev_fields:.3f} ms")
+    out.update(engine_cpu_ms=cpu_ms, engine_default_ms=dev_ms)
+    print(f"[phase 3f] [{card}] engine decode_range_images of phase 6's first batch (B={B}), median of {RATE_PASSES}: "
+          f"cpu backend {cpu_ms:.3f} ms, default backend {dev_ms:.3f} ms; the native rANS decode of its two fields "
+          f"{out[B]['host_ms']:.3f} ms = {out[B]['host_ms'] / cpu_ms:.3f} of the cpu backend's decode")
+    return out
+
+
 def drive_mode(torch, np, dev, card, lidar, tag, cfg, frames, phase):
     """One codec mode through ``RPCCCodec(lidar, cfg, "cuda")``: each frame
     encoded, decoded and encoded again with the launches counted (one FPS
@@ -1033,7 +1322,7 @@ def drive_points(torch, np, dev, card, tag, lid, cfg, clouds, seeds):
     from rpcc_tpu_torch.parallel.engine import BatchEngine
 
     seg = "dbscan" if cfg.segment_method == "DBSCAN" else "fps"
-    want = {"fps": 0, "dbscan": 0, "rans": 1, seg: 1}
+    want = {"fps": 0, "dbscan": 0, "rans": 1, "rans_decode": 0, seg: 1}
     bound = cfg.step + 1e-5
     encode = make_encoder(lid, cfg, from_ri=False, device=dev)
     encode_cpu = make_encoder(lid, cfg, from_ri=False, device="cpu")
@@ -1054,10 +1343,11 @@ def drive_points(torch, np, dev, card, tag, lid, cfg, clouds, seeds):
                 ("host f32", project_points_host(pc, lid)),
                 ("cpu in-graph", project_points(torch.from_numpy(pc), lid, va_cpu).numpy()))}
 
-            fps.LAUNCHES = dbscan.LAUNCHES = rans_device.LAUNCHES = 0
+            fps.LAUNCHES = dbscan.LAUNCHES = rans_device.LAUNCHES = rans_device.DECODE_LAUNCHES = 0
             out = encode(pc, seed, cfg.step)
             torch.cuda.synchronize()
-            launches = {"fps": fps.LAUNCHES, "dbscan": dbscan.LAUNCHES, "rans": rans_device.LAUNCHES}
+            launches = {"fps": fps.LAUNCHES, "dbscan": dbscan.LAUNCHES, "rans": rans_device.LAUNCHES,
+                        "rans_decode": rans_device.DECODE_LAUNCHES}
             check(launches == want, f"{tag} {name}: launches {launches} for one encode, expected {want}")
             check(bool((out.range_image.cpu().numpy() == ri).all()), f"{tag} {name}: the encoder's range image "
                   "differs from the projection's")
@@ -1238,7 +1528,7 @@ def phase_points(torch, np, dev, card, lidar, frames):
           f"api round trip of synth {SEEDS[0]}'s fields on the card: {sum(map(len, compressed.values()))} bytes, "
           "seg map, residuals and models equal")
     time_points(torch, np, dev, card, lidar, cfg)
-    return {"fps": 1, "dbscan": LAUNCHES_PER_CALL["dbscan"], "rans": 1}
+    return {"fps": 1, "dbscan": LAUNCHES_PER_CALL["dbscan"], "rans": 1, "rans_decode": 0}
 
 
 def run_cli(mod, args, phase):
@@ -1620,7 +1910,7 @@ def phase_engine(torch, np, dev, card, lidar, codec):
                 fps_bound=(fps_bound_ms, fps_bound_by),
                 fps_shape=f"B={B} N={lidar.height * lidar.width} K={cfg.cluster_num}",
                 fps_launches=launches["fps"], db_launches=db_launches["dbscan"], rans_launches=launches["rans"],
-                batches=len(work))
+                batches=len(work), blobs=blobs)
 
 
 def engine_dropped_returns(torch, np, dev, lidar, street):
@@ -1966,6 +2256,7 @@ def main() -> int:
     points_launches = phase_points(torch, np, dev, card, lidar, frames)  # 4d
     phase_cli(np, codec, frames)  # 5
     eng = phase_engine(torch, np, dev, card, lidar, codec)  # 6
+    dec = phase_rans_decode(torch, np, dev, card, lidar, codec, frames, eng)  # 3f
     phase_datalist(np, codec, lidar)  # 7
     check_isolated()
     print(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s")
@@ -1984,7 +2275,11 @@ def main() -> int:
     # device-entropy run (one per batch);
     # no PyTorch call computes a rANS encode.  ``launches_per_points_encode``
     # is each kernel's launches in one from-points encode (phase 4d: FPS in
-    # the default mode, DBSCAN in its mode, rANS in both).
+    # the default mode, DBSCAN in its mode, rANS in both, no decode).  The
+    # decode kernel's ``ms`` are its two field groups' launches on phase
+    # 6's first batch at B = 8 (phase 3f), its ``launches`` the engine's
+    # decode of phase 6's blobs with ``RPCC_RANS_DEVICE=default``; no
+    # PyTorch call decodes rANS.
     print(json.dumps({"kernels": [
         {
             "name": "fps",
@@ -2053,7 +2348,7 @@ def main() -> int:
             "source": "rpcc_tpu_torch/csrc/rans.cu",
             "replaces": "rpcc_tpu/ops/rans_device.py:151 (encode_field_device, XLA, not Pallas)",
             "launches": eng["rans_launches"],
-            "launches_per_batch": eng["rans_launches"] / eng["batches"] * LAUNCHES_PER_CALL["rans"],
+            "launches_per_batch": eng["rans_launches"] / eng["batches"],
             "launches_per_points_encode": points_launches["rans"],
             "max_abs_err": rans["err"],
             "shape": rans[8]["shape"],
@@ -2072,6 +2367,42 @@ def main() -> int:
             "phase_us": {b: {k: round(v, 3) for k, v in sp.items()} for b, sp in rans[8]["split"].items()},
             "single_frame_ns_per_step": rans[1]["ns_step"],
             "ns_per_step": rans[8]["ns_step"],
+        },
+        {
+            "name": "rans_decode",
+            "route": "cuda",
+            "source": "rpcc_tpu_torch/csrc/rans_decode.cu",
+            "replaces": "rpcc_tpu/ops/rans.py:224 (rans_decode_ctx, through decode_streams_batch_ctx :399; XLA, "
+                        "not Pallas)",
+            "launches": dec["launches"],
+            "launches_per_batch": dec["launches"] / dec["batches"],
+            "launches_per_points_encode": points_launches["rans_decode"],
+            "max_abs_err": dec["err"],
+            "shape": dec[8]["shape"],
+            "ms": dec[8]["ms"],
+            "ms_10_back_to_back": dec[8]["b2b"],
+            "plain_ms": dec[8]["plain_ms"],
+            "bound_ms": dec[8]["bound"][0],
+            "bound_by": dec[8]["bound"][1],
+            "library_ms": None,
+            "host_native_ms": dec[8]["host_ms"],
+            "fields": {f: {k: dec[8][f][k] for k in ("ms", "b2b", "tables_ms", "plain_ms", "host_ms")}
+                       for f in ("residual", "contour")},
+            "single_frame_shape": dec[1]["shape"],
+            "single_frame_ms": dec[1]["ms"],
+            "single_frame_ms_10_back_to_back": dec[1]["b2b"],
+            "single_frame_plain_ms": dec[1]["plain_ms"],
+            "single_frame_bound_ms": dec[1]["bound"][0],
+            "single_frame_host_native_ms": dec[1]["host_ms"],
+            "single_frame_fields": {f: {k: dec[1][f][k] for k in ("ms", "b2b", "tables_ms", "plain_ms", "host_ms")}
+                                    for f in ("residual", "contour")},
+            "single_frame_phase_us": {f: {"call": dec[1][f]["ms"] * 1e3, "tables_and_launch": dec[1][f]["tables_ms"] * 1e3}
+                                      for f in ("residual", "contour")},
+            "phase_us": {f: {"call": dec[8][f]["ms"] * 1e3, "tables_and_launch": dec[8][f]["tables_ms"] * 1e3}
+                         for f in ("residual", "contour")},
+            "single_frame_ns_per_step": {f: dec[1][f]["ms"] * 1e6 / dec[1][f]["steps"] for f in ("residual", "contour")},
+            "ns_per_step": {f: dec[8][f]["ms"] * 1e6 / dec[8][f]["steps"] for f in ("residual", "contour")},
+            "engine_decode_ms": {"cpu": dec["engine_cpu_ms"], "default": dec["engine_default_ms"]},
         },
     ]}))
     print(json.dumps({"ok": True, "device": {

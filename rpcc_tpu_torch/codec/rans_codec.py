@@ -1,11 +1,18 @@
-"""The ``rans`` entropy containers, JAX-free (native C++ coder only).
+"""The ``rans`` entropy containers, JAX-free.
 
-A copy of the native-library paths of ``rpcc_tpu/codec/rans_codec.py``,
-single-frame and batch entry points; for the same inputs every container
-is byte-identical to that module's.  That module imports jax for its
-fallback kernels; this one uses only the port's native host library
-(``csrc/host/rans.cpp``, a copy of the reference's) and raises if the
-library cannot be built.
+A copy of ``rpcc_tpu/codec/rans_codec.py``'s single-frame and batch entry
+points; for the same inputs every container and every decoded field is
+byte-identical to that module's.  Encoding runs on the port's native host
+library (``csrc/host/rans.cpp``, a copy of the reference's), which raises
+if it cannot be built.  Decoding reads ``RPCC_RANS_DEVICE`` as the
+reference does: ``cpu`` (the default) decodes on that library; any other
+value (``default``) decodes each field group (the residual containers of
+one kind and lane count, or a batch's contours) with one launch of the CUDA
+decode kernel (``csrc/rans_decode.cu`` through ``ops/rans_device.py``) and
+raises without a CUDA device.  The batch decoders' ``device=`` names a device
+instead (``"cpu"``: the kernel's plain version, through the same
+container path).  Either way the host assembles the lanes and the native
+tails finalize the symbols.
 
 The batch coders size a batch's lanes from its longest frame, as the
 reference's do, so a frame's container can depend on its neighbours;
@@ -17,6 +24,8 @@ Containers (little-endian):
       u8 magic u8 log2(lanes) u16 T u32 n i32 q0 | u32 n_esc [u32 esc...]
       | NUM_CTX compact freq tables | u32 states[L] u16 counts[L]
       | u16 words[sum(counts)] | u8 dtype
+  'D' the same with one table and order-0 rANS (decoded, never emitted,
+      as in the reference)
   'Z' bzip2 over the zigzag-delta stream (small fields only)
   'N' contour bits: diagonal wavefront layout, 4-context binary model
   '8' zlib over the u8 view of a u16 field whose values fit a byte
@@ -26,14 +35,16 @@ Containers (little-endian):
 from __future__ import annotations
 
 import bz2
+import os
 import struct
 import zlib
-from typing import List, Sequence
+from typing import List, NamedTuple, Sequence
 
 import numpy as np
 
 from rpcc_tpu_torch.codec import rans_native
 
+MAGIC_DELTA = 0x44  # 'D'
 MAGIC_CTX = 0x43  # 'C'
 MAGIC_BZD = 0x5A  # 'Z'
 MAGIC_BITS = 0x4E  # 'N'
@@ -49,6 +60,25 @@ BZD_TRY_MAX_SYMBOLS = 32768
 CONTOUR_BZ_TRY_MAX_PIXELS = 65536
 
 _CODE_DTYPE = {0: np.int16, 1: np.uint16, 2: np.int32}
+
+# Where the rANS decode runs: "cpu" (default) the native host decoder; any
+# other value ("default") the card, as the reference reads it.
+_RANS_DEVICE = os.environ.get("RPCC_RANS_DEVICE", "cpu")
+
+
+def _decode_device(device):
+    """The device a batch decode runs on: ``device`` when given, else None
+    (the native decoder) under ``RPCC_RANS_DEVICE=cpu`` and the CUDA device
+    under any other value, which raises without one."""
+    if device is not None:
+        return device
+    if _RANS_DEVICE == "cpu":
+        return None
+    import torch
+
+    if not torch.cuda.is_available():
+        raise RuntimeError(f"RPCC_RANS_DEVICE={_RANS_DEVICE} decodes on the CUDA device, and there is none")
+    return "cuda"
 
 
 def _lanes_for(n: int) -> int:
@@ -129,7 +159,7 @@ def decompress(blob: bytes) -> bytes:
         return np.frombuffer(zlib.decompress(blob[1:]), np.uint8).astype(np.uint16).tobytes()
     if blob[0] == MAGIC_BITS:
         return decompress_contour(blob)
-    if blob[0] in (MAGIC_CTX, MAGIC_BZD):
+    if blob[0] in (MAGIC_DELTA, MAGIC_CTX, MAGIC_BZD):
         return decompress_delta(blob)
     raise ValueError("unknown rans container magic")
 
@@ -232,9 +262,29 @@ def decompress_contour(blob: bytes) -> bytes:
     return decompress_contour_batch([blob])[0]
 
 
-def decompress_contour_batch(blobs: Sequence[bytes]) -> List[bytes]:
+def decompress_contour_batch(blobs: Sequence[bytes], device=None) -> List[bytes]:
     """Decode a batch of 'N' contour containers of one geometry in one
-    native call."""
+    native call or kernel launch (``device``: see :func:`_decode_device`)."""
+    lanes, H, W = contour_lanes(blobs)
+    T = lanes.words.shape[2]
+    sym = decode_lanes(lanes, _decode_device(device))
+    packed = rans_native.contour_finalize_frames(sym.reshape(len(blobs), H, T), H, W, T)
+    return [packed[i].tobytes() for i in range(len(blobs))]
+
+
+class Lanes(NamedTuple):
+    """One field group's containers laid out for a batch decode."""
+
+    words: np.ndarray  # (B, L, T) u16, lane l's first counts[l] words
+    counts: np.ndarray  # (B, L) int32
+    states: np.ndarray  # (B, L) u32
+    lives: np.ndarray  # (B, L) int32 live steps per lane
+    freqs: np.ndarray  # (B, C, A) int32
+    mode: int  # rans_native.MODE_*: the contexts
+
+
+def contour_lanes(blobs: Sequence[bytes]):
+    """-> (Lanes, H, W) of a batch of 'N' containers of one geometry."""
     B = len(blobs)
     heads = [struct.unpack_from("<BHHH", b, 0) for b in blobs]
     T, H, W = heads[0][1:]
@@ -257,9 +307,7 @@ def decompress_contour_batch(blobs: Sequence[bytes]) -> List[bytes]:
         counts[i] = np.frombuffer(blob, "<u2", H, off)
         off += 2 * H
         words[i] = _unpack_lane_words(blob, off, counts[i], T)
-    sym = rans_native.decode_ctx_batch(words, counts, states, freqs, T, rans_native.MODE_WAVEFRONT)
-    packed = rans_native.contour_finalize_frames(sym.reshape(B, H, T), H, W, T)
-    return [packed[i].tobytes() for i in range(B)]
+    return Lanes(words, counts, states, np.full((B, H), T, np.int32), freqs, rans_native.MODE_WAVEFRONT), H, W
 
 
 def _unpack_lane_words(blob: bytes, off: int, counts: np.ndarray, T: int) -> np.ndarray:
@@ -275,19 +323,33 @@ def _unpack_lane_words(blob: bytes, off: int, counts: np.ndarray, T: int) -> np.
     return words
 
 
-def batch_decode_big_fields(packed: Sequence[dict]):
+def batch_decode_big_fields(packed: Sequence[dict], device=None):
     """Batch-decode the residual and contour fields of a blob batch:
     ``(resid_bytes | None, contour_bytes | None)``, one entry per frame, or
     None for a field some frame codes with another container (plain bzip2
     of a small field); the caller then decodes each frame on its own."""
     resid = None
-    if all(p["residual_quantized"][0] in (MAGIC_CTX, MAGIC_BZD) for p in packed):
-        resid = decompress_delta_batch([p["residual_quantized"] for p in packed])
+    if all(p["residual_quantized"][0] in (MAGIC_DELTA, MAGIC_CTX, MAGIC_BZD) for p in packed):
+        resid = decompress_delta_batch([p["residual_quantized"] for p in packed], device=device)
     cms = [p["contour_map"] for p in packed]
     contour = None
     if cms and all(len(c) > 0 and c[0] == MAGIC_BITS for c in cms):
-        contour = decompress_contour_batch(cms)
+        contour = decompress_contour_batch(cms, device=device)
     return resid, contour
+
+
+def decode_lanes(lanes: Lanes, device=None) -> np.ndarray:
+    """(B, L*T) int32 symbols of one field group: the native decoder
+    (``device`` None) or one launch on ``device``.  Every table must sum to
+    M, as every encoder's does."""
+    if (lanes.freqs.sum(-1) != rans_native.M).any():
+        raise ValueError(f"corrupt rans container: a frequency table does not sum to {rans_native.M}")
+    if device is None:
+        return rans_native.decode_ctx_batch(lanes.words, lanes.counts, lanes.states, lanes.freqs,
+                                            lanes.words.shape[2], lanes.mode, lives=lanes.lives)
+    from rpcc_tpu_torch.ops import rans_device
+
+    return rans_device.decode_streams_device(*lanes[:5], lanes.mode, device).cpu().numpy()
 
 
 # --------------------------------------------------------- delta containers
@@ -430,7 +492,9 @@ def compress_delta_batch(arrays: Sequence[np.ndarray]) -> List[bytes]:
 
 
 def _parse_delta(blob: bytes):
-    _, log_lanes, T, n, q0 = struct.unpack_from("<BBHIi", blob, 0)
+    """A 'C' or 'D' container's pieces: (magic, lanes, T, n, q0, escapes,
+    freqs (NUM_CTX or 1, ALPHABET), states, counts, words (L, T), dtype code)."""
+    magic, log_lanes, T, n, q0 = struct.unpack_from("<BBHIi", blob, 0)
     if (1 << log_lanes) > MAX_LANES:
         raise ValueError(f"corrupt delta container: lanes=2^{log_lanes} > {MAX_LANES}")
     lanes = 1 << log_lanes
@@ -441,8 +505,8 @@ def _parse_delta(blob: bytes):
     off += 4
     escapes = np.frombuffer(blob, "<u4", n_esc, off).astype(np.int64)
     off += 4 * n_esc
-    freqs = np.zeros((NUM_CTX, ALPHABET), np.int32)
-    for c in range(NUM_CTX):
+    freqs = np.zeros((NUM_CTX if magic == MAGIC_CTX else 1, ALPHABET), np.int32)
+    for c in range(freqs.shape[0]):
         freqs[c], off = _unpack_table(blob, off, ALPHABET)
     states = np.frombuffer(blob, "<u4", lanes, off).astype(np.uint32)
     off += 4 * lanes
@@ -451,46 +515,61 @@ def _parse_delta(blob: bytes):
     words = _unpack_lane_words(blob, off, counts, T)
     off += 2 * int(counts.sum())
     (dt_code,) = struct.unpack_from("<B", blob, off)
-    return lanes, T, n, q0, escapes, freqs, states, counts, words, dt_code
+    return magic, lanes, T, n, q0, escapes, freqs, states, counts, words, dt_code
 
 
 def decompress_delta(blob: bytes) -> bytes:
-    """Decode one delta container ('C' or 'Z')."""
+    """Decode one delta container ('C', 'D' or 'Z')."""
     return decompress_delta_batch([blob])[0]
 
 
-def decompress_delta_batch(blobs: Sequence[bytes]) -> List[bytes]:
-    """Decode a batch of delta containers, the rANS ones of one lane count
-    in one native call (mixed T decode at the largest; each frame's
-    symbols are its own)."""
+def decompress_delta_batch(blobs: Sequence[bytes], device=None) -> List[bytes]:
+    """Decode a batch of delta containers, the rANS ones of one kind and
+    lane count in one native call or kernel launch (``device``: see
+    :func:`_decode_device`; mixed T decode at the largest, each frame's
+    symbols its own)."""
     out: List[bytes] = [b""] * len(blobs)
     groups: dict = {}
     for i, b in enumerate(blobs):
         if b[0] == MAGIC_BZD:
             out[i] = _decompress_bzd(b)
-        elif b[0] == MAGIC_CTX:
+        elif b[0] in (MAGIC_CTX, MAGIC_DELTA):
             p = _parse_delta(b)
-            groups.setdefault(p[0], []).append((i, p))
+            groups.setdefault(p[:2], []).append((i, p))
         else:
             raise ValueError("unknown delta container magic")
-    for lanes, items in groups.items():
+    dev = _decode_device(device) if groups else None
+    for items in groups.values():
         parsed = [p for _, p in items]
-        T_max = max(p[1] for p in parsed)
-        B = len(parsed)
-        words = np.zeros((B, lanes, T_max), np.uint16)
-        for k, p in enumerate(parsed):
-            words[k, :, : p[1]] = p[8]
-        counts = np.stack([p[7] for p in parsed])
-        states = np.stack([p[6] for p in parsed])
-        lives = np.stack([np.clip(p[2] - np.arange(lanes) * p[1], 0, p[1]) for p in parsed]).astype(np.int32)
-        freqs = np.stack([p[5] for p in parsed])  # (B, C, A)
-        sym = rans_native.decode_ctx_batch(
-            words, counts, states, freqs, T_max, rans_native.MODE_ZIGZAG, lives=lives
-        )
+        lanes = _delta_lanes(parsed)
+        sym = decode_lanes(lanes, dev)
         outs = rans_native.delta_finalize_frames_3d(
-            sym.reshape(B, lanes, T_max), ALPHABET, [p[1] for p in parsed], [p[2] for p in parsed],
-            [p[3] for p in parsed], [p[4] for p in parsed], [p[9] for p in parsed],
+            sym.reshape(lanes.words.shape), ALPHABET, [p[2] for p in parsed], [p[3] for p in parsed],
+            [p[4] for p in parsed], [p[5] for p in parsed], [p[10] for p in parsed],
         )
         for (i, _), o in zip(items, outs):
             out[i] = o.tobytes()
     return out
+
+
+def _delta_lanes(parsed) -> Lanes:
+    """The lanes of parsed 'C' or 'D' containers of one kind and lane
+    count, at the largest T (each frame's words and lives at its own T)."""
+    magic, L = parsed[0][:2]
+    T_max = max(p[2] for p in parsed)
+    words = np.zeros((len(parsed), L, T_max), np.uint16)
+    for k, p in enumerate(parsed):
+        words[k, :, : p[2]] = p[9]
+    lives = np.stack([np.clip(p[3] - np.arange(L) * p[2], 0, p[2]) for p in parsed]).astype(np.int32)
+    mode = rans_native.MODE_ZIGZAG if magic == MAGIC_CTX else rans_native.MODE_ORDER0
+    return Lanes(words, np.stack([p[8] for p in parsed]), np.stack([p[7] for p in parsed]), lives,
+                 np.stack([p[6] for p in parsed]), mode)
+
+
+def delta_lanes(blobs: Sequence[bytes]) -> Lanes:
+    """The lanes of 'C' or 'D' containers of one kind and lane count, as
+    :func:`decompress_delta_batch` decodes them."""
+    parsed = [_parse_delta(b) for b in blobs]
+    if len({p[:2] for p in parsed}) != 1:
+        raise ValueError("delta_lanes takes containers of one kind and lane count")
+    return _delta_lanes(parsed)

@@ -1,5 +1,7 @@
-"""Device rANS encode of the two big bitstream fields: plain PyTorch version
-+ the CUDA kernel's wrapper (port of ``rpcc_tpu/ops/rans_device.py``).
+"""Device rANS coding of the two big bitstream fields: the encode's plain
+PyTorch version + the CUDA kernel's wrapper (port of
+``rpcc_tpu/ops/rans_device.py``), and the decode kernel's wrapper beside
+its plain version (``ops/rans.py``'s decoders).
 
 The engine's default path (``cfg.device_entropy`` with the ``rans`` coder)
 entropy-codes the residual stream and the contour plane on the device and
@@ -30,6 +32,12 @@ would wrap it negative.
 versions for CPU tensors, one launch of the hand-written kernel
 (``csrc/rans.cu``) for CUDA tensors.  A CUDA tensor never falls back to the
 plain version: if the kernel cannot build or launch, the call raises.
+
+:func:`decode_streams_device` decodes host-assembled containers' lanes
+(one field group: residual lanes with zigzag or order-0 contexts, or
+wavefront contour lanes) on a device: one launch of ``csrc/rans_decode.cu``
+for CUDA, the plain decoders of :mod:`rpcc_tpu_torch.ops.rans` for the
+CPU, with the same rule.
 """
 
 from __future__ import annotations
@@ -38,9 +46,13 @@ import ctypes
 import functools
 from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
-from rpcc_tpu_torch.ops.rans import M, RANS_L, cumulative, normalize_freqs, wavefront_bit_context, zigzag_magnitude_context
+from rpcc_tpu_torch.ops.rans import (
+    M, RANS_L, RansCode, cumulative, decode_streams_batch_ctx, normalize_freqs, wavefront_bit_context,
+    zero_context, zigzag_magnitude_context,
+)
 
 RESID_LANES = 32  # = codec/rans_codec.py MAX_LANES: a container field
 ESC_CAP_DEV = 512  # per-frame escape capacity; past it the frame is coded on the host
@@ -388,3 +400,131 @@ def encode_residual_field_device(q: torch.Tensor, stream_len: torch.Tensor) -> R
 def encode_contour_field_device(contour: torch.Tensor) -> ContourPieces:
     """The contour pieces alone (:func:`encode_fields_device`)."""
     return encode_fields_device(None, None, contour)[1]
+
+
+# ------------------------------------------------------------------ decode
+# Context models of a field group (= codec/rans_native.py's decode modes):
+# the residual 'C' container's zigzag contexts, the contour 'N' container's
+# wavefront contexts, the order-0 'D' container's single table.
+MODE_ZIGZAG, MODE_WAVEFRONT, MODE_ORDER0 = 0, 1, 2
+_DECODE_CTX = {MODE_ZIGZAG: zigzag_magnitude_context, MODE_WAVEFRONT: wavefront_bit_context, MODE_ORDER0: zero_context}
+_DECODE_TABLES = {MODE_ZIGZAG: NUM_CTX, MODE_WAVEFRONT: 4, MODE_ORDER0: 1}  # contexts C of the (B, C, A) freqs
+# Launches of the decode kernel since the count was last reset (one per call
+# of :func:`decode_streams_cuda`).
+DECODE_LAUNCHES = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _decode_library():
+    from rpcc_tpu_torch.ops.cuda_build import load_cuda_library
+
+    lib = load_cuda_library("rans_decode.cu")
+    lib.rpcc_rans_decode_launch.restype = ctypes.c_int
+    lib.rpcc_rans_decode_launch.argtypes = (
+        [ctypes.c_void_p] * 6  # words, counts, states, lives, freqs, out
+        + [ctypes.c_int] * 6  # B, L, T, C, A, mode
+        + [ctypes.c_void_p]  # stream
+    )
+    return lib
+
+
+def _decode_kernel():
+    return _decode_library().rpcc_rans_decode_launch
+
+
+def _check_decode(words, counts, states, lives, freqs, mode: int) -> None:
+    if mode not in _DECODE_CTX:
+        raise ValueError(f"unknown decode mode {mode}")
+    for name, t, dt in (("words", words, torch.int16), ("counts", counts, torch.int32), ("states", states, torch.int64),
+                        ("lives", lives, torch.int32), ("freqs", freqs, torch.int32)):
+        if t.dtype != dt:
+            raise TypeError(f"{name} must be {dt}, got {t.dtype}")
+    if words.ndim != 3 or min(words.shape) < 1:
+        raise ValueError(f"expected (B, L, T) words with B, L, T >= 1, got {tuple(words.shape)}")
+    B, L, _ = words.shape
+    if any(t.shape != (B, L) for t in (counts, states, lives)):
+        raise ValueError(f"counts, states and lives must be ({B}, {L}), got "
+                         f"{[tuple(t.shape) for t in (counts, states, lives)]}")
+    C = _DECODE_TABLES[mode]
+    if freqs.ndim != 3 or freqs.shape[:2] != (B, C) or freqs.shape[2] < 1 or (mode == MODE_WAVEFRONT and freqs.shape[2] != 2):
+        raise ValueError(f"mode {mode} needs ({B}, {C}, A) freqs{' with A = 2' if mode == MODE_WAVEFRONT else ''}, "
+                         f"got {tuple(freqs.shape)}")
+    if any(t.device != words.device for t in (counts, states, lives, freqs)):
+        raise ValueError("words, counts, states, lives and freqs must share a device")
+
+
+def check_decode_fits_kernel(L: int, A: int, mode: int) -> None:
+    """Raises unless the CUDA decode kernel takes L lanes of an A-symbol
+    alphabet in ``mode`` (the plain version has no such limits): a residual
+    field's lanes are one warp, a contour's rows a block."""
+    if mode == MODE_WAVEFRONT:
+        if L > MAX_CONTOUR_ROWS:
+            raise ValueError(f"the decode kernel takes at most {MAX_CONTOUR_ROWS} contour rows, got {L}")
+    elif L > RESID_LANES or A > ALPHABET:
+        raise ValueError(f"the decode kernel takes at most {RESID_LANES} lanes of at most {ALPHABET} symbols, "
+                         f"got {L} lanes of {A}")
+
+
+def decode_streams_plain(words, counts, states, lives, freqs, mode: int) -> torch.Tensor:
+    """Plain version: (B, L, T) words (u16 in int16), (B, L) int32 counts
+    and lives, int64 u32 states, (B, C, A) int32 freqs -> (B, L*T) int32
+    symbols, decoded with ``mode``'s contexts."""
+    _check_decode(words, counts, states, lives, freqs, mode)
+    return decode_streams_batch_ctx(RansCode(words, counts, states), freqs, words.shape[2],
+                                    ctx_fn=_DECODE_CTX[mode], lives=lives)
+
+
+def decode_streams_cuda(words, counts, states, lives, freqs, mode: int) -> torch.Tensor:
+    """The CUDA decode kernel on contiguous CUDA tensors of
+    :func:`decode_streams_plain`'s types: one launch on the current stream
+    (no synchronize) -> (B, L*T) int32; raises on any other input.  The
+    kernel reads each frequency as u16 (the wire's type) and equals the
+    plain version for frequencies in [0, 2^16)."""
+    global DECODE_LAUNCHES
+    tensors = (words, counts, states, lives, freqs)
+    _check_decode(*tensors, mode)
+    dev = words.device
+    if dev.type != "cuda":
+        raise ValueError(f"decode_streams_cuda needs CUDA tensors, got {dev}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("words, counts, states, lives and freqs must be contiguous")
+    B, L, T = words.shape
+    C, A = freqs.shape[1:]
+    check_decode_fits_kernel(L, A, mode)
+    fn = _decode_kernel()
+    with torch.cuda.device(dev):
+        out = torch.empty((B, L, T), dtype=torch.int32, device=dev)
+        err = fn(*(t.data_ptr() for t in tensors), out.data_ptr(), B, L, T, C, A, mode,
+                 torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"rANS decode kernel launch failed: cudaError_t {err}")
+    DECODE_LAUNCHES += 1
+    return out.reshape(B, L * T)
+
+
+def upload_decode_lanes(words: np.ndarray, counts: np.ndarray, states: np.ndarray, lives: np.ndarray,
+                        freqs: np.ndarray, device) -> Tuple[torch.Tensor, ...]:
+    """Host-assembled lanes of one field group ((B, L, T) u16 words, (B, L)
+    counts, u32 states and live steps, (B, C, A) freqs) -> contiguous
+    tensors on ``device`` of the decoders' types."""
+
+    def up(a, dt):
+        return torch.from_numpy(np.ascontiguousarray(a, dt)).to(device)
+
+    return (up(np.ascontiguousarray(words, np.uint16).view(np.int16), np.int16), up(counts, np.int32),
+            up(states, np.int64), up(lives, np.int32), up(freqs, np.int32))
+
+
+def decode_streams_device(words: np.ndarray, counts: np.ndarray, states: np.ndarray, lives: np.ndarray,
+                          freqs: np.ndarray, mode: int, device) -> torch.Tensor:
+    """Host-assembled lanes of one field group (:func:`upload_decode_lanes`)
+    uploaded to ``device`` and decoded there: one kernel launch for a CUDA
+    device, the plain version for the CPU -> (B, L*T) int32 symbols on
+    ``device``."""
+    device = torch.device(device)
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {device}")
+    args = upload_decode_lanes(words, counts, states, lives, freqs, device)
+    if device.type == "cuda":
+        return decode_streams_cuda(*args, mode)
+    return decode_streams_plain(*args, mode)
