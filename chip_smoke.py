@@ -144,6 +144,20 @@ Phases (each raises on failure, and the process then exits nonzero):
      timed on phase 6's first batch at B = 1 and 8 beside the byte bound
      and a modelled chain floor, the codec's and the engine's decode on
      both backends;
+  3g. (run after 3f) the rANS encode kernel on the host containers' path
+     (``RPCC_RANS_DEVICE=default``, set in a block): phase 4's and 4b's
+     single-frame blobs, the engine's ``--no-device_entropy`` blobs of
+     phase 6's first batch and the host-encode test's edge fields (stream
+     lengths 0 to 128,000, lanes 1 / 2 / 8 / 32, int32 deltas of
+     +-(2^31 - 1), 513 escapes, a u16 run field) byte-equal to the cpu
+     backend's, one launch per batch call (a field, a lane-geometry group
+     or a contour batch), a mixed small / big batch equal to the plain
+     version's bytes (the reference's default bytes) and a 513-row contour
+     raising; the kernel at the host geometry against its plain version,
+     timed on phase 6's first batch at B = 1 and 8 (both fields in one
+     launch, each alone, 10 back to back) beside the byte bound, the encode
+     calls on both backends and the native host encode of the same batch,
+     and a 1,000-symbol field (16 lanes);
   7. the datalist CLIs in subprocesses: ``compress_datalist --batch 4
      --device cuda`` on 10 frames at the default (device entropy) and with
      ``--no-device_entropy``, the latter equal to the single-frame codec per
@@ -926,7 +940,7 @@ def rans_decode_bound(lanes_list):
 
 @contextlib.contextmanager
 def rans_backend(name: str):
-    """The port's codec decoding with ``RPCC_RANS_DEVICE=name`` in the block."""
+    """The port's codec coding with ``RPCC_RANS_DEVICE=name`` in the block."""
     from rpcc_tpu_torch.codec import rans_codec
 
     old, rans_codec._RANS_DEVICE = rans_codec._RANS_DEVICE, name
@@ -1174,6 +1188,221 @@ def phase_rans_decode(torch, np, dev, card, lidar, codec, frames, eng):
     print(f"[phase 3f] [{card}] engine decode_range_images of phase 6's first batch (B={B}), median of {RATE_PASSES}: "
           f"cpu backend {cpu_ms:.3f} ms, default backend {dev_ms:.3f} ms; the native rANS decode of its two fields "
           f"{out[B]['host_ms']:.3f} ms = {out[B]['host_ms'] / cpu_ms:.3f} of the cpu backend's decode")
+    return out
+
+
+# ------------------------------------------------------------------ 3g: rANS encode, host path
+def walk(np, n: int, seed: int = 0, dtype="int16", step: int = 3):
+    """A random walk of n integers (the host-encode test's fields)."""
+    return np.cumsum(np.random.default_rng(seed).integers(-step, step + 1, n)).astype(dtype)
+
+
+def host_edge_fields(np):
+    """(what, arrays, lanes) batches of tests/test_torch_rans_host_encode.py's
+    edge fields: stream lengths around every lane-count and 'Z' boundary,
+    explicit lane counts, int32 deltas of +-(2^31 - 1), 513 escapes and a
+    u16 run field; the mixed small / big batch is apart (its bytes are the
+    reference's default bytes, not the native backend's)."""
+    rng = np.random.default_rng(11)
+    wide = np.zeros(3000, np.int32)
+    wide[1::2] = 2**31 - 1  # deltas of +-(2^31 - 1): the widest a delta container takes
+    spiky = walk(np, 40000, 12)
+    spiky[100:100 + 2 * 256:2] += rng.integers(3000, 9000, 256).astype(np.int16)  # two escapes a spike
+    spiky[30000:] += 5000  # and one step: 513
+    seq = np.repeat(rng.integers(0, 300, 400), rng.integers(1, 30, 400)).astype(np.uint16)
+    out = [(f"n {n}", [walk(np, n, n)], None) for n in (0, 1, 64, 65, 1024, 1025, 32768, 32769, 128000)]
+    out += [(f"lanes {L}", [walk(np, 8000, L, step=1), walk(np, 500, L, step=1)], L) for L in (1, 2, 8, 32)]
+    out += [("int32 deltas +-(2^31 - 1)", [wide], None), ("513 escapes", [spiky], None), ("u16 run field", [seq], None)]
+    return out
+
+
+def host_rans_bound(lens, L: int, T: int, n_contours: int, H: int, W: int):
+    """The host path's encode at its geometry: each stream's int32 symbols
+    and its length read once, the pieces written once (u16 words over L
+    lanes x T, lane counts and u64-held states, 4 x 512 i32 tables, 512
+    u64-held escapes, 4 scalars); each contour's H x W int32 plane read
+    once and its pieces (H lanes x contour_T words, counts, states, 8
+    tables) written once.  Bytes only, as rans_bound."""
+    from rpcc_tpu_torch.ops.rans_device import contour_T
+
+    res = sum(4 * n + 4 + 2 * L * T + 12 * L + 4 * 4 * 512 + 8 * 512 + 12 for n in lens)
+    cnt = n_contours * (4 * H * W + 2 * H * contour_T(H, W) + 12 * H + 4 * 8 + 4)
+    return bound(0.0, float(res + cnt))
+
+
+def phase_rans_host(torch, np, dev, card, lidar, codec, frames):
+    """3g: ``RPCC_RANS_DEVICE=default`` encodes the host containers on the
+    card: bytes against the native backend's, one launch per batch call,
+    and the kernel at the host geometry, the encode calls and the native
+    host encode of the same batch timed."""
+    from rpcc_tpu_torch.codec import rans_codec, rans_native
+    from rpcc_tpu_torch.config import CodecConfig
+    from rpcc_tpu_torch.data.synth import synth_cloud_for
+    from rpcc_tpu_torch.models.pipeline import RPCCCodec
+    from rpcc_tpu_torch.ops import rans_device as rd
+    from rpcc_tpu_torch.ops.projection_host import build_transform_map
+    from rpcc_tpu_torch.parallel.engine import BatchEngine
+
+    def rans_fields(fields):  # the fields a single-frame encode codes with one batch call each
+        return sum(1 for k, v in fields.items() if k != "contour_map" and v.dtype in (np.int16, np.uint16, np.int32)) + 1
+
+    counted = {"launches": 0, "calls": 0}  # over every counted run below: kernel launches and batch calls
+
+    def count(launches, calls):
+        counted["launches"] += launches
+        counted["calls"] += calls
+
+    # Single-frame blobs of phases 4 (the main path) and 4b (DBSCAN mode).
+    tm = build_transform_map(lidar)
+    for tag, cfg, clouds in (("default", CodecConfig(), {s: frames[s] for s in SEEDS}),
+                             ("DBSCAN", CodecConfig(segment_method="DBSCAN"),
+                              {s: scene_cloud(np, tm, s) for s in MODE_SEEDS})):
+        c = codec if tag == "default" else RPCCCodec(lidar, cfg, dev)
+        for s, pc in clouds.items():
+            with rans_backend("cpu"):
+                want, fields, _ = c.compress(pc)
+            with rans_backend("default"):
+                rd.LAUNCHES = 0
+                got = c.compress(pc)[0]
+                launches = rd.LAUNCHES
+            check(got == want, f"{tag} seed {s}: the default backend's blob differs from the cpu backend's")
+            check(launches == rans_fields(fields), f"{tag} seed {s}: {launches} rANS launches for "
+                  f"{rans_fields(fields)} coded fields")
+            count(launches, rans_fields(fields))
+            print(f"[phase 3g] {tag} seed {s} blob under RPCC_RANS_DEVICE=default == cpu backend's, sha256 "
+                  f"{hashlib.sha256(got).hexdigest()}, {launches} rANS launches (one a field)")
+
+    # The engine's host-entropy path on phase 6's first batch.
+    seeds8 = BATCH_SEEDS[:8]
+    clouds8 = [synth_cloud_for(lidar, s) for s in seeds8]
+    engine = BatchEngine(lidar, CodecConfig(device_entropy=False), dev, batch_size=8)
+    try:
+        with rans_backend("cpu"):
+            want = engine.encode_frames(clouds8, seeds8)
+        with rans_backend("default"):
+            rd.LAUNCHES = 0
+            got = engine.encode_frames(clouds8, seeds8)
+            launches = rd.LAUNCHES
+    finally:
+        engine.close()
+    check([b for b, _ in got] == [b for b, _ in want], "the engine's host-entropy blobs differ between the backends")
+    groups = len({rans_codec._geometry(f["residual_quantized"].size) for _, f in want})
+    check(launches == groups + 1 + len(seeds8), f"{launches} rANS launches for the engine's batch, expected "
+          f"{groups} residual groups + 1 contour batch + {len(seeds8)} sequences")
+    count(launches, groups + 1 + len(seeds8))
+    print(f"[phase 3g] engine (B=8, --no-device_entropy) under RPCC_RANS_DEVICE=default: blobs == cpu backend's, "
+          f"{launches} rANS launches ({groups} residual lane geometries, 1 contour batch, {len(seeds8)} sequence fields)")
+
+    # The tests' edge fields, and the mixed small / big batch.
+    for what, arrays, lanes in host_edge_fields(np):
+        with rans_backend("cpu"):
+            want = rans_codec.compress_delta_batch(arrays, lanes=lanes)
+            want_c = [rans_codec.compress(a, lanes=lanes) for a in arrays]
+        with rans_backend("default"):
+            rd.LAUNCHES = 0
+            got = rans_codec.compress_delta_batch(arrays, lanes=lanes)
+            got_c = [rans_codec.compress(a, lanes=lanes) for a in arrays]
+            check(rd.LAUNCHES == 1 + len(arrays), f"{what}: {rd.LAUNCHES} launches for {1 + len(arrays)} calls")
+            count(rd.LAUNCHES, 1 + len(arrays))
+        check(got == want and got_c == want_c, f"the default backend's containers differ on {what}")
+        print(f"[phase 3g] default backend == cpu backend on {what}: {[chr(b[0]) for b in got]}, "
+              f"{[len(b) for b in got]} bytes")
+    mixed = [walk(np, 20000, 7, step=1), walk(np, 40000, 8)]
+    with rans_backend("cpu"):
+        cpu_mixed = rans_codec.compress_delta_batch(mixed)
+        one_geometry = rans_codec._compress_delta_batch_np(mixed)  # the reference's default recipe, native coder
+    with rans_backend("default"):
+        got = rans_codec.compress_delta_batch(mixed)
+    check(got == one_geometry and got != cpu_mixed, "the mixed batch: default bytes differ from the native coder's "
+          "at one geometry, or equal the native path's")
+    print(f"[phase 3g] mixed batch (20000 + 40000): default == the native coder's at one geometry (the reference's "
+          f"default bytes), {[len(b) for b in got]} vs the native path's {[len(b) for b in cpu_mixed]} bytes")
+    tall = np.packbits(np.zeros(rd.MAX_CONTOUR_ROWS + 1, np.uint8))
+    with rans_backend("default"):
+        try:
+            rans_codec.compress_contour(tall, rd.MAX_CONTOUR_ROWS + 1, 1)
+        except ValueError as e:
+            print(f"[phase 3g] the default backend raises on a contour of {rd.MAX_CONTOUR_ROWS + 1} rows: {e}")
+        else:
+            raise RuntimeError("the default backend coded a contour past the kernel's rows")
+
+    # Times on phase 6's first batch: the kernel at the host geometry, the
+    # encode calls on both backends, the native host encode of the batch.
+    fields8 = [codec.compress(pc, seed=s)[1] for pc, s in zip(clouds8, seeds8)]
+    streams = [f["residual_quantized"] for f in fields8]
+    packed = [f["contour_map"] for f in fields8]
+    H, W = lidar.height, lidar.width
+    T_c = rd.contour_T(H, W)
+    out = dict(counted)
+    print(f"[phase 3g] {counted['launches']} rANS launches over {counted['calls']} batch calls under "
+          f"RPCC_RANS_DEVICE=default")
+    for B in (1, 8):
+        sb, pb = streams[:B], packed[:B]
+        L, T = rans_codec._geometry(max(a.size for a in sb))
+        q, n = rd.upload_streams(sb, dev)
+        cont = rd.upload_contours(np.stack(pb), H, W, dev)
+        got = rd.encode_streams_cuda(q, n, L, T)
+        want = rd.encode_streams_plain(q, n, L, T)
+        got_c, want_c = rd.encode_fields_cuda(None, None, cont)[1], rd.encode_contour_field_plain(cont)
+        torch.cuda.synchronize()
+        err = max(int((a.long() - b.long()).abs().max()) for a, b in zip(list(got) + list(got_c), list(want) + list(want_c)))
+        check(err == 0, f"the rANS kernel at the host geometry (B={B}, L={L}, T={T}) differs from the plain version")
+        res_ms = median_ms(torch, lambda: rd.encode_streams_cuda(q, n, L, T))
+        res_b2b = median_ms(torch, lambda: rd.encode_streams_cuda(q, n, L, T), BACK_TO_BACK)
+        cnt_ms = median_ms(torch, lambda: rd.encode_fields_cuda(None, None, cont))
+        both_ms = median_ms(torch, lambda: rd.encode_fields_cuda(q, n, cont, lanes=L, T=T))
+        both_b2b = median_ms(torch, lambda: rd.encode_fields_cuda(q, n, cont, lanes=L, T=T), BACK_TO_BACK)
+        plain_ms = median_ms(torch, lambda: (rd.encode_streams_plain(q, n, L, T), rd.encode_contour_field_plain(cont)),
+                             runs=PLAIN_RANS_RUNS)
+        with rans_backend("default"):
+            call_res = host_median_ms(lambda: rans_codec.compress_delta_batch(sb), RATE_PASSES)
+            call_cnt = host_median_ms(lambda: rans_codec.compress_contour_batch(pb, H, W), RATE_PASSES)
+        with rans_backend("cpu"):
+            cpu_res = host_median_ms(lambda: rans_codec.compress_delta_batch(sb), RATE_PASSES)
+            cpu_cnt = host_median_ms(lambda: rans_codec.compress_contour_batch(pb, H, W), RATE_PASSES)
+        # The default call's residual half split: the upload alone, then the
+        # pieces (upload, launch, download), the rest being the assembly.
+        upload_ms = host_median_ms(lambda: (rd.upload_streams(sb, dev), torch.cuda.synchronize()), RATE_PASSES)
+        pieces_ms = host_median_ms(lambda: rans_codec._device_pieces(sb, L, T, dev), RATE_PASSES)
+        native_res = host_median_ms(lambda: rans_native.delta_encode_frames(sb, L, T, rd.ALPHABET, rd.NUM_CTX))
+        native_cnt = host_median_ms(lambda: rans_native.contour_encode_frames(np.stack(pb), H, W, T_c))
+        b_ms, b_by = host_rans_bound([a.size for a in sb], L, T, B, H, W)
+        out[B] = dict(shape=f"B={B} residual L={L} T={T} (n {[a.size for a in sb]}) + contour {H}x{W} T={T_c}",
+                      err=err, ms=both_ms, b2b=both_b2b, residual_ms=res_ms, residual_b2b=res_b2b, contour_ms=cnt_ms,
+                      plain_ms=plain_ms, bound=(b_ms, b_by), call_ms=call_res + call_cnt, call_residual_ms=call_res,
+                      call_contour_ms=call_cnt, upload_ms=upload_ms, pieces_ms=pieces_ms,
+                      cpu_call_ms=cpu_res + cpu_cnt, native_ms=native_res + native_cnt,
+                      native_residual_ms=native_res, native_contour_ms=native_cnt)
+        r = out[B]
+        print(f"[phase 3g] [{card}] rans host path {r['shape']}: kernel == plain; median of {TIMED_RUNS}: both fields "
+              f"in one launch {both_ms:.4f} ms ({both_b2b:.4f} ms over {BACK_TO_BACK} back to back), residual launch "
+              f"{res_ms:.4f} ms ({res_b2b:.4f} back to back), contour launch {cnt_ms:.4f} ms; plain {plain_ms:.4f} ms "
+              f"(median of {PLAIN_RANS_RUNS}); bound {b_ms:.6f} ms ({b_by})")
+        print(f"[phase 3g] [{card}] B={B} encode calls (median of {RATE_PASSES}; upload, launch, download, assembly): "
+              f"default backend compress_delta_batch {call_res:.3f} ms + compress_contour_batch {call_cnt:.3f} ms; "
+              f"cpu backend {cpu_res:.3f} + {cpu_cnt:.3f} ms; native delta_encode_frames {native_res:.3f} ms + "
+              f"contour_encode_frames {native_cnt:.3f} ms (median of {HOST_RUNS}); the default residual call's "
+              f"upload {upload_ms:.3f} ms, upload + launch + download {pieces_ms:.3f} ms, assembly the rest "
+              f"({call_res - pieces_ms:.3f} ms)")
+    # A small field: 1,000 symbols take 16 lanes of 64 steps.
+    small = [streams[0][:1000]]
+    L, T = rans_codec._geometry(1000)
+    check(L == 16, f"a 1,000-symbol field takes {L} lanes")
+    q, n = rd.upload_streams(small, dev)
+    got, want = rd.encode_streams_cuda(q, n, L, T), rd.encode_streams_plain(q, n, L, T)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(got, want)), "the rANS kernel differs from the plain version at L = 16")
+    s_ms = median_ms(torch, lambda: rd.encode_streams_cuda(q, n, L, T))
+    with rans_backend("default"):
+        s_call = host_median_ms(lambda: rans_codec.compress_delta_batch(small))
+    with rans_backend("cpu"):
+        s_cpu = host_median_ms(lambda: rans_codec.compress_delta_batch(small))
+    s_native = host_median_ms(lambda: rans_native.delta_encode_frames(small, L, T, rd.ALPHABET, rd.NUM_CTX))
+    out["small"] = dict(shape=f"B=1 n=1000 L={L} T={T}", ms=s_ms, call_ms=s_call, cpu_call_ms=s_cpu, native_ms=s_native,
+                        bound=host_rans_bound([1000], L, T, 0, H, W))
+    print(f"[phase 3g] [{card}] 1,000-symbol field (L={L}, T={T}): kernel {s_ms:.4f} ms (median of {TIMED_RUNS}); "
+          f"compress_delta_batch default {s_call:.3f} ms, cpu {s_cpu:.3f} ms; native delta_encode_frames "
+          f"{s_native:.4f} ms (median of {HOST_RUNS}; host calls include their 'Z' comparison)")
     return out
 
 
@@ -1584,7 +1813,7 @@ def phase_cli(np, codec, frames):
               "compress --profile printed no table naming the FPS kernel")
         print("[phase 5] compress --profile names the FPS kernel: "
               + next(ln.strip() for ln in prof.splitlines() if "fps_cluster_kernel" in ln)[:120])
-        run_cli("decompress", ["--input", out, "--output", rec, *common], 5)
+        run_cli("decompress", ["--input", out, "--output", rec, *common, "--decode_backend", "device"], 5)
         with open(out, "rb") as f:
             blob = f.read()
         pc_dec, ri_rec, _ = codec.decompress(blob)
@@ -1595,7 +1824,12 @@ def phase_cli(np, codec, frames):
         pts = pts[pts.sum(-1) != 0]
         cli_pts = np.fromfile(rec, np.float32).reshape(-1, 4)[:, :3]
         check(np.array_equal(cli_pts, pts), "CLI decode differs from the in-process decode")
-        print(f"[phase 5] CLI roundtrip ok: max_err {err:.6f}, {cli_pts.shape[0]} points")
+        host_rec = os.path.join(work, "host_rec.bin")
+        run_cli("decompress", ["--input", out, "--output", host_rec, *common, "--decode_backend", "host"], 5)
+        check(np.array_equal(np.fromfile(host_rec, np.float32), np.fromfile(rec, np.float32)),
+              "decompress --decode_backend host wrote other floats than the card's decode")
+        print(f"[phase 5] CLI roundtrip ok: max_err {err:.6f}, {cli_pts.shape[0]} points; "
+              f"--decode_backend host wrote the same floats as device")
 
         # A self-describing stream: decompress takes no codec flag and no --lidar.
         sd, sd_rec = os.path.join(work, "sd.rpcc"), os.path.join(work, "sd.bin")
@@ -1603,10 +1837,11 @@ def phase_cli(np, codec, frames):
         with open(sd, "rb") as f:
             sd_blob = f.read()
         check(sd_blob.startswith(b"RPC1") and sd_blob.endswith(blob), "the self-describing stream is not header + blob")
-        run_cli("decompress", ["--input", sd, "--output", sd_rec], 5)
+        run_cli("decompress", ["--input", sd, "--output", sd_rec, "--decode_backend", "device"], 5)
         check(np.array_equal(np.fromfile(sd_rec, np.float32), np.fromfile(rec, np.float32)),
               "the flagless decode of the self-describing stream differs")
-        dec_out = run_cli("decompress", ["--input", sd, "--output", sd_rec, "--eval", "--original_point_cloud", src], 5)
+        dec_out = run_cli("decompress", ["--input", sd, "--output", sd_rec, "--decode_backend", "device", "--eval",
+                                         "--original_point_cloud", src], 5)
         for label in ("Depth Error (max)", "Chamfer Distance (mean)", "F1 score", "Point-to-Point PSNR", "Point-to-Plane PSNR"):
             check(eval_number(enc_out, label) == eval_number(dec_out, label), f"compress and decompress --eval differ: {label}")
         check(eval_number(enc_out, "Depth Error (max)") <= bound, "--eval: depth error past the bound")
@@ -1623,7 +1858,7 @@ def phase_cli(np, codec, frames):
         flags32 = ["--lidar", CSV_LIDAR, "--channel_distribute_csv", VELODYNE_32E_CSV, "--transfer_precision", "f32",
                    "--compressor_yaml", cpu_fps_yaml(os.path.join(work, "cpu_fps.yaml")), "--device", "cuda"]
         run_cli("compress", ["--input", src32, "--output", out32, *flags32], 5)
-        run_cli("decompress", ["--input", out32, "--output", rec32, *flags32], 5)
+        run_cli("decompress", ["--input", out32, "--output", rec32, *flags32, "--decode_backend", "device"], 5)
         codec32 = RPCCCodec(lidar32, CodecConfig(cpu_fps=True, transfer_precision="f32"), "cuda")
         with open(out32, "rb") as f:
             blob32 = f.read()
@@ -2257,6 +2492,7 @@ def main() -> int:
     phase_cli(np, codec, frames)  # 5
     eng = phase_engine(torch, np, dev, card, lidar, codec)  # 6
     dec = phase_rans_decode(torch, np, dev, card, lidar, codec, frames, eng)  # 3f
+    host = phase_rans_host(torch, np, dev, card, lidar, codec, frames)  # 3g
     phase_datalist(np, codec, lidar)  # 7
     check_isolated()
     print(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s")
@@ -2279,7 +2515,12 @@ def main() -> int:
     # decode kernel's ``ms`` are its two field groups' launches on phase
     # 6's first batch at B = 8 (phase 3f), its ``launches`` the engine's
     # decode of phase 6's blobs with ``RPCC_RANS_DEVICE=default``; no
-    # PyTorch call decodes rANS.
+    # PyTorch call decodes rANS.  The rANS entry's ``host_path`` is the same
+    # kernel at the host containers' geometry under RPCC_RANS_DEVICE=default
+    # (phase 3g, on phase 6's first batch at B = 1 and 8, and a 1,000-symbol
+    # field): kernel times, the encode calls on both backends and the native
+    # host encode; it is off the main path, whose ``launches`` stay the
+    # engine's.
     print(json.dumps({"kernels": [
         {
             "name": "fps",
@@ -2367,6 +2608,37 @@ def main() -> int:
             "phase_us": {b: {k: round(v, 3) for k, v in sp.items()} for b, sp in rans[8]["split"].items()},
             "single_frame_ns_per_step": rans[1]["ns_step"],
             "ns_per_step": rans[8]["ns_step"],
+            "host_path": {
+                "replaces": "rpcc_tpu/ops/rans.py:345 (encode_streams_batch_ctx) and :379 "
+                            "(encode_streams_batch_ctx_explicit), XLA, not Pallas",
+                "launches": host["launches"],
+                "batch_calls": host["calls"],
+                "launches_per_batch_call": host["launches"] / host["calls"],
+                **{f"batch{B}": {
+                    "shape": host[B]["shape"],
+                    "ms": host[B]["ms"],
+                    "ms_10_back_to_back": host[B]["b2b"],
+                    "residual_ms": host[B]["residual_ms"],
+                    "residual_ms_10_back_to_back": host[B]["residual_b2b"],
+                    "contour_ms": host[B]["contour_ms"],
+                    "plain_ms": host[B]["plain_ms"],
+                    "bound_ms": host[B]["bound"][0],
+                    "bound_by": host[B]["bound"][1],
+                    "call_ms_default_backend": host[B]["call_ms"],
+                    "call_residual_upload_ms": host[B]["upload_ms"],
+                    "call_residual_upload_launch_download_ms": host[B]["pieces_ms"],
+                    "call_ms_cpu_backend": host[B]["cpu_call_ms"],
+                    "native_host_encode_ms": host[B]["native_ms"],
+                } for B in (1, 8)},
+                "small_field": {
+                    "shape": host["small"]["shape"],
+                    "ms": host["small"]["ms"],
+                    "bound_ms": host["small"]["bound"][0],
+                    "call_ms_default_backend": host["small"]["call_ms"],
+                    "call_ms_cpu_backend": host["small"]["cpu_call_ms"],
+                    "native_host_encode_ms": host["small"]["native_ms"],
+                },
+            },
         },
         {
             "name": "rans_decode",

@@ -22,3 +22,7 @@ Layers (bottom-up), mirroring :mod:`rpcc_tpu`:
 
 Importing this package imports nothing heavy.
 """
+
+from rpcc_tpu_torch.version import __version__
+
+__all__ = ["__version__"]

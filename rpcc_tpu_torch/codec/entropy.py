@@ -14,9 +14,10 @@ gzip | deflate | rans``, selected by name, on bytes-like numpy buffers.
     (:mod:`rpcc_tpu_torch.codec.rans_codec`).
 
 The ``*_dict_batch`` methods code a batch of frames' fields with the big
-fields (residual stream, contour plane) batched through the native coder;
-each frame's bytes equal :meth:`compress_dict` / :meth:`decompress_dict`
-of that frame alone.
+fields (residual stream, contour plane) batched through the native coder,
+or under ``RPCC_RANS_DEVICE=default`` the card's kernels; each frame's
+bytes equal :meth:`compress_dict` / :meth:`decompress_dict` of that frame
+alone.
 """
 
 from __future__ import annotations

@@ -1,18 +1,32 @@
 """The ``rans`` entropy containers, JAX-free.
 
 A copy of ``rpcc_tpu/codec/rans_codec.py``'s single-frame and batch entry
-points; for the same inputs every container and every decoded field is
-byte-identical to that module's.  Encoding runs on the port's native host
+points; for the same inputs and the same ``RPCC_RANS_DEVICE`` and
+``RPCC_RANS_ADAPTIVE`` every container and every decoded field is
+byte-identical to that module's.  Both variables are read at import, as
+the reference reads them.
+
+``RPCC_RANS_DEVICE=cpu`` (the default) codes on the port's native host
 library (``csrc/host/rans.cpp``, a copy of the reference's), which raises
-if it cannot be built.  Decoding reads ``RPCC_RANS_DEVICE`` as the
-reference does: ``cpu`` (the default) decodes on that library; any other
-value (``default``) decodes each field group (the residual containers of
-one kind and lane count, or a batch's contours) with one launch of the CUDA
-decode kernel (``csrc/rans_decode.cu`` through ``ops/rans_device.py``) and
-raises without a CUDA device.  The batch decoders' ``device=`` names a device
-instead (``"cpu"``: the kernel's plain version, through the same
-container path).  Either way the host assembles the lanes and the native
-tails finalize the symbols.
+if it cannot be built.  Any other value (``default``) codes on the CUDA
+device and raises without one: a batch encode's residual streams are one
+launch of the encode kernel (``csrc/rans.cu``) at the batch's lane
+geometry, its contours another; a decode is one launch of the decode
+kernel (``csrc/rans_decode.cu``) per field group (the residual containers
+of one kind and lane count, or a batch's contours), both through
+``ops/rans_device.py``.  The batch decoders' ``device=`` names a device
+instead (``"cpu"``: the decode kernel's plain version, through the same
+container path).  The host symbolizes what the bzip2 comparisons need, assembles the
+containers and the lanes, and the native tails finalize decoded symbols.
+
+As in the reference, the device path encodes a batch the way the
+reference's own ``default`` path does: every frame through the numpy
+pre-pass's geometry (lanes and T from the longest frame, 'Z' tried up to
+32,768 symbols), where the native path codes frames above 32,768 symbols
+apart from the rest; so a batch that mixes small and big frames gets other
+(equally valid) containers on the two backends.  ``RPCC_RANS_ADAPTIVE=full``
+takes that path on the host too, and compares bzip2 with every container
+of any size.
 
 The batch coders size a batch's lanes from its longest frame, as the
 reference's do, so a frame's container can depend on its neighbours;
@@ -61,15 +75,17 @@ CONTOUR_BZ_TRY_MAX_PIXELS = 65536
 
 _CODE_DTYPE = {0: np.int16, 1: np.uint16, 2: np.int32}
 
-# Where the rANS decode runs: "cpu" (default) the native host decoder; any
+# Where the rANS coding runs: "cpu" (default) the native host coder; any
 # other value ("default") the card, as the reference reads it.
 _RANS_DEVICE = os.environ.get("RPCC_RANS_DEVICE", "cpu")
+# "full": compare bzip2 with the rANS containers at any size.
+_ADAPTIVE_FULL = os.environ.get("RPCC_RANS_ADAPTIVE", "") == "full"
 
 
-def _decode_device(device):
-    """The device a batch decode runs on: ``device`` when given, else None
-    (the native decoder) under ``RPCC_RANS_DEVICE=cpu`` and the CUDA device
-    under any other value, which raises without one."""
+def _coding_device(device, verb: str):
+    """The device a batch encodes or decodes (``verb``) on: ``device`` when
+    given, else None (the native coder) under ``RPCC_RANS_DEVICE=cpu`` and
+    the CUDA device under any other value, which raises without one."""
     if device is not None:
         return device
     if _RANS_DEVICE == "cpu":
@@ -77,7 +93,7 @@ def _decode_device(device):
     import torch
 
     if not torch.cuda.is_available():
-        raise RuntimeError(f"RPCC_RANS_DEVICE={_RANS_DEVICE} decodes on the CUDA device, and there is none")
+        raise RuntimeError(f"RPCC_RANS_DEVICE={_RANS_DEVICE} {verb} on the CUDA device, and there is none")
     return "cuda"
 
 
@@ -86,6 +102,19 @@ def _lanes_for(n: int) -> int:
     while lanes < MAX_LANES and lanes * 64 < n:
         lanes *= 2
     return lanes
+
+
+def _geometry(n_max: int, lanes=None):
+    """(lanes, T) of a batch whose longest frame has n_max symbols:
+    ``lanes`` (a power of two in 1..32, else ValueError) or _lanes_for's,
+    and T = ceil(n_max / lanes) rounded up to T_BUCKET (at least one bucket)."""
+    if lanes is None:
+        lanes = _lanes_for(max(n_max, 1))
+    elif not (isinstance(lanes, (int, np.integer)) and 1 <= lanes <= MAX_LANES and lanes & (lanes - 1) == 0):
+        # The reference writes log2(lanes) rounded down, and no decoder reads such a container back.
+        raise ValueError(f"lanes must be a power of two in 1..{MAX_LANES}, got {lanes!r}")
+    lanes = int(lanes)
+    return lanes, -(-max(1, -(-n_max // lanes)) // T_BUCKET) * T_BUCKET
 
 
 def _zigzag(d: np.ndarray) -> np.ndarray:
@@ -109,7 +138,7 @@ def compress_seq_u16(data: np.ndarray) -> bytes:
 
 
 def _pick(data: np.ndarray, delta: bytes) -> bytes:
-    """:func:`compress`'s choice for an int16/uint16 array given its delta
+    """:func:`compress`'s choice for an int16/uint16/int32 array given its delta
     container: only the delta container above 64 KB, else the smallest of
     it, plain bzip2 and (u16) the sequence coder."""
     if data.nbytes > BIG_FIELD_BYTES:
@@ -120,31 +149,26 @@ def _pick(data: np.ndarray, delta: bytes) -> bytes:
     return min(candidates, key=len)
 
 
-def compress(data) -> bytes:
-    """int16/uint16 arrays: the smallest of the delta container, plain bzip2
-    and (u16) the sequence coder — only the delta container above 64 KB.
-    Anything else: plain bzip2."""
-    if isinstance(data, np.ndarray) and data.dtype in (np.int16, np.uint16):
-        return _pick(data, compress_delta(data))
+def compress(data, lanes=None) -> bytes:
+    """int16/uint16/int32 arrays: the smallest of the delta container, plain
+    bzip2 and (u16) the sequence coder — only the delta container above
+    64 KB.  Anything else: plain bzip2.  ``lanes`` as in
+    :func:`compress_delta_batch`."""
+    if isinstance(data, np.ndarray) and data.dtype in (np.int16, np.uint16, np.int32):
+        return _pick(data, compress_delta_batch([data], lanes)[0])
     raw = data.tobytes() if isinstance(data, np.ndarray) else bytes(data)
     return bytes([MAGIC_BZ]) + bz2.compress(raw)
 
 
-def _delta_geometry(n: int):
-    """(coder path, lanes, T) of an n-symbol delta container coded alone."""
-    lanes = _lanes_for(max(n, 1))
-    T = -(-max(1, -(-n // lanes)) // T_BUCKET) * T_BUCKET
-    return n > BZD_TRY_MAX_SYMBOLS, lanes, T
-
-
 def compress_batch(arrays: Sequence[np.ndarray]) -> List[bytes]:
-    """:func:`compress` of each int16/uint16 array, byte for byte, with the
-    delta containers coded by one native call per group of frames that
-    share a lane geometry (one group for a batch of similar frames)."""
+    """:func:`compress` of each int16/uint16/int32 array, byte for byte,
+    with the delta containers coded by one native call or kernel launch per
+    group of frames that share a lane geometry (one group for a batch of
+    similar frames)."""
     arrays = [np.ascontiguousarray(a) for a in arrays]
     groups: dict = {}
     for i, a in enumerate(arrays):
-        groups.setdefault(_delta_geometry(a.size), []).append(i)
+        groups.setdefault(_geometry(a.size), []).append(i)
     deltas: List[bytes] = [b""] * len(arrays)
     for ix in groups.values():
         for i, blob in zip(ix, compress_delta_batch([arrays[i] for i in ix])):
@@ -222,20 +246,33 @@ def _lane_words(words: np.ndarray, counts: np.ndarray) -> np.ndarray:
 # --------------------------------------------- contour bit-plane container
 def compress_contour(packed: np.ndarray, H: int, W: int) -> bytes:
     """'N' container of the packed contour bits; small planes (<= 64K
-    pixels) keep plain bzip2 when that is smaller."""
+    pixels, or any under ``RPCC_RANS_ADAPTIVE=full``) keep plain bzip2 when
+    that is smaller."""
     return compress_contour_batch([packed], H, W)[0]
 
 
 def compress_contour_batch(packed_list: Sequence[np.ndarray], H: int, W: int) -> List[bytes]:
-    """Every frame's contour plane in one native call; each container is
-    the frame's own (the lane length depends on H and W only)."""
+    """Every frame's contour plane in one native call or, under
+    ``RPCC_RANS_DEVICE=default``, one kernel launch (which codes at most 512
+    rows and raises past them); each container is the frame's own (the lane
+    length depends on H and W only)."""
+    if not len(packed_list):
+        return []
     T = -(-(W + H - 1) // T_BUCKET) * T_BUCKET
     pb = np.stack([np.asarray(p, np.uint8) for p in packed_list])
-    words, n_words, counts, states, freqs = rans_native.contour_encode_frames(pb, H, W, T)
+    dev = _coding_device(None, "encodes")
+    if dev is None:
+        words, n_words, counts, states, freqs = rans_native.contour_encode_frames(pb, H, W, T)
+    else:
+        from rpcc_tpu_torch.ops import rans_device
+
+        cnt = rans_device.encode_contour_field_device(rans_device.upload_contours(pb, H, W, dev))
+        words, n_words, counts, states, freqs = (t.cpu().numpy() for t in cnt)
+        words = words.view(np.uint16)
     out = []
     for i, p in enumerate(pb):
         blob = build_bits_container(T, H, W, freqs[i], states[i], counts[i], words[i, : n_words[i]])
-        if H * W <= CONTOUR_BZ_TRY_MAX_PIXELS:
+        if _ADAPTIVE_FULL or H * W <= CONTOUR_BZ_TRY_MAX_PIXELS:
             blob = min(blob, bytes([MAGIC_BZ]) + bz2.compress(p.tobytes()), key=len)
         out.append(blob)
     return out
@@ -264,10 +301,10 @@ def decompress_contour(blob: bytes) -> bytes:
 
 def decompress_contour_batch(blobs: Sequence[bytes], device=None) -> List[bytes]:
     """Decode a batch of 'N' contour containers of one geometry in one
-    native call or kernel launch (``device``: see :func:`_decode_device`)."""
+    native call or kernel launch (``device``: see :func:`_coding_device`)."""
     lanes, H, W = contour_lanes(blobs)
     T = lanes.words.shape[2]
-    sym = decode_lanes(lanes, _decode_device(device))
+    sym = decode_lanes(lanes, _coding_device(device, "decodes"))
     packed = rans_native.contour_finalize_frames(sym.reshape(len(blobs), H, T), H, W, T)
     return [packed[i].tobytes() for i in range(len(blobs))]
 
@@ -428,61 +465,125 @@ def _zigzag_ctx_np(sym3d: np.ndarray) -> np.ndarray:
     return ctx.astype(np.int32)
 
 
-def _compress_delta_batch_np(arrays: Sequence[np.ndarray]) -> List[bytes]:
-    """numpy pre-pass + native coder for a batch (lanes and T from its
-    longest frame), and per frame the smaller of 'C' and, up to 32768
-    symbols, 'Z'."""
-    per = [_symbolize(np.asarray(a)) for a in arrays]
-    n_max = max((p[3] for p in per), default=0)
-    L = _lanes_for(max(n_max, 1))
-    T = -(-max(1, -(-n_max // L)) // T_BUCKET) * T_BUCKET
-    sym3d = np.zeros((len(arrays), L, T), np.int32)
-    for i, (sym, _, _, n) in enumerate(per):
-        sym3d[i].reshape(-1)[:n] = sym
-    ns = np.asarray([p[3] for p in per], np.int64)
-    words, counts, states, freqs = rans_native.encode_ctx_batch(
-        sym3d, _zigzag_ctx_np(sym3d), ALPHABET, NUM_CTX, ns=ns
-    )
-    out = []
-    for i, (sym, escapes, q0, n) in enumerate(per):
-        blob = build_ctx_container(
-            L, T, n, q0, escapes, freqs[i].astype(np.int64), states[i],
-            counts[i], _lane_words(words[i], counts[i]), arrays[i].dtype,
+def _needs_wide_escapes(a: np.ndarray) -> bool:
+    """int32 streams whose first differences overflow int32 cannot ride the
+    delta containers: escape values are u32 on the wire.  int16/uint16
+    streams are always safe (zigzag <= 131071)."""
+    if a.dtype != np.int32 or a.size < 2:
+        return False
+    d = np.diff(a.astype(np.int64))
+    return bool(d.min() < -(2**31) or d.max() > 2**31 - 1)
+
+
+def _route_wide_escape_frames(arrays, encode_rest):
+    """Frames that need wider escapes as lossless plain-bzip2 ('B')
+    containers, ``encode_rest`` coding the others; None when no frame needs
+    routing (the common case)."""
+    wide = [i for i, a in enumerate(arrays) if _needs_wide_escapes(np.asarray(a))]
+    if not wide:
+        return None
+    out: List[bytes] = [b""] * len(arrays)
+    for i in wide:
+        out[i] = bytes([MAGIC_BZ]) + bz2.compress(np.asarray(arrays[i]).tobytes())
+    rest = [i for i in range(len(arrays)) if i not in set(wide)]
+    if rest:
+        for i, blob in zip(rest, encode_rest([arrays[i] for i in rest])):
+            out[i] = blob
+    return out
+
+
+def _device_pieces(arrays: Sequence[np.ndarray], L: int, T: int, device):
+    """Per frame (escapes, freqs, states, counts, words) of its 'C'
+    container from one launch of the encode kernel on ``device`` (its plain
+    version on the CPU).  A frame past the kernel's escape list gets the
+    host's (the words do not depend on the list)."""
+    from rpcc_tpu_torch.ops import rans_device
+
+    res = rans_device.encode_fields_device(*rans_device.upload_streams(arrays, device), None, L, T)[0]
+    words, n_words, counts, states, freqs, escapes, n_esc = (t.cpu().numpy() for t in res[:7])
+    return [
+        (escapes[i, : n_esc[i]] if n_esc[i] <= rans_device.ESC_CAP_DEV else _symbolize(a)[1], freqs[i], states[i],
+         counts[i], words[i, : n_words[i]].view(np.uint16))
+        for i, a in enumerate(arrays)
+    ]
+
+
+def _compress_delta_batch_np(arrays: Sequence[np.ndarray], lanes=None) -> List[bytes]:
+    """The numpy pre-pass's path for a batch (lanes and T from its longest
+    frame, or ``lanes``): the native coder, or under
+    ``RPCC_RANS_DEVICE=default`` the encode kernel, and per frame the
+    smaller of 'C' and, up to 32768 symbols (any under
+    ``RPCC_RANS_ADAPTIVE=full``), 'Z'."""
+    routed = _route_wide_escape_frames(arrays, lambda rest: _compress_delta_batch_np(rest, lanes))
+    if routed is not None:
+        return routed
+    if not arrays:
+        return []
+    L, T = _geometry(max(a.size for a in arrays), lanes)
+    dev = _coding_device(None, "encodes")
+    per = [None] * len(arrays)  # (symbols, escapes, q0, n) of each frame, where the host needs them
+    if dev is None:
+        per = [_symbolize(a) for a in arrays]
+        sym3d = np.zeros((len(arrays), L, T), np.int32)
+        for i, (sym, _, _, n) in enumerate(per):
+            sym3d[i].reshape(-1)[:n] = sym
+        ns = np.asarray([p[3] for p in per], np.int64)
+        words, counts, states, freqs = rans_native.encode_ctx_batch(
+            sym3d, _zigzag_ctx_np(sym3d), ALPHABET, NUM_CTX, ns=ns
         )
-        if n <= BZD_TRY_MAX_SYMBOLS:
-            blob = min(blob, _compress_bzd(sym, escapes, q0, n, arrays[i].dtype), key=len)
+        pieces = [(per[i][1], freqs[i], states[i], counts[i], _lane_words(words[i], counts[i]))
+                  for i in range(len(arrays))]
+    else:
+        pieces = _device_pieces(arrays, L, T, dev)
+    out = []
+    for i, (a, (escapes, freqs, states, counts, words)) in enumerate(zip(arrays, pieces)):
+        n = a.size
+        q0 = int(a.reshape(-1)[0]) if n else 0
+        blob = build_ctx_container(L, T, n, q0, escapes, freqs.astype(np.int64), states, counts, words, a.dtype)
+        if _ADAPTIVE_FULL or n <= BZD_TRY_MAX_SYMBOLS:
+            sym, escapes, _, _ = per[i] or _symbolize(a)
+            blob = min(blob, _compress_bzd(sym, escapes, q0, n, a.dtype), key=len)
         out.append(blob)
     return out
 
 
 def compress_delta(arr: np.ndarray) -> bytes:
-    """'C' (or, for small fields, 'Z') container of an int16/uint16 stream."""
+    """'C' (or, for small fields, 'Z') container of an int16/uint16/int32 stream."""
     return compress_delta_batch([arr])[0]
 
 
-def compress_delta_batch(arrays: Sequence[np.ndarray]) -> List[bytes]:
-    """Delta containers of a batch of int16/uint16 streams, byte-identical
-    to ``rpcc_tpu.codec.rans_codec.compress_delta_batch``: frames above
-    32768 symbols take the fused native encoder in one call (lanes and T
-    from the longest of them), the rest the numpy pre-pass (likewise)."""
+def compress_delta_batch(arrays: Sequence[np.ndarray], lanes=None) -> List[bytes]:
+    """Delta containers of a batch of int16/uint16/int32 streams,
+    byte-identical to ``rpcc_tpu.codec.rans_codec.compress_delta_batch``
+    under the same variables: int32 frames whose deltas overflow int32 as
+    plain bzip2; on the host (``RPCC_RANS_DEVICE=cpu``) frames above 32768
+    symbols take the fused native encoder in one call (lanes and T from the
+    longest of them, or ``lanes``), the rest the numpy pre-pass (likewise);
+    on the card (any other ``RPCC_RANS_DEVICE``), and under
+    ``RPCC_RANS_ADAPTIVE=full``, the whole batch takes the pre-pass's path,
+    on the card one kernel launch.  ``lanes`` must be a power of two in
+    1..32."""
     arrays = [np.ascontiguousarray(a) for a in arrays]
+    if _RANS_DEVICE != "cpu" or _ADAPTIVE_FULL:
+        return _compress_delta_batch_np(arrays, lanes)
+    routed = _route_wide_escape_frames(arrays, lambda rest: compress_delta_batch(rest, lanes))
+    if routed is not None:
+        return routed
     out: List[bytes] = [b""] * len(arrays)
     big_ix = [i for i, a in enumerate(arrays) if a.size > BZD_TRY_MAX_SYMBOLS]
     small_ix = [i for i, a in enumerate(arrays) if a.size <= BZD_TRY_MAX_SYMBOLS]
     if small_ix:
-        for i, blob in zip(small_ix, _compress_delta_batch_np([arrays[i] for i in small_ix])):
+        for i, blob in zip(small_ix, _compress_delta_batch_np([arrays[i] for i in small_ix], lanes)):
             out[i] = blob
     if big_ix:
         subs = [arrays[i] for i in big_ix]
-        n_max = max(a.size for a in subs)
-        L = _lanes_for(n_max)
-        T = -(-max(1, -(-n_max // L)) // T_BUCKET) * T_BUCKET
+        L, T = _geometry(max(a.size for a in subs), lanes)
         words, n_words, counts, states, freqs, escapes, esc_counts, q0s = rans_native.delta_encode_frames(
             subs, L, T, ALPHABET, NUM_CTX
         )
         for k, i in enumerate(big_ix):
             if esc_counts[k] < 0:  # escape-capacity overflow
-                out[i] = _compress_delta_batch_np([arrays[i]])[0]
+                out[i] = _compress_delta_batch_np([arrays[i]], lanes)[0]
                 continue
             out[i] = build_ctx_container(
                 L, T, subs[k].size, q0s[k], escapes[k, : esc_counts[k]], freqs[k], states[k],
@@ -524,21 +625,24 @@ def decompress_delta(blob: bytes) -> bytes:
 
 
 def decompress_delta_batch(blobs: Sequence[bytes], device=None) -> List[bytes]:
-    """Decode a batch of delta containers, the rANS ones of one kind and
+    """Decode a batch of delta containers ('B' too, which a routed int32
+    frame gets), the rANS ones of one kind and
     lane count in one native call or kernel launch (``device``: see
-    :func:`_decode_device`; mixed T decode at the largest, each frame's
+    :func:`_coding_device`; mixed T decode at the largest, each frame's
     symbols its own)."""
     out: List[bytes] = [b""] * len(blobs)
     groups: dict = {}
     for i, b in enumerate(blobs):
         if b[0] == MAGIC_BZD:
             out[i] = _decompress_bzd(b)
+        elif b[0] == MAGIC_BZ:  # an int32 frame routed past the delta containers
+            out[i] = bz2.decompress(b[1:])
         elif b[0] in (MAGIC_CTX, MAGIC_DELTA):
             p = _parse_delta(b)
             groups.setdefault(p[:2], []).append((i, p))
         else:
             raise ValueError("unknown delta container magic")
-    dev = _decode_device(device) if groups else None
+    dev = _coding_device(device, "decodes") if groups else None
     for items in groups.values():
         parsed = [p for _, p in items]
         lanes = _delta_lanes(parsed)

@@ -1,15 +1,21 @@
 // rANS encode of the residual stream and the contour plane on Hopper (sm_90a).
 //
-// Replaces the XLA program of rpcc_tpu/ops/rans_device.py
+// Replaces the XLA programs of rpcc_tpu/ops/rans_device.py
 // (encode_residual_field_device and encode_contour_field_device, whose
-// encode_field_device walks the lanes in one lax.scan of T dependent steps).
-// That was no Pallas kernel, but in eager PyTorch its scan is ~10 launches a
-// step, ~60,000 a batch, so the port needs one kernel.  Semantics, and the
-// plain PyTorch version every output equals: rpcc_tpu_torch/ops/rans_device.py.
+// encode_field_device walks the lanes in one lax.scan of T dependent steps:
+// the engine's device entropy) and of rpcc_tpu/ops/rans.py
+// (encode_streams_batch_ctx and encode_streams_batch_ctx_explicit: the host
+// containers' encode under RPCC_RANS_DEVICE=default).  Neither was a Pallas
+// kernel, but in eager PyTorch a scan is ~10 launches a step, ~60,000 a
+// batch, so the port needs one kernel.  Semantics, and the plain PyTorch
+// version every output equals: rpcc_tpu_torch/ops/rans_device.py.  The
+// residual block codes L lanes of T steps, both launch arguments: the
+// engine's 32 x resid_T(HW), or the host containers' geometry (L = 1 .. 32
+// from the longest frame's length, T from it in multiples of 16).
 //
 // What bounds it: not bytes (~1.6 MB a 64x2000 frame, ~0.5 us at 3.35 TB/s)
 // but the chain of dependent steps of each lane: 4000 for the 64E residual
-// (32 lanes, a container field), 2064 for its contour (64 lanes).  Nothing
+// (32 lanes), 2064 for its contour (64 lanes).  Nothing
 // can run a lane's steps in parallel, so the design shortens one step and
 // takes everything else off the walking warp's path and off its scheduler.
 //
@@ -41,7 +47,7 @@
 //      and shifts of an
 //      exact multiply-high division by f, xm1 = (f << 18) - 1 (the
 //      renormalization test is one compare), c and M - f;
-//   3. walks: warp 0 (the residual's 32 lanes) or ceil(L / 32) warps (the
+//   3. walks: warp 0 (the residual's L <= 32 lanes) or ceil(L / 32) warps (the
 //      contour's lanes, in passes of L <= 128: four walking warps at most,
 //      one per scheduler, so a contour of more rows is walked 128 lanes at a
 //      time), a thread per lane, all T steps in reverse, in
@@ -88,7 +94,7 @@ constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
 constexpr uint32_t kM = 1u << 14;     // PROB_BITS = 14
 constexpr uint32_t kRansL = 1u << 16;
-constexpr int kLanes = 32;            // residual lanes
+constexpr int kMaxLanes = 32;         // residual lanes, at most (one walking warp)
 constexpr int kAlphabet = 512;
 constexpr uint32_t kEscape = kAlphabet - 1;
 constexpr int kCtx = 4;
@@ -119,13 +125,13 @@ constexpr int kSmemBytes = kOwnBytes + kEscListBytes > kRecBytes + kRingBytes
 struct Params {
   const int32_t* q;           // (B_res, hw)
   const int32_t* stream_len;  // (B_res,)
-  int b_res, hw, t_res;
+  int b_res, hw, l_res, t_res;  // l_res lanes (a power of two, at most 32) of t_res steps, l_res * t_res >= hw
   const int32_t* contour;     // (B_cnt, H, W)
   int b_cnt, H, W, t_cnt;
-  int16_t* r_words;   // (B_res, 32 * t_res)
+  int16_t* r_words;   // (B_res, l_res * t_res)
   int32_t* r_nw;      // (B_res,)
-  int32_t* r_counts;  // (B_res, 32)
-  int64_t* r_states;  // (B_res, 32)
+  int32_t* r_counts;  // (B_res, l_res)
+  int64_t* r_states;  // (B_res, l_res)
   int32_t* r_freqs;   // (B_res, 4, 512)
   int64_t* r_esc;     // (B_res, 512)
   int32_t* r_nesc;    // (B_res,)
@@ -135,7 +141,7 @@ struct Params {
   int32_t* c_counts;  // (B_cnt, H)
   int64_t* c_states;  // (B_cnt, H)
   int32_t* c_freqs;   // (B_cnt, 4, 2)
-  uint16_t* keys;     // scratch keys: residual frames' 32 * t_res, then contour frames' H * t_cnt
+  uint16_t* keys;     // scratch keys: residual frames' l_res * t_res, then contour frames' H * t_cnt
   uint16_t* rows;     // scratch words, same layout
   int64_t* stamps;    // null, or 2 x (kPhases + 1) %globaltimer values (ns): frame 0's residual, then contour block
 };
@@ -537,7 +543,7 @@ __device__ void residual_block(const Params& p, int b, unsigned char* smem, int*
                                int* lane_cnt, int* lane_off) {
   __shared__ int warp_esc[kWarps];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int T = p.t_res, total = kLanes * T, hw = p.hw;
+  const int L = p.l_res, T = p.t_res, total = L * T, hw = p.hw;
   const int32_t* q = p.q + (int64_t)b * hw;
   const int n = min(max(p.stream_len[b], 0), hw);
   int64_t* esc = p.r_esc + (int64_t)b * kEscCap;
@@ -551,7 +557,7 @@ __device__ void residual_block(const Params& p, int b, unsigned char* smem, int*
   for (int i = tid; i < kKeys; i += kThreads) hist[i] = 0;
   __syncthreads();
 
-  // 1. warp w keys the positions [lo, hi) of the 32 x T steps, a thread
+  // 1. warp w keys the positions [lo, hi) of the L x T steps, a thread
   // kVec consecutive ones of one lane a round (one 16-byte load where q's
   // rows allow, the two before them from the lane before), and lists its
   // first kEscCap escapes in stream order.  A live key of a symbol below
@@ -670,20 +676,20 @@ __device__ void residual_block(const Params& p, int b, unsigned char* smem, int*
   __syncthreads();
   stamp(stamps ? stamps + 2 : nullptr);
 
-  // 3. warp 0 walks the 32 lanes.
-  const Ring rg = make_ring(smem + kRecBytes, kLanes, true);
+  // 3. warp 0 walks the L lanes (its threads past L idle).
+  const Ring rg = make_ring(smem + kRecBytes, L, true);
   uint32_t state = 0;
   walk_phase(rec, rg, keys, rows, T, lane_cnt, lane_off, &state);
-  if (warp == 0) p.r_states[(int64_t)b * kLanes + lane] = (int64_t)state;
+  if (warp == 0 && lane < L) p.r_states[(int64_t)b * L + lane] = (int64_t)state;
   __syncthreads();
-  if (tid < kLanes) p.r_counts[(int64_t)b * kLanes + tid] = lane_cnt[tid];
+  if (tid < L) p.r_counts[(int64_t)b * L + tid] = lane_cnt[tid];
   stamp(stamps ? stamps + 3 : nullptr);
 
   // 4. pack.
-  if (warp == 0) lane_offsets(lane_cnt, lane_off, kLanes);
+  if (warp == 0) lane_offsets(lane_cnt, lane_off, L);
   __syncthreads();
-  if (tid == 0) p.r_nw[b] = lane_off[kLanes];
-  pack_words(rows, lane_cnt, lane_off, kLanes, T, p.r_words + (int64_t)b * total);
+  if (tid == 0) p.r_nw[b] = lane_off[L];
+  pack_words(rows, lane_cnt, lane_off, L, T, p.r_words + (int64_t)b * total);
   __syncthreads();
   stamp(stamps ? stamps + 4 : nullptr);
 }
@@ -693,7 +699,7 @@ __device__ void contour_block(const Params& p, int b, unsigned char* smem, int* 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int H = p.H, W = p.W, T = p.t_cnt, total = H * T;
   const int32_t* bits = p.contour + (int64_t)b * H * W;
-  const int64_t first = (int64_t)p.b_res * kLanes * p.t_res + (int64_t)b * total;
+  const int64_t first = (int64_t)p.b_res * p.l_res * p.t_res + (int64_t)b * total;
   uint16_t* keys = p.keys + first;
   uint16_t* rows = p.rows + first;
   int64_t* stamps = (p.stamps != nullptr && b == 0) ? p.stamps + kPhases + 1 : nullptr;
@@ -797,7 +803,7 @@ __global__ void __launch_bounds__(kThreads, 1) rans_encode_kernel(const Params p
 }  // namespace
 
 extern "C" int rpcc_rans_encode_launch(
-    const int32_t* q, const int32_t* stream_len, int b_res, int hw, int t_res,
+    const int32_t* q, const int32_t* stream_len, int b_res, int hw, int l_res, int t_res,
     const int32_t* contour, int b_cnt, int H, int W, int t_cnt,
     int16_t* r_words, int32_t* r_nw, int32_t* r_counts, int64_t* r_states, int32_t* r_freqs,
     int64_t* r_esc, int32_t* r_nesc, int32_t* r_q0,
@@ -809,8 +815,8 @@ extern "C" int rpcc_rans_encode_launch(
   if (b_res < 0 || b_cnt < 0 || b_res + b_cnt == 0 ||
       (b_cnt > 0 && (H < 1 || H > kMaxRows || W < 1 || t_cnt < W + H - 1 || t_cnt % kRun != 0 ||
                      cnt_steps > 65535)) ||
-      (b_res > 0 && (hw < 1 || (int64_t)kLanes * t_res < hw || t_res % kRun != 0 ||
-                     (int64_t)kLanes * t_res >= INT_MAX / 2)))
+      (b_res > 0 && (hw < 1 || l_res < 1 || l_res > kMaxLanes || (l_res & (l_res - 1)) != 0 || t_res < kRun ||
+                     (int64_t)l_res * t_res < hw || t_res % kRun != 0 || (int64_t)l_res * t_res >= INT_MAX / 2)))
     return (int)cudaErrorInvalidValue;
   static bool smem_set[64] = {};  // per device, once (setting it again is harmless)
   int device = 0;
@@ -821,7 +827,7 @@ extern "C" int rpcc_rans_encode_launch(
     if (err != cudaSuccess) return (int)err;
     if (device >= 0 && device < 64) smem_set[device] = true;
   }
-  Params p{q, stream_len, b_res, hw, t_res, contour, b_cnt, H, W, t_cnt,
+  Params p{q, stream_len, b_res, hw, l_res, t_res, contour, b_cnt, H, W, t_cnt,
            r_words, r_nw, r_counts, r_states, r_freqs, r_esc, r_nesc, r_q0,
            c_words, c_nw, c_counts, c_states, c_freqs, keys, rows, stamps};
   rans_encode_kernel<<<b_res + b_cnt, kThreads, kSmemBytes, (cudaStream_t)stream>>>(p);

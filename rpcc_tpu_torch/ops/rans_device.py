@@ -19,8 +19,19 @@ the host coders' containers, so the host decoders read them unchanged:
   delayed r steps), H lanes of ``contour_T(H, W)`` steps, ctx = 2 * above
   + left.
 
+The host containers' encode under ``RPCC_RANS_DEVICE=default`` (the
+reference's ``rpcc_tpu/ops/rans.py::encode_streams_batch_ctx`` and
+``encode_streams_batch_ctx_explicit``) is the same kernel: residual streams
+at the batch's own lane geometry (:func:`encode_streams_cuda`, L a power of
+two up to 32 and T a multiple of 16 from its longest frame, zero-padded
+(B, n_max) streams with per-frame lengths; :func:`upload_streams`), the
+contour exactly as above (:func:`upload_contours`).  A residual's zigzag
+value is computed in u32, so an int32 stream whose deltas fit int32 escapes
+with the reference's u32 values.
+
 Each lane's symbols are walked in reverse (16-bit renormalization, at most
-one word per symbol); the packed words are the emitted words lane-major in
+one word per symbol; the walk is :func:`rpcc_tpu_torch.ops.rans.encode_walk`);
+the packed words are the emitted words lane-major in
 emission order, followed by the words of the steps that emitted nothing, in
 the same order (the reference's stable sort of the (lane, step) keys), so
 every output equals the reference's element for element.  A zigzag value
@@ -44,13 +55,14 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from rpcc_tpu_torch.ops.rans import (
-    M, RANS_L, RansCode, cumulative, decode_streams_batch_ctx, normalize_freqs, wavefront_bit_context,
+    M, RansCode, cumulative, decode_streams_batch_ctx, encode_walk, joint_tables, wavefront_bit_context,
     zero_context, zigzag_magnitude_context,
 )
 
@@ -66,8 +78,10 @@ MAX_CONTOUR_ROWS = 512  # csrc/rans.cu: contour lanes a block codes (walked 128 
 MAX_CONTOUR_STEPS = 16383 * 2048
 
 # Launches of the CUDA kernel since the count was last reset (one per call
-# of :func:`encode_fields_cuda`, whatever fields it codes).
+# of :func:`encode_fields_cuda`, whatever fields it codes; the codec's pool
+# threads launch concurrently, so the count rises under a lock).
 LAUNCHES = 0
+_LAUNCHES_LOCK = threading.Lock()
 # Spans timed by ``phase_stamps`` (csrc/rans.cu) in two blocks: frame 0's
 # residual stream (stamps 0-4) and frame 0's contour (stamps 5-9).
 PHASES = ("histogram", "normalize", "walk", "pack")
@@ -76,8 +90,13 @@ STAMP_BLOCKS = ("residual", "contour")
 
 def resid_T(hw: int) -> int:
     """Steps per lane of the device residual container of an HW-pixel grid."""
-    t = -(-hw // RESID_LANES)
-    return -(-t // _T_BUCKET) * _T_BUCKET
+    return stream_T(hw, RESID_LANES)
+
+
+def stream_T(width: int, lanes: int) -> int:
+    """Steps per lane of ``lanes`` lanes over a ``width``-symbol stream, in
+    multiples of 16 (the host containers' T of their longest frame)."""
+    return -(-max(1, -(-width // lanes)) // _T_BUCKET) * _T_BUCKET
 
 
 def contour_T(H: int, W: int) -> int:
@@ -106,29 +125,15 @@ class ContourPieces(NamedTuple):
 
 # ------------------------------------------------------------------ plain
 def _walk_and_pack(key: torch.Tensor, freqs: torch.Tensor, live_lane: torch.Tensor):
-    """The renormalization walk of every lane in reverse, and the packing.
+    """The renormalization walk of every lane in reverse (the spec's
+    :func:`~rpcc_tpu_torch.ops.rans.encode_walk`), and the packing.
 
-    ``key`` (B, L, T) int64 joint (ctx, symbol) index into the flattened
-    ``freqs`` (B, C, A); ``live_lane`` (B, L) live steps per lane (the rest
-    are neither coded nor emit).  -> (words (B, L*T) int16, n_words,
-    counts, states int64)."""
+    ``key``, ``freqs`` and ``live_lane`` as the spec's
+    :func:`~rpcc_tpu_torch.ops.rans.joint_tables` gives them.  -> (words
+    (B, L*T) int16, n_words, counts, states int64)."""
     B, L, T = key.shape
     dev = key.device
-    ftab = freqs.reshape(B, -1).to(torch.int64)
-    ctab = cumulative(freqs).reshape(B, -1).to(torch.int64)
-    f_all = ftab.gather(1, key.reshape(B, -1)).reshape(B, L, T)
-    c_all = ctab.gather(1, key.reshape(B, -1)).reshape(B, L, T)
-    x = torch.full((B, L), RANS_L, dtype=torch.int64, device=dev)
-    words = torch.empty((B, L, T), dtype=torch.int64, device=dev)  # emission order
-    emit = torch.empty((B, L, T), dtype=torch.bool, device=dev)
-    for i, t in enumerate(range(T - 1, -1, -1)):
-        active = t < live_lane
-        f = torch.where(active, f_all[:, :, t], 1)
-        e = active & ((x >> 18) >= f)
-        words[:, :, i] = x & 0xFFFF
-        emit[:, :, i] = e
-        x = torch.where(e, x >> 16, x)
-        x = torch.where(active, (x // f) * M + c_all[:, :, t] + x % f, x)
+    words, emit, x = encode_walk(key, freqs, cumulative(freqs), live_lane)
     counts = emit.sum(-1, dtype=torch.int64)
     off = torch.cumsum(counts, -1) - counts  # exclusive, over lanes
     n_words = counts.sum(-1)
@@ -143,15 +148,18 @@ def _walk_and_pack(key: torch.Tensor, freqs: torch.Tensor, live_lane: torch.Tens
     return packed, n_words.to(torch.int32), counts.to(torch.int32), x
 
 
-def encode_residual_field_plain(q: torch.Tensor, stream_len: torch.Tensor) -> ResidualPieces:
-    """Plain version over (B, HW) int quantized residual streams (zero past
-    ``stream_len``) and (B,) live lengths: the residual container's pieces."""
-    B, hw = q.shape
-    L, T = RESID_LANES, resid_T(hw)
+def encode_streams_plain(q: torch.Tensor, stream_len: torch.Tensor, lanes: int, T: Optional[int]) -> ResidualPieces:
+    """Plain version over (B, width) int32 streams (zero past
+    ``stream_len``) and (B,) int32 live lengths, coded in ``lanes`` lanes
+    of ``T`` steps (as :func:`encode_fields_cuda` takes them): the residual
+    containers' pieces, with (B, lanes * T) words and (B, lanes) counts and
+    states."""
+    L, T = _check_residual(q, stream_len, lanes, T)
+    B, width = q.shape
     dev = q.device
     q = q.to(torch.int64)
-    n = stream_len.to(torch.int64).clamp(0, hw).reshape(B, 1)
-    iota = torch.arange(hw, device=dev)
+    n = stream_len.to(torch.int64).clamp(0, width).reshape(B, 1)
+    iota = torch.arange(width, device=dev)
     live = iota < n
     d = torch.where(live & (iota > 0), q - torch.nn.functional.pad(q[:, :-1], (1, 0)), 0)
     d = ((d + 2**31) & 0xFFFFFFFF) - 2**31  # int32 wrap, as the reference's int32 delta
@@ -162,17 +170,18 @@ def encode_residual_field_plain(q: torch.Tensor, stream_len: torch.Tensor) -> Re
     slot = torch.where(is_esc & (rank < ESC_CAP_DEV), rank, ESC_CAP_DEV)
     escapes = torch.zeros((B, ESC_CAP_DEV + 1), dtype=torch.int64, device=dev).scatter_(1, slot, zz)[:, :ESC_CAP_DEV]
     sym = torch.where(is_esc, ESCAPE, zz)
-    sym = torch.nn.functional.pad(sym, (0, L * T - hw)).reshape(B, L, T)
+    sym = torch.nn.functional.pad(sym, (0, L * T - width)).reshape(B, L, T)
     ctx = zigzag_magnitude_context(torch.nn.functional.pad(sym[:, :, :-1], (1, 0)))
-    key = (ctx * ALPHABET + sym).reshape(B, -1)
-    flat_live = torch.arange(L * T, device=dev) < n
-    K = NUM_CTX * ALPHABET
-    hist = torch.zeros((B, K + 1), dtype=torch.int64, device=dev)
-    hist.scatter_add_(1, torch.where(flat_live, key, K), torch.ones_like(key))
-    freqs = normalize_freqs(hist[:, :K].reshape(B, NUM_CTX, ALPHABET))
-    live_lane = (n - torch.arange(L, device=dev) * T).clamp(0, T)
-    words, n_words, counts, states = _walk_and_pack(torch.where(flat_live, key, 0).reshape(B, L, T), freqs, live_lane)
+    key, freqs, lives = joint_tables(sym, ctx, ALPHABET, NUM_CTX, n[:, 0])
+    words, n_words, counts, states = _walk_and_pack(key, freqs, lives)
     return ResidualPieces(words, n_words, counts, states, freqs, escapes, n_esc, q[:, 0].to(torch.int32))
+
+
+def encode_residual_field_plain(q: torch.Tensor, stream_len: torch.Tensor) -> ResidualPieces:
+    """Plain version over (B, HW) int quantized residual streams (zero past
+    ``stream_len``) and (B,) live lengths, at the engine's geometry (32
+    lanes of ``resid_T(HW)`` steps): the residual container's pieces."""
+    return encode_streams_plain(q.to(torch.int32), stream_len.to(torch.int32), RESID_LANES, resid_T(q.shape[1]))
 
 
 def encode_contour_field_plain(contour: torch.Tensor) -> ContourPieces:
@@ -187,11 +196,8 @@ def encode_contour_field_plain(contour: torch.Tensor) -> ContourPieces:
     left = torch.nn.functional.pad(sym[:, :, :-1], (1, 0))
     ctx = wavefront_bit_context(left.transpose(1, 2)).transpose(1, 2)
     ctx[:, :, 0] = 0
-    key = (ctx * 2 + sym).reshape(B, -1)
-    hist = torch.zeros((B, 8), dtype=torch.int64, device=dev).scatter_add_(1, key, torch.ones_like(key))
-    freqs = normalize_freqs(hist.reshape(B, 4, 2))
-    live_lane = torch.full((B, H), T, dtype=torch.int64, device=dev)
-    words, n_words, counts, states = _walk_and_pack(key.reshape(B, H, T), freqs, live_lane)
+    key, freqs, lives = joint_tables(sym, ctx, 2, 4, torch.full((B,), H * T, device=dev))
+    words, n_words, counts, states = _walk_and_pack(key, freqs, lives)
     return ContourPieces(words, n_words, counts, states, freqs)
 
 
@@ -252,7 +258,7 @@ def _library():
     lib = load_cuda_library("rans.cu")
     lib.rpcc_rans_encode_launch.restype = ctypes.c_int
     lib.rpcc_rans_encode_launch.argtypes = (
-        [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3  # q, stream_len, B_res, hw, T_res
+        [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4  # q, stream_len, B_res, width, lanes, T_res
         + [ctypes.c_void_p] + [ctypes.c_int] * 4  # contour, B_cnt, H, W, T_cnt
         + [ctypes.c_void_p] * 8  # residual outputs
         + [ctypes.c_void_p] * 5  # contour outputs
@@ -265,15 +271,28 @@ def _kernel():
     return _library().rpcc_rans_encode_launch
 
 
-def _check_residual(q: torch.Tensor, stream_len: torch.Tensor) -> None:
+def _is_int(v) -> bool:
+    return isinstance(v, (int, np.integer)) and not isinstance(v, bool)
+
+
+def _check_residual(q: torch.Tensor, stream_len: torch.Tensor, lanes: int, T: Optional[int]) -> Tuple[int, int]:
+    """Raises unless the residual inputs are valid; -> (lanes, T) as ints
+    (T None: :func:`stream_T`)."""
     if q.dtype != torch.int32 or stream_len.dtype != torch.int32:
         raise TypeError(f"q and stream_len must be int32, got {q.dtype} and {stream_len.dtype}")
     if q.ndim != 2 or q.shape[1] < 1 or stream_len.shape != (q.shape[0],):
-        raise ValueError(f"expected (B, HW) q and (B,) stream_len, got {tuple(q.shape)} and {tuple(stream_len.shape)}")
+        raise ValueError(f"expected (B, width) q and (B,) stream_len, got {tuple(q.shape)} and {tuple(stream_len.shape)}")
     if stream_len.device != q.device:
         raise ValueError("q and stream_len must share a device")
-    if RESID_LANES * resid_T(q.shape[1]) * max(q.shape[0], 1) >= 2**31:
+    if not (_is_int(lanes) and 1 <= lanes <= RESID_LANES and lanes & (lanes - 1) == 0):
+        raise ValueError(f"lanes must be a power of two in 1..{RESID_LANES}, got {lanes!r}")
+    if T is None:
+        T = stream_T(q.shape[1], lanes)
+    if not (_is_int(T) and T > 0 and T % _T_BUCKET == 0 and lanes * T >= q.shape[1]):
+        raise ValueError(f"T must be a positive multiple of {_T_BUCKET} with lanes * T >= {q.shape[1]}, got {T!r}")
+    if lanes * T * max(q.shape[0], 1) >= 2**31:
         raise ValueError("residual batch exceeds 2^31 lane steps")
+    return int(lanes), int(T)
 
 
 def _check_contour(contour: torch.Tensor) -> None:
@@ -297,16 +316,19 @@ def check_contour_fits_kernel(H: int, W: int) -> None:
 
 def encode_fields_cuda(
     q: Optional[torch.Tensor], stream_len: Optional[torch.Tensor], contour: Optional[torch.Tensor],
-    phase_stamps: Optional[torch.Tensor] = None,
+    phase_stamps: Optional[torch.Tensor] = None, lanes: int = RESID_LANES, T: Optional[int] = None,
 ) -> Tuple[Optional[ResidualPieces], Optional[ContourPieces]]:
-    """The CUDA kernel on CUDA tensors: the residual pieces of (B, HW) int32
-    ``q`` with (B,) int32 ``stream_len`` and the contour pieces of a
-    (B', H, W) int32 ``contour``, either of them None, in one launch on the
-    current stream (no synchronize); raises on any other input.
-    ``phase_stamps``, an int64 CUDA tensor of ``len(STAMP_BLOCKS) *
-    (len(PHASES) + 1)`` elements, receives the ``%globaltimer`` (ns) at the
-    bounds of the phases of frame 0's residual block, then of its contour
-    block (a field not coded leaves its stamps as they were)."""
+    """The CUDA kernel on CUDA tensors: the residual pieces of (B, width)
+    int32 ``q`` with (B,) int32 ``stream_len``, coded in ``lanes`` lanes
+    (a power of two up to 32) of ``T`` steps (a multiple of 16, lanes * T >=
+    width; None: :func:`stream_T`, which is ``resid_T(width)`` at the
+    engine's 32 lanes), and the contour pieces of a (B', H, W) int32
+    ``contour``, either field None, in one launch on the current stream (no
+    synchronize); raises on any other input.  ``phase_stamps``, an int64
+    CUDA tensor of ``len(STAMP_BLOCKS) * (len(PHASES) + 1)`` elements,
+    receives the ``%globaltimer`` (ns) at the bounds of the phases of frame
+    0's residual block, then of its contour block (a field not coded leaves
+    its stamps as they were)."""
     global LAUNCHES
     if q is None and contour is None:
         raise ValueError("nothing to encode")
@@ -322,11 +344,10 @@ def encode_fields_cuda(
         or phase_stamps.numel() != n_stamps or not phase_stamps.is_contiguous()
     ):
         raise ValueError(f"phase_stamps must be a contiguous int64 tensor of {n_stamps} on {dev}")
-    br = hw = t_res = 0
+    br = width = t_res = 0
     if q is not None:
-        _check_residual(q, stream_len)
-        br, hw = q.shape
-        t_res = resid_T(hw)
+        lanes, t_res = _check_residual(q, stream_len, lanes, T)
+        br, width = q.shape
     bc = H = W = t_cnt = 0
     if contour is not None:
         _check_contour(contour)
@@ -334,7 +355,7 @@ def encode_fields_cuda(
         check_contour_fits_kernel(H, W)
         t_cnt = contour_T(H, W)
     fn = _kernel()
-    n_scratch = br * RESID_LANES * t_res + bc * H * t_cnt
+    n_scratch = br * lanes * t_res + bc * H * t_cnt
     with torch.cuda.device(dev):
         def empty(shape, dtype):
             return torch.empty(shape, dtype=dtype, device=dev)
@@ -342,8 +363,8 @@ def encode_fields_cuda(
         res = cnt = None
         if q is not None:
             res = ResidualPieces(
-                empty((br, RESID_LANES * t_res), torch.int16), empty((br,), torch.int32),
-                empty((br, RESID_LANES), torch.int32), empty((br, RESID_LANES), torch.int64),
+                empty((br, lanes * t_res), torch.int16), empty((br,), torch.int32),
+                empty((br, lanes), torch.int32), empty((br, lanes), torch.int64),
                 empty((br, NUM_CTX, ALPHABET), torch.int32), empty((br, ESC_CAP_DEV), torch.int64),
                 empty((br,), torch.int32), empty((br,), torch.int32),
             )
@@ -356,7 +377,7 @@ def encode_fields_cuda(
         word_scratch = empty((max(n_scratch, 1),), torch.int16)
         ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
         err = fn(
-            ptr(q), ptr(stream_len), br, hw, t_res,
+            ptr(q), ptr(stream_len), br, width, lanes if q is not None else 0, t_res,
             ptr(contour), bc, H, W, t_cnt,
             *([p.data_ptr() for p in res] if res is not None else [None] * 8),
             *([p.data_ptr() for p in cnt] if cnt is not None else [None] * 5),
@@ -365,27 +386,34 @@ def encode_fields_cuda(
         )
     if err != 0:
         raise RuntimeError(f"rANS kernel launch failed: cudaError_t {err}")
-    LAUNCHES += 1
+    with _LAUNCHES_LOCK:
+        LAUNCHES += 1
     return res, cnt
 
 
+def encode_streams_cuda(q: torch.Tensor, stream_len: torch.Tensor, lanes: int, T: int) -> ResidualPieces:
+    """The residual pieces of :func:`encode_streams_plain`'s inputs from one
+    launch of the CUDA kernel (:func:`encode_fields_cuda`)."""
+    return encode_fields_cuda(q, stream_len, None, lanes=lanes, T=T)[0]
+
+
 def encode_fields_device(
-    q: Optional[torch.Tensor], stream_len: Optional[torch.Tensor], contour: Optional[torch.Tensor]
+    q: Optional[torch.Tensor], stream_len: Optional[torch.Tensor], contour: Optional[torch.Tensor],
+    lanes: int = RESID_LANES, T: Optional[int] = None,
 ) -> Tuple[Optional[ResidualPieces], Optional[ContourPieces]]:
     """Both fields' container pieces on the tensors' own device: one kernel
     launch for CUDA tensors, the plain versions for CPU tensors.  Either
-    field may be None."""
+    field may be None; ``lanes`` and ``T`` as in :func:`encode_fields_cuda`."""
     tensors = [t for t in (q, stream_len, contour) if t is not None]
     if not tensors:
         raise ValueError("nothing to encode")
     if tensors[0].device.type == "cuda":
-        return encode_fields_cuda(q, stream_len, contour)
+        return encode_fields_cuda(q, stream_len, contour, lanes=lanes, T=T)
     if any(t.device.type != "cpu" for t in tensors):
         raise ValueError(f"unsupported devices {[str(t.device) for t in tensors]}")
     res = cnt = None
     if q is not None:
-        _check_residual(q, stream_len)
-        res = encode_residual_field_plain(q, stream_len)
+        res = encode_streams_plain(q, stream_len, lanes, T)
     if contour is not None:
         _check_contour(contour)
         cnt = encode_contour_field_plain(contour)
@@ -393,13 +421,33 @@ def encode_fields_device(
 
 
 def encode_residual_field_device(q: torch.Tensor, stream_len: torch.Tensor) -> ResidualPieces:
-    """The residual pieces alone (:func:`encode_fields_device`)."""
+    """The residual pieces alone at the engine's geometry (:func:`encode_fields_device`)."""
     return encode_fields_device(q, stream_len, None)[0]
 
 
 def encode_contour_field_device(contour: torch.Tensor) -> ContourPieces:
     """The contour pieces alone (:func:`encode_fields_device`)."""
     return encode_fields_device(None, None, contour)[1]
+
+
+def upload_streams(arrays, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Integer streams (int16, uint16 or int32 arrays of any lengths) ->
+    (q (B, max(n_max, 1)) int32, zero past each stream, and (B,) int32
+    lengths) on ``device``, as the kernel takes them."""
+    width = max([int(np.asarray(a).size) for a in arrays] + [1])
+    q = np.zeros((len(arrays), width), np.int32)
+    for b, a in enumerate(arrays):
+        a = np.asarray(a).reshape(-1)
+        q[b, : a.size] = a
+    lens = np.asarray([np.asarray(a).size for a in arrays], np.int32)
+    return torch.from_numpy(q).to(device), torch.from_numpy(lens).to(device)
+
+
+def upload_contours(packed: np.ndarray, H: int, W: int, device) -> torch.Tensor:
+    """(B, ceil(H * W / 8)) u8 packed contour bits (MSB first) -> the
+    kernel's (B, H, W) int32 planes on ``device``."""
+    bits = np.unpackbits(np.asarray(packed, np.uint8).reshape(len(packed), -1), axis=1)[:, : H * W]
+    return torch.from_numpy(bits.reshape(-1, H, W)).to(device).to(torch.int32)
 
 
 # ------------------------------------------------------------------ decode

@@ -413,6 +413,7 @@ def test_default_backend_needs_a_card(monkeypatch):
     decodes on the host, and neither does any other value than cpu."""
     blobs, _ = _device_residual_blobs()
     c_blobs, _ = _device_contour_blobs(8, 64)
+    z = rans_codec.compress_delta_batch([np.arange(100, dtype=np.int16)])[0]  # encoded on the host
     monkeypatch.setattr(rans_codec, "_RANS_DEVICE", "default")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -423,7 +424,6 @@ def test_default_backend_needs_a_card(monkeypatch):
         rans_codec.decompress(blobs[0])
     # An explicit device still decodes, and a batch with no rANS container needs none.
     assert rans_codec.decompress_delta_batch(blobs[:1], device="cpu") == ref_codec.decompress_delta_batch(blobs[:1])
-    z = rans_codec.compress_delta_batch([np.arange(100, dtype=np.int16)])[0]
     assert z[0] == rans_codec.MAGIC_BZD and rans_codec.decompress_delta_batch([z]) == [np.arange(100, dtype=np.int16).tobytes()]
     # As in the reference, any value other than cpu names the card.
     monkeypatch.setattr(rans_codec, "_RANS_DEVICE", "gpu")
