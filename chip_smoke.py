@@ -165,7 +165,20 @@ Phases (each raises on failure, and the process then exits nonzero):
      backend within bound and equal to each other; then both CLIs on four
      32E channel-table frames in f32 with ``cpu_fps`` from a
      ``--compressor_yaml``, ``--no-device_entropy`` and ``--eval`` (one OK
-     line per frame).
+     line per frame);
+  8. the data-parallel layer: phase 6's 20 frames written five times (100
+     frames; copy 0 holds phase 6's seeds) encoded at a global B = 8 by the
+     datalist CLI's rank function through ``run_data_parallel``, on
+     ``[cuda:0]`` (NCCL, a world of one) and on ``[cuda:0, cuda:0]`` (gloo,
+     two processes on the one card): the backend printed is the rule's,
+     copy 0's blobs equal phase 6's, both runs' blobs are equal, each
+     rank's ``sharded_stats`` equals the host sums, and each rank launched
+     the FPS and rANS kernels once per batch of its own; the rate after
+     every rank's first batch, each rank's start-up and the all-reduce's
+     time are printed; the 2-rank device decode of copy 0 writes the host
+     decoder's points; ``compress_datalist`` at its default
+     ``--num_devices`` (one process on one card) writes phase 6's blobs.
+     A watchdog stops the ranks of a launch that outlasts 300 s.
 
 A time is the median of 21 CUDA-event samples of one call each, as in
 every earlier run; a kernel is also timed over 10 calls back to back per
@@ -192,6 +205,7 @@ import struct
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -204,6 +218,11 @@ BATCH_SEEDS = tuple(range(20))  # phase 6: batches of 8, 8 and 4
 STREET_SEEDS = (10, 11, 12, 13)  # phases 3c and 6 (DBSCAN at B = 4)
 STREET_SEEDS_8 = tuple(range(10, 18))  # phase 3c at B = 8
 CLI_FRAMES = 10  # phase 7: batches of 4, 4 and 2
+# Phase 8: phase 6's 20 frames written this many times (frames 20 p .. 20 p
+# + 19 of the datalist are copy p), so a rank's first-call costs weigh on
+# 100 frames, not 20; copy 0 keeps phase 6's seeds.
+DP_COPIES = 5
+DP_TIMEOUT_S = 300  # phase 8: the ranks of one launch are stopped after this
 # Phase 3: a 64E frame, a batch, N not divisible by C * threads, N < C, and
 # N above a cluster's on-chip capacity (16 CTAs x 16,384 points).
 FPS_SHAPES = ((1, 128000, 100), (4, 128000, 100), (2, 4133, 32), (1, 7, 5), (1, 400000, 16))
@@ -2070,12 +2089,14 @@ def phase_engine(torch, np, dev, card, lidar, codec):
           f"{len(hblobs) / hstats['dispatch_s']:.3f} (host)")
 
     hengine1 = BatchEngine(lidar, hcfg, dev, batch_size=1)
+    rates = {}
     for tag, engines, eblobs in (("device entropy", {1: engine1, B: engine}, blobs),
                                  ("host entropy", {1: hengine1, B: hengine}, hblobs)):
         for b, eng in engines.items():
             w = work1 if b == 1 else work
             enc = _frames_per_s(eng, lambda e, w=w: [r for r in e.encode_pipeline(w)], len(frames))
             dec_r = _frames_per_s(eng, lambda e, b=b: [r for r in e.decode_pipeline(_batches(eblobs, b))], len(frames))
+            rates[tag, b] = enc
             print(f"[phase 6] [{card}] {tag} pipeline B={b}, {len(frames)} frames, median (min-max) of {RATE_PASSES} "
                   f"passes: encode {enc[0]:.3f} ({enc[1]:.3f}-{enc[2]:.3f}) frames/s, "
                   f"decode {dec_r[0]:.3f} ({dec_r[1]:.3f}-{dec_r[2]:.3f}) frames/s")
@@ -2145,7 +2166,7 @@ def phase_engine(torch, np, dev, card, lidar, codec):
                 fps_bound=(fps_bound_ms, fps_bound_by),
                 fps_shape=f"B={B} N={lidar.height * lidar.width} K={cfg.cluster_num}",
                 fps_launches=launches["fps"], db_launches=db_launches["dbscan"], rans_launches=launches["rans"],
-                batches=len(work), blobs=blobs)
+                batches=len(work), blobs=blobs, encode_rate=rates["device entropy", B])
 
 
 def engine_dropped_returns(torch, np, dev, lidar, street):
@@ -2354,6 +2375,150 @@ def phase_datalist(np, codec, lidar):
         shutil.rmtree(work, ignore_errors=True)
 
 
+@contextlib.contextmanager
+def rank_watchdog(seconds: float):
+    """Stop this process's child processes (the ranks of a launch) if the
+    block outlasts ``seconds``: the launcher then raises, and the phase
+    fails instead of hanging."""
+    import multiprocessing
+
+    def stop():
+        for child in multiprocessing.active_children():
+            child.kill()
+
+    timer = threading.Timer(seconds, stop)
+    timer.start()
+    try:
+        yield
+    finally:
+        timer.cancel()
+
+
+def launch_ranks(fn, devices, args, file_list, want_backend: str):
+    """``run_data_parallel(fn, devices, args, file_list, t_launch)`` under
+    the watchdog; checks the backend it printed.  -> the ranks' results."""
+    from rpcc_tpu_torch.parallel.mesh import run_data_parallel
+
+    buf = io.StringIO()
+    with rank_watchdog(DP_TIMEOUT_S), contextlib.redirect_stdout(buf):
+        results = run_data_parallel(fn, devices, args, file_list, time.time())
+    said = buf.getvalue().strip()
+    print(f"[phase 8] {said}")
+    check(said.endswith(f"backend {want_backend}"), f"launcher printed {said!r}; the rule names {want_backend}")
+    return results
+
+
+def steady_rate(results) -> float:
+    """frames/s of the ranks together, after their first calls: frames
+    written inside the window from the last rank's first batch to the first
+    rank's last, over its length."""
+    marks = [rr["marks"] for rr in results if len(rr["marks"]) > 1]
+    t0 = max(m[0][0] for m in marks)
+    t1 = min(m[-1][0] for m in marks)
+    check(t1 > t0, f"no window in which every rank was past its first batch: {marks}")
+    return sum(f for m in marks for t, f in m if t0 < t <= t1) / (t1 - t0)
+
+
+def phase_data_parallel(torch, np, card, lidar, codec, eng):
+    """8: the data-parallel layer on the one card: the datalist CLI's rank
+    function over NCCL with one rank and over gloo with two ranks on the
+    card, phase 6's blobs and host sums, the 2-rank decode, and the CLI at
+    its default ``--num_devices``."""
+    from rpcc_tpu_torch.cli import compress_datalist, decompress_datalist
+    from rpcc_tpu_torch.cli.compress_datalist import _mirror_path
+    from rpcc_tpu_torch.config import CodecConfig
+    from rpcc_tpu_torch.data.synth import synth_cloud_for
+    from rpcc_tpu_torch.models.host_decoder import HostDecoder
+    from rpcc_tpu_torch.parallel.aggregate import batch_report, batch_totals
+    from rpcc_tpu_torch.parallel.mesh import rank_frames
+
+    B = 8
+    cuda0 = torch.device("cuda", 0)
+    frames = [synth_cloud_for(lidar, s) for s in BATCH_SEEDS]
+    points = [max(int(codec.encode_device(pc).stream_len.item()), 1) for pc in frames]
+    work = tempfile.mkdtemp(prefix=".chip_smoke_", dir=ROOT)
+    try:
+        srcs = []
+        for c in range(DP_COPIES):
+            os.makedirs(os.path.join(work, "bin", f"copy{c}"))
+            for i, pc in enumerate(frames):
+                srcs.append(os.path.join(work, "bin", f"copy{c}", f"{i:06d}.bin"))
+                write_bin(np, srcs[-1], pc)
+        common = ["--lidar", LIDAR, "--device", "cuda", "--batch", str(B)]
+        runs = {}
+        for world, devices, backend in ((1, [cuda0], "nccl"), (2, [cuda0, cuda0], "gloo")):
+            out = os.path.join(work, f"rpcc{world}")
+            args = compress_datalist.build_parser().parse_args(["--datalist", "-", "--output_dir", out, *common])
+            res = launch_ranks(compress_datalist.compress_rank, devices, args, srcs, backend)
+            blobs = []
+            for path in srcs:
+                with open(_mirror_path(path, out, "rpcc"), "rb") as f:
+                    blobs.append(f.read())
+            check(blobs[: len(frames)] == eng["blobs"],
+                  f"{world}-rank ({backend}) blobs of copy 0 differ from phase 6's B = {B} engine blobs")
+            want = {**batch_report(batch_totals(points * DP_COPIES, [len(b) for b in blobs])), "errors": 0}
+            for r, rr in enumerate(res):
+                check(rr["report"] == want, f"{world}-rank rank {r}: sharded_stats {rr['report']} != host sums {want}")
+                b, idx = rank_frames(len(srcs), B, r, world)
+                n_batches = -(-len(idx) // b)
+                got = {k: rr["launches"][k] for k in ("fps", "rans")}
+                check(got == {"fps": n_batches, "rans": n_batches},
+                      f"{world}-rank rank {r}: launches {rr['launches']}, expected one FPS and one rANS launch for "
+                      f"each of its {n_batches} batches")
+            enter = max(rr["reduce"][0] for rr in res)
+            reduce_ms = (min(rr["reduce"][1] for rr in res) - enter) * 1e3
+            rate = want["frames"] / res[0]["seconds"]
+            steady = steady_rate(res)
+            runs[world] = (blobs, steady, [rr["launches"] for rr in res])
+            print(f"[phase 8] [{card}] {world} rank(s), {backend}, global B={B}, {len(srcs)} frames ({DP_COPIES} copies "
+                  f"of phase 6's 20): blobs of copy 0 == phase 6's (sha256 {hashlib.sha256(b''.join(blobs[:20])).hexdigest()[:16]}), "
+                  f"sharded_stats == host sums {json.dumps(want)}, launches per rank "
+                  f"{[{k: rr['launches'][k] for k in ('fps', 'rans')} for rr in res]}")
+            print(f"[phase 8] [{card}] {world} rank(s), {backend}: {rate:.3f} frames/s from the start barrier to the "
+                  f"reduce ({res[0]['seconds']:.4f} s), {steady:.3f} frames/s after every rank's first batch; "
+                  f"start-up per rank {[round(rr['startup_s'], 4) for rr in res]} s, of which spawn, imports, CUDA "
+                  f"context and the group {[round(rr['entry_s'], 4) for rr in res]} s (the rest: the engine build); "
+                  f"all_reduce {reduce_ms:.4f} ms after the last rank entered it")
+        check(runs[1][0] == runs[2][0], "2-rank blobs differ from 1-rank blobs")
+        print(f"[phase 8] [{card}] encode rate after the first batches, 2 ranks / 1 rank on one card: "
+              f"{runs[2][1]:.3f} / {runs[1][1]:.3f} = {runs[2][1] / runs[1][1]:.3f}x; phase 6's warm single engine "
+              f"at B={B}: {eng['encode_rate'][0]:.3f} frames/s (2 ranks: {runs[2][1] / eng['encode_rate'][0]:.3f}x)")
+
+        # The 2-rank decode of copy 0 on the device backend == the host decoder.
+        outs = [_mirror_path(p, os.path.join(work, "rpcc2"), "rpcc") for p in srcs[: len(frames)]]
+        rec = os.path.join(work, "rec2")
+        args = decompress_datalist.build_parser().parse_args(["--datalist", "-", "--output_dir", rec, *common])
+        check(args.decode_backend == "device", f"decompress_datalist defaults to {args.decode_backend}")
+        res = launch_ranks(decompress_datalist.decompress_rank, [cuda0, cuda0], args, outs, "gloo")
+        want = HostDecoder(lidar, CodecConfig()).decode_blobs_points(runs[2][0][: len(frames)])
+        diff = 0.0
+        for path, w in zip(outs, want):
+            got = np.fromfile(_mirror_path(path, rec, "bin"), np.float32).reshape(-1, 4)
+            check(got.shape == w.shape, f"2-rank decode of {path}: {got.shape[0]} rows, host decoder {w.shape[0]}")
+            diff = max(diff, float(np.abs(got - w).max()))
+        check(diff <= 1e-5, f"2-rank device decode differs from the host decoder by {diff}")
+        check(res[0]["report"]["frames"] == len(frames), f"2-rank decode report {res[0]['report']}")
+        print(f"[phase 8] [{card}] 2-rank device decode of {len(outs)} blobs: host decoder's points "
+              f"(max |diff| {diff:.3g}), {res[0]['report']['frames'] / res[0]['seconds']:.3f} frames/s, first calls "
+              f"included")
+
+        # The CLI at its default --num_devices (every visible card).
+        lst = os.path.join(work, "list.txt")
+        with open(lst, "w") as f:
+            f.write("\n".join(srcs[: len(frames)]) + "\n")
+        out = os.path.join(work, "rpcc_cli")
+        stdout = run_cli("compress_datalist", ["--datalist", lst, "--output_dir", out, *common], 8)
+        n_cards = torch.cuda.device_count()
+        check(("data parallel:" in stdout) == (n_cards > 1), f"{n_cards} card(s), yet the CLI printed:\n{stdout}")
+        for path, blob in zip(srcs, eng["blobs"]):
+            with open(_mirror_path(path, out, "rpcc"), "rb") as f:
+                check(f.read() == blob, f"compress_datalist at its default --num_devices: {path} != phase 6's blob")
+        print(f"[phase 8] compress_datalist at the default --num_devices ({n_cards} card(s)): blobs == phase 6's")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return runs[2][2]
+
+
 def phase_against(torch, np, dev, card, lidar, root: str) -> None:
     """``--against``: the FPS, DBSCAN and (where the checkout has it) rANS
     kernels of ``root``'s package timed as in phases 3/3b/3c/3e, and the
@@ -2494,6 +2659,7 @@ def main() -> int:
     dec = phase_rans_decode(torch, np, dev, card, lidar, codec, frames, eng)  # 3f
     host = phase_rans_host(torch, np, dev, card, lidar, codec, frames)  # 3g
     phase_datalist(np, codec, lidar)  # 7
+    rank_launches = phase_data_parallel(torch, np, card, lidar, codec, eng)  # 8
     check_isolated()
     print(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s")
 
@@ -2520,7 +2686,8 @@ def main() -> int:
     # (phase 3g, on phase 6's first batch at B = 1 and 8, and a 1,000-symbol
     # field): kernel times, the encode calls on both backends and the native
     # host encode; it is off the main path, whose ``launches`` stay the
-    # engine's.
+    # engine's.  ``launches_per_rank_two_ranks`` is each rank's count in
+    # phase 8's 2-rank encode (its own process, counted by itself).
     print(json.dumps({"kernels": [
         {
             "name": "fps",
@@ -2530,6 +2697,7 @@ def main() -> int:
             "launches": eng["fps_launches"],
             "launches_per_encode": fps_per_encode * LAUNCHES_PER_CALL["fps"],
             "launches_per_points_encode": points_launches["fps"],
+            "launches_per_rank_two_ranks": [r["fps"] for r in rank_launches],
             "max_abs_err": max(fps_err, eng["fps_err"]),
             "shape": eng["fps_shape"],
             "ms": eng["fps_ms"],
@@ -2591,6 +2759,7 @@ def main() -> int:
             "launches": eng["rans_launches"],
             "launches_per_batch": eng["rans_launches"] / eng["batches"],
             "launches_per_points_encode": points_launches["rans"],
+            "launches_per_rank_two_ranks": [r["rans"] for r in rank_launches],
             "max_abs_err": rans["err"],
             "shape": rans[8]["shape"],
             "ms": rans[8]["ms"],

@@ -8,6 +8,7 @@ the quality report of ``--eval`` lives here for all of them."""
 from __future__ import annotations
 
 import argparse
+import time
 
 import numpy as np
 
@@ -26,6 +27,10 @@ def add_codec_args(parser: argparse.ArgumentParser, datalist: bool = False) -> N
                             help="resume: skip frames whose output file already exists.")
         parser.add_argument("--keep_going", action="store_true",
                             help="failure isolation: log per-frame errors and continue.")
+        parser.add_argument("--num_devices", type=int, default=None,
+                            help="engine processes, one per device (cuda:0 .. cuda:N-1, or N CPU ranks with "
+                            "--device cpu); --batch is split across them (default: every visible card with "
+                            "--device cuda, else 1).")
     else:
         parser.add_argument("--input", required=True, help="input file.")
         parser.add_argument("--output", required=True, help="output file.")
@@ -88,6 +93,38 @@ def config_from_args(args: argparse.Namespace) -> CodecConfig:
 def device_from_args(args: argparse.Namespace) -> str:
     """``--device``, or the CPU when ``--cpu`` asks for it."""
     return "cpu" if args.cpu else args.device
+
+
+def devices_from_args(args: argparse.Namespace) -> list:
+    """The datalist CLIs' devices: ``--num_devices`` of ``--device``'s kind
+    (``parallel/mesh.py::data_devices``), or ``--device`` itself for one."""
+    import torch
+
+    from rpcc_tpu_torch.parallel.mesh import data_devices
+
+    device = torch.device(device_from_args(args))
+    n = args.num_devices
+    if n is None:
+        n = max(torch.cuda.device_count(), 1) if device == torch.device("cuda") else 1
+    if n == 1:
+        return [device]  # one engine in this process; a missing card raises when it is built
+    if device.index is not None:
+        raise SystemExit(f"--num_devices {n} runs on cuda:0 .. cuda:{n - 1}; pass --device cuda, not {device}")
+    return data_devices(n, device.type)
+
+
+def run_ranks(rank_fn, devices: list, *args) -> list:
+    """``rank_fn(rank, world, device, *args, t_launch)`` for each device:
+    in this process for one device (no process group), else in one process
+    per device (``parallel/mesh.py::run_data_parallel``); -> the ranks'
+    results.  ``t_launch`` is the wall clock before the ranks start, for
+    their start-up times."""
+    t_launch = time.time()
+    if len(devices) == 1:
+        return [rank_fn(0, 1, devices[0], *args, t_launch)]
+    from rpcc_tpu_torch.parallel.mesh import run_data_parallel
+
+    return run_data_parallel(rank_fn, devices, *args, t_launch)
 
 
 def lidar_from_args(args: argparse.Namespace) -> LidarConfig:

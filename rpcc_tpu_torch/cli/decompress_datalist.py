@@ -3,15 +3,19 @@
 Usage:
     python -m rpcc_tpu_torch.cli.decompress_datalist --datalist list.txt \
         --output_dir rec/ --lidar Velodyne64E --device cuda \
-        [--decode_backend host|device --batch 8 --workers 4 --skip_existing --keep_going]
+        [--decode_backend device|host --batch 8 --workers 4 --skip_existing --keep_going --num_devices N]
 
 Reads each bitstream, decodes it in batches and writes the reconstructed
 cloud as .bin (float32 x, y, z, 0 rows; points at the origin dropped),
 mirroring the input paths under ``--output_dir``.  ``--decode_backend
-host`` (the default) reconstructs on the host with the native decoder;
-``device`` runs the batched decoder graph on ``--device``.  Both write the
-same floats.  The configuration flags must match the ones the frames were
-compressed with.
+device`` (the default) runs the batched decoder graph on ``--device``,
+the card unless the CPU is asked for; ``host`` reconstructs on the host
+with the native decoder, in one process.  Both write the same floats.
+With more than one device (``--num_devices``; by default every visible
+card) the device backend runs one engine process per device, each on its
+share of every global batch (``parallel/mesh.py::rank_frames``), and sums
+the totals with one ``all_reduce``.  The configuration flags must match
+the ones the frames were compressed with.
 """
 
 from __future__ import annotations
@@ -23,7 +27,13 @@ import time
 
 import numpy as np
 
-from rpcc_tpu_torch.cli.common import add_codec_args, config_from_args, device_from_args, lidar_from_args
+from rpcc_tpu_torch.cli.common import (
+    add_codec_args,
+    config_from_args,
+    devices_from_args,
+    lidar_from_args,
+    run_ranks,
+)
 from rpcc_tpu_torch.cli.compress_datalist import _mirror_path, output_path_for
 
 
@@ -34,9 +44,9 @@ def _read_bytes(path: str) -> bytes:
 
 def _write_batch_async(io_pool, names, write_one, keep_going: bool):
     """Submit one decoded batch's writes on the IO pool, with per-frame
-    failure isolation.  Returns ``drain() -> number written``; the caller
-    drains the previous batch after dispatching the next, so one batch of
-    writes is in flight while the next one decodes."""
+    failure isolation.  Returns ``drain() -> the positions written``; the
+    caller drains the previous batch after dispatching the next, so one
+    batch of writes is in flight while the next one decodes."""
 
     def safe(i: int):
         try:
@@ -47,26 +57,32 @@ def _write_batch_async(io_pool, names, write_one, keep_going: bool):
 
     futs = [io_pool.submit(safe, i) for i in range(len(names))]
 
-    def drain() -> int:
-        fails = [r for r in (f.result() for f in futs) if r is not None]
+    def drain() -> list:
+        results = [f.result() for f in futs]
+        fails = [r for r in results if r is not None]
         for name, err in fails:
             print(f"ERROR writing output for {name}: {err}")
         if fails and not keep_going:
             raise fails[0][1]
-        return len(names) - len(fails)
+        return [i for i, r in enumerate(results) if r is None]
 
     return drain
 
 
-def main(argv=None) -> None:
+def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     add_codec_args(parser, datalist=True)
-    parser.add_argument("--decode_backend", choices=("device", "host"), default="host",
-                        help="host (default): native C++ reconstruction; device: the batched "
-                        "decoder graph on --device.")
-    args = parser.parse_args(argv)
-    cfg = config_from_args(args)
-    lidar = lidar_from_args(args)
+    parser.add_argument("--decode_backend", choices=("device", "host"), default="device",
+                        help="device (default): the batched decoder graph on --device; host: native C++ "
+                        "reconstruction, in one process.")
+    return parser
+
+
+def main(argv=None) -> list:
+    """-> each rank's :func:`decompress_rank` result."""
+    args = build_parser().parse_args(argv)
+    config_from_args(args)
+    lidar_from_args(args)  # flag errors surface here, before any rank starts
 
     from rpcc_tpu_torch.data import read_datalist
 
@@ -78,21 +94,28 @@ def main(argv=None) -> None:
         before = len(file_list)
         file_list = [f for f in file_list if not os.path.exists(_mirror_path(f, args.output_dir, "bin"))]
         print(f"--skip_existing: {before - len(file_list)} done, {len(file_list)} to go")
-    name_batches = [file_list[s : s + args.batch] for s in range(0, len(file_list), args.batch)]
-    io_pool = futures.ThreadPoolExecutor(args.workers)
-    done = 0
-    pending = None
+    devices = devices_from_args(args) if args.decode_backend == "device" else [None]
+    return run_ranks(decompress_rank, devices, args, file_list)
 
-    def queue_writes(names, pts) -> None:
-        nonlocal done, pending
 
-        def write(i: int) -> None:
-            np.ascontiguousarray(pts[i], "<f4").tofile(output_path_for(names[i], args.output_dir, "bin"))
+def decompress_rank(rank: int, world: int, device, args: argparse.Namespace, file_list, t_launch: float) -> dict:
+    """Decode and write rank ``rank``'s frames of ``file_list`` (of
+    ``world``; ``parallel/mesh.py::rank_frames``) on ``device`` (unused by
+    the host backend; ``t_launch`` is unused).  With a process group the totals (frames written,
+    their points and input bits, errors) are summed over the ranks by the
+    engine's ``sharded_stats``, and rank 0 prints the summary line.  -> the
+    summed report and the wall seconds from the start (the group's
+    barrier) to the totals."""
+    import torch.distributed as dist
 
-        if pending is not None:
-            done += pending()
-        pending = _write_batch_async(io_pool, names, write, args.keep_going)
+    from rpcc_tpu_torch.parallel.aggregate import batch_report, batch_totals
+    from rpcc_tpu_torch.parallel.mesh import rank_frames
 
+    cfg = config_from_args(args)
+    lidar = lidar_from_args(args)
+    group = dist.group.WORLD if dist.is_initialized() else None
+    b, indices = rank_frames(len(file_list), args.batch, rank, world)
+    name_batches = [[file_list[i] for i in indices[s : s + b]] for s in range(0, len(indices), b)]
     if args.decode_backend == "host":
         from rpcc_tpu_torch.models.host_decoder import HostDecoder
 
@@ -101,9 +124,29 @@ def main(argv=None) -> None:
     else:
         from rpcc_tpu_torch.parallel.engine import BatchEngine
 
-        engine = BatchEngine(lidar, cfg, device_from_args(args), batch_size=args.batch, workers=args.workers)
+        engine = BatchEngine(lidar, cfg, device, batch_size=b, workers=args.workers, group=group)
         decode = engine.decode_blobs_points
+    io_pool = futures.ThreadPoolExecutor(args.workers)
+    points, sizes = [], []
+    pending = None
 
+    def count(names, pts, drain) -> None:
+        for i in drain():
+            points.append(len(pts[i]))
+            sizes.append(os.path.getsize(names[i]))
+
+    def queue_writes(names, pts) -> None:
+        nonlocal pending
+
+        def write(i: int) -> None:
+            np.ascontiguousarray(pts[i], "<f4").tofile(output_path_for(names[i], args.output_dir, "bin"))
+
+        if pending is not None:
+            count(*pending)
+        pending = (names, pts, _write_batch_async(io_pool, names, write, args.keep_going))
+
+    if group is not None:
+        dist.barrier(group)
     t0 = time.time()  # after start-up, as in compress_datalist
     if engine is None or args.keep_going:
         # One batch at a time, so a corrupt bitstream only skips its batch.
@@ -122,11 +165,20 @@ def main(argv=None) -> None:
         for names, pts in zip(name_batches, engine.decode_pipeline(blob_batches)):
             queue_writes(names, pts)
     if pending is not None:
-        done += pending()
+        count(*pending)
+    errors = len(indices) - len(points)
+    if group is None:
+        rep = {**batch_report(batch_totals(points, sizes)), "errors": errors}
+    else:
+        rep = engine.sharded_stats(points, sizes, errors)
+    dt = time.time() - t0
     if engine is not None:
         engine.close()
-    dt = time.time() - t0
-    print(f"\nDecompressed {done} frames in {dt:.2f}s ({done / dt:.2f} frames/s)")
+    if rank == 0:
+        done = rep["frames"]
+        print(f"\nDecompressed {done} frames in {dt:.2f}s ({done / dt:.2f} frames/s)"
+              + (f", {rep['errors']} errors" if rep["errors"] else ""))
+    return dict(report=rep, seconds=dt)
 
 
 if __name__ == "__main__":

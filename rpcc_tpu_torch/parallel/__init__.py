@@ -1,4 +1,4 @@
-"""Frame batches on one device: the batch engine, the datalist prefetcher
-and the throughput totals (port of ``rpcc_tpu/parallel``, without the mesh:
-one engine drives one card).  Import the submodules directly; this package
-imports nothing itself."""
+"""Frame batches: the batch engine, the datalist prefetcher, the
+throughput totals and the data-parallel launcher (port of
+``rpcc_tpu/parallel``: one engine process per device in place of the mesh).
+Import the submodules directly; this package imports nothing itself."""

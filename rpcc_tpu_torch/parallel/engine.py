@@ -36,10 +36,12 @@ graph and the entropy coders are): with ``device_entropy=False`` they equal
 the single-frame codec's for the same seed, and with device entropy the
 B = 1 engine's and ``rpcc_tpu``'s device containers for the same stream.
 The JAX engine's TPU transfer codes (i8/d8/m8, bucketed prefix lengths, the
-u8 sequence cast, the mesh) are not ported: the wire is the u16 snap grid
-up and the i16/u16 live prefixes (or compressed words) down, and decode
-brings back the (B, H, W) f32 range image, so the device backend's points
-match the host backend's within f32 ulps.
+u8 sequence cast) are not ported: the wire is the u16 snap grid up and the
+i16/u16 live prefixes (or compressed words) down, and decode brings back
+the (B, H, W) f32 range image, so the device backend's points match the
+host backend's within f32 ulps.  In place of the JAX engine's mesh, one
+engine runs in each rank of a process group (``parallel/mesh.py``), and
+:meth:`BatchEngine.sharded_stats` sums the ranks' totals.
 """
 
 from __future__ import annotations
@@ -64,6 +66,7 @@ from rpcc_tpu_torch.models.encoder import Encoder, EncoderOutput, num_model_rows
 from rpcc_tpu_torch.models.pipeline import resolve_device
 from rpcc_tpu_torch.ops.projection_host import build_transform_map, build_transform_planes, project_for_encoder
 from rpcc_tpu_torch.ops.rans_device import ESC_CAP_DEV, RESID_LANES, contour_T, resid_T
+from rpcc_tpu_torch.parallel.aggregate import all_reduce_totals, batch_report, batch_totals
 
 RING_SLOTS = 3  # pinned upload buffers in flight
 
@@ -150,7 +153,8 @@ class BatchEngine:
     """Batched encode and decode of one LiDAR geometry on one device: the
     card unless the CPU is asked for.  A CUDA device is used as named and
     never swapped for the CPU; a CPU device runs the same stages
-    synchronously."""
+    synchronously.  ``group``: the ``torch.distributed`` process group of
+    the ranks this engine is one of, for :meth:`sharded_stats`."""
 
     def __init__(
         self,
@@ -159,6 +163,7 @@ class BatchEngine:
         device="cuda",
         batch_size: int = 8,
         workers: int = 4,
+        group=None,
     ):
         if batch_size < 1:
             raise ValueError(f"batch_size must be >= 1, got {batch_size}")
@@ -166,6 +171,7 @@ class BatchEngine:
         self.cfg = cfg
         self.device = resolve_device(device)
         self.batch_size = batch_size
+        self.group = group
         self.H, self.W = lidar.height, lidar.width
         self.hw = self.H * self.W
         self.num_models = num_model_rows(cfg)
@@ -416,6 +422,19 @@ class BatchEngine:
         compressed.update(residual_quantized=resid, contour_map=contour,
                           idx_sequence=rans_codec.compress_seq_u16(fields["idx_sequence"]))
         return pack_bitstream(compressed, uniform=self.cfg.uniform), fields
+
+    def sharded_stats(self, results, blob_sizes: Sequence[int], errors: int = 0) -> Dict[str, float]:
+        """Frames, points, bits, bpp and ratio over every rank of the
+        engine's group, summed with one ``all_reduce`` (with ``errors``, a
+        count of this rank's failed frames, beside them).  ``results``: an
+        :class:`EncodedBatch` (its ``stream_len`` counts the points) or the
+        frames' point counts; ``blob_sizes``: their payload bytes.  Only
+        frames with a payload count as frames."""
+        if self.group is None:
+            raise ValueError("sharded_stats needs an engine with a process group")
+        totals = np.append(batch_totals(getattr(results, "stream_len", results), blob_sizes), errors)
+        summed = all_reduce_totals(totals, self.group)
+        return {**batch_report(summed[:3]), "errors": int(summed[3])}
 
     def finalize_encoded(self, dispatched: _Dispatched) -> EncodedBatch:
         """Download and entropy-code one dispatched batch."""

@@ -1,9 +1,12 @@
-"""Background-thread batch prefetcher for the datalist pipelines (a copy of
+"""Background-thread batch prefetcher for the datalist pipelines (port of
 ``rpcc_tpu/parallel/prefetch.py``, whose package imports jax).
 
 A reader thread keeps up to ``depth`` loaded batches queued ahead of the
 consumer, so file reads (fread releases the GIL) overlap device compute
-and the entropy stage, and a pipeline pull never waits on the disk.
+and the entropy stage, and a pipeline pull never waits on the disk.  It
+loads one rank's frames, given by their indices in the whole (already
+``--skip_existing``-filtered) datalist, and a frame's seed is ``--seed``
+plus that global index, as for one process.
 """
 
 from __future__ import annotations
@@ -19,22 +22,24 @@ _SENTINEL = object()
 
 
 def prefetch_loaded_batches(
-    files: Sequence[str],
+    indices: Sequence[int],
     batch_size: int,
     load_fn: Callable[[int], np.ndarray],
     seed_base: int = 0,
     depth: int = 3,
     workers: int = 4,
-) -> Iterator[Tuple[List[np.ndarray], range]]:
-    """Yield ``(clouds, seeds)`` batches with up to ``depth`` batches loaded
-    ahead on a background thread.
+) -> Iterator[Tuple[List[np.ndarray], List[int]]]:
+    """Yield ``(clouds, seeds)`` for consecutive chunks of ``batch_size``
+    of ``indices`` (a rank's global frame indices; ``range(n)`` for one
+    process), with up to ``depth`` batches loaded ahead on a background
+    thread.
 
-    ``load_fn(index)`` loads one cloud (error handling — e.g. --keep_going
-    fallbacks — belongs inside it).  ``seeds`` for batch starting at file
-    index ``s`` is ``range(seed_base + s, seed_base + s + len(batch))``,
-    matching the synchronous generators this replaces.
+    ``load_fn(index)`` loads the frame of a global index (error handling,
+    e.g. --keep_going fallbacks, belongs inside it).  A frame's seed is
+    ``seed_base`` plus its global index, whichever rank encodes it, so its
+    bytes do not depend on the number of ranks.
     """
-    n = len(files)
+    n = len(indices)
     if n == 0:
         return
     q: "queue.Queue" = queue.Queue(maxsize=max(1, depth))
@@ -59,9 +64,9 @@ def prefetch_loaded_batches(
             for start in range(0, n, batch_size):
                 if abandoned.is_set():
                     return
-                stop = min(start + batch_size, n)
-                clouds = list(pool.map(load_fn, range(start, stop)))
-                if not _put((clouds, range(seed_base + start, seed_base + stop))):
+                chunk = indices[start : start + batch_size]
+                clouds = list(pool.map(load_fn, chunk))
+                if not _put((clouds, [seed_base + i for i in chunk])):
                     return
             _put(_SENTINEL)
         except BaseException as e:  # surface in the consumer, not the thread
