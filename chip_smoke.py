@@ -10,7 +10,11 @@ Usage, from the repository root:
 the DBSCAN kernel timings of phases 3b/3c (B = 1, 4, 8), the rANS kernel
 timings of phase 3e (B = 1, 8) where the checkout has that kernel (with both
 blocks' phase split where it stamps both) and phase 6's main-path
-device-entropy engine run (20 frames at B = 8, their blobs' sha256), the main
+device-entropy engine run (20 frames at B = 8, their blobs' sha256), the
+rANS decode kernel's timings of phase 3f on that run's first batch (B = 1,
+8: the two field groups as two launches, and in one launch with its phase
+split where the checkout has it; each launch's device time under
+``torch.profiler``, at full length and at T = 16), the main
 path's encodes of phase 4 and the DBSCAN-mode encodes of phases 4b/6 with the
 ``rpcc_tpu_torch``
 package of another checkout (``.`` for this one), through entry points
@@ -129,21 +133,28 @@ Phases (each raises on failure, and the process then exits nonzero):
      equal the B = 1 engine's, a repeat run byte-identical, decodes within
      bound through both decoders, street-scene bytes within 2% of host
      entropy;
-  3f. (run after 6) the rANS decode kernel (one launch per field group: a
-     block per frame, a thread per lane) against its plain PyTorch version
-     on the GPU and the native host decoder, every symbol equal, and the
+  3f. (run after 6) the rANS decode kernel (a block per frame, a thread per
+     lane; one launch per field group, or a residual group and the contours
+     together) against its plain PyTorch version on the GPU and the native
+     host decoder, every symbol equal, each field group alone and the
+     largest residual group with the contours in one launch, and the
      codec's ``RPCC_RANS_DEVICE=default`` backend's bytes against the
      native backend's: phase 6's first batch (eight distinct frames, device
      containers) at B = 8 and B = 1, phase 4's four host-coded frames, a
      mixed-T batch (device containers and cut street scenes), stream lengths
      0, 1 and HW and a few hundred escapes (device) and > 512 escapes
-     (host), two order-0 'D' containers, a 32x2250 32E frame; a corrupt
+     (host), two order-0 'D' containers, a 32x2250 32E frame (cases without
+     contours share their launch with phase 6's frame 0's); a corrupt
      escape list and a 513-row contour raising; the engine's decode of phase
-     6's 20 blobs on both backends, range images equal, two decode launches
-     per batch; the kernel, the plain version and the native host decode
-     timed on phase 6's first batch at B = 1 and 8 beside the byte bound
-     and a modelled chain floor, the codec's and the engine's decode on
-     both backends;
+     6's 20 blobs on both backends, range images equal, one decode launch
+     per batch; the renormalizations per live step of phase 6's 20 frames;
+     ``python -m rpcc_tpu_torch.utils.chain_probe`` (the latencies of a
+     step's dependent operations, measured); both fields in one launch,
+     each alone, the plain version and the native host decode timed on
+     phase 6's first batch at B = 1 and 8, with the phase stamps of both
+     blocks, ns per step, the byte bound and the chain floor from the
+     measured latencies, the codec's and the engine's decode on both
+     backends;
   3g. (run after 3f) the rANS encode kernel on the host containers' path
      (``RPCC_RANS_DEVICE=default``, set in a block): phase 4's and 4b's
      single-frame blobs, the engine's ``--no-device_entropy`` blobs of
@@ -243,13 +254,6 @@ PEAK_BYTES = 3.35e12
 RATE_PASSES = 5  # phase 6: timed pipeline passes per batch size
 PLAIN_RANS_RUNS = 3  # phases 3e, 3f: samples of the plain rANS walks (~10-15 launches per step)
 HOST_RUNS = 21  # phase 3f: samples of a host-clock time (the native host decode)
-# Phase 3f: the decode step's dependent chain, a model (not measured): a
-# residual step is two dependent shared loads (slot -> symbol, symbol ->
-# {f, c}) and four dependent integer instructions, a contour step one shared
-# load (its context's pair) and five; each load's latency is assumed.
-SMEM_LOAD_CYCLES = 30
-INT_CYCLES = 4
-DECODE_CHAIN_CYCLES = {"residual": 2 * SMEM_LOAD_CYCLES + 4 * INT_CYCLES, "contour": SMEM_LOAD_CYCLES + 5 * INT_CYCLES}
 BPP_TOL = 0.005  # GPU vs CPU encode of the same frame
 
 
@@ -471,12 +475,15 @@ def scene_narrow(np, seed: int, H: int, W: int):
 # ------------------------------------------------------------------ phases
 def phase_build():
     from rpcc_tpu_torch.ops import dbscan, fps, rans_device
+    from rpcc_tpu_torch.utils import chain_probe
 
     t = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=4) as pool:
-        for f in [pool.submit(k) for k in (fps._kernel, dbscan._kernel, rans_device._kernel, rans_device._decode_kernel)]:
+    builds = (fps._kernel, dbscan._kernel, rans_device._kernel, rans_device._decode_kernel, chain_probe._library)
+    with ThreadPoolExecutor(max_workers=len(builds)) as pool:
+        for f in [pool.submit(k) for k in builds]:
             f.result()
-    print(f"[phase 1] fps.cu, dbscan.cu, rans.cu and rans_decode.cu built and loaded in {time.perf_counter() - t:.2f} s")
+    print(f"[phase 1] fps.cu, dbscan.cu, rans.cu, rans_decode.cu and chain_probe.cu built and loaded in "
+          f"{time.perf_counter() - t:.2f} s")
 
 
 def phase_prng(torch, dev):
@@ -1005,6 +1012,67 @@ def decode_held(torch, np, dev, lanes, what):
     return err
 
 
+def fields_held(torch, np, dev, rl, cl, what):
+    """One launch of both field groups (``decode_fields_cuda``: a residual
+    group's lanes ``rl`` and a contour group's ``cl``, either None) held to
+    each group's plain version on the card and to the native host decoder
+    -> max |kernel - plain|."""
+    from rpcc_tpu_torch.codec import rans_native
+    from rpcc_tpu_torch.ops import rans_device as rd
+
+    args = [None if g is None else upload_lanes(dev, g) for g in (rl, cl)]
+    got = rd.decode_fields_cuda(*args, rl.mode if rl is not None else rd.MODE_ZIGZAG)
+    err = 0
+    for g, a, out in zip((rl, cl), args, got):
+        if g is None:
+            check(out is None, f"rans decode fields {what}: an output for a group not given")
+            continue
+        plain = rd.decode_streams_plain(*a, g.mode)
+        torch.cuda.synchronize()
+        check(out.shape == plain.shape and out.dtype == plain.dtype, f"rans decode fields {what}: shape or type differs")
+        err = max(err, int((out.long() - plain.long()).abs().max()))
+        check(err == 0, f"the both-fields decode launch differs from the plain version {what}")
+        native = rans_native.decode_ctx_batch(g.words, g.counts, g.states, g.freqs, g.words.shape[2], g.mode,
+                                              lives=g.lives)
+        check(np.array_equal(out.cpu().numpy(), native), f"the both-fields decode launch differs from the native "
+              f"decoder {what}")
+    return err
+
+
+def decode_split(torch, rd, args_r, args_c, mode):
+    """Medians over TIMED_RUNS one-launch decodes of each phase's time (us)
+    in the residual group's frame 0 block and the contour group's, from
+    their %globaltimer stamps, with each block's span."""
+    k = len(rd.DECODE_PHASES) + 1
+    stamps = torch.zeros(len(rd.DECODE_STAMP_BLOCKS) * k, dtype=torch.int64, device=args_r[0].device)
+    rows = []
+    for _ in range(TIMED_RUNS):
+        rd.decode_fields_cuda(args_r, args_c, mode, phase_stamps=stamps)
+        torch.cuda.synchronize()
+        rows.append(stamps.reshape(-1, k).cpu().tolist())
+    out = {}
+    for bi, block in enumerate(rd.DECODE_STAMP_BLOCKS):
+        med = lambda f: statistics.median(f(r) for r in rows) / 1e3  # noqa: E731
+        check(all(all(a <= b for a, b in zip(r[bi], r[bi][1:])) for r in rows), f"decode stamps of the {block} "
+              "block out of phase order")
+        out[block] = {name: med(lambda r, i=i: r[bi][i + 1] - r[bi][i]) for i, name in enumerate(rd.DECODE_PHASES)}
+        out[block]["span"] = med(lambda r: r[bi][-1] - r[bi][0])
+    return out
+
+
+def run_chain_probe(phase: str):
+    """``python -m rpcc_tpu_torch.utils.chain_probe`` in a subprocess: its
+    lines printed, its JSON returned."""
+    proc = subprocess.run([sys.executable, "-m", "rpcc_tpu_torch.utils.chain_probe"], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    lines = (proc.stdout + proc.stderr).strip().splitlines()
+    check(proc.returncode == 0 and lines and lines[-1].startswith('{"chain_probe"'),
+          "the chain probe failed:\n" + "\n".join(lines[-20:]))
+    for line in lines[:-1]:
+        print(f"[{phase}] chain_probe: {line}")
+    return json.loads(lines[-1])["chain_probe"]
+
+
 def residual_containers(np, res, lens, hw: int):
     """'C' containers of the encode kernel's residual pieces at the
     device's lane geometry, as the engine assembles them."""
@@ -1052,7 +1120,6 @@ def phase_rans_decode(torch, np, dev, card, lidar, codec, frames, eng):
     from rpcc_tpu_torch.ops import rans_device as rd
     from rpcc_tpu_torch.ops.projection_host import build_transform_map
     from rpcc_tpu_torch.parallel.engine import BatchEngine
-    from rpcc_tpu_torch.utils.rans_sass import max_sm_clock_mhz
 
     cfg = CodecConfig()
     hw = codec.hw
@@ -1106,12 +1173,26 @@ def phase_rans_decode(torch, np, dev, card, lidar, codec, frames, eng):
             lanes, H, W = rans_codec.contour_lanes(cnt_blobs)
             err = max(err, decode_held(torch, np, dev, lanes, f"on {what}'s contours"))
             shapes.append(f"N {lanes.words.shape}")
+        # One launch of the largest residual group and the contours (phase
+        # 6's frame 0's where the case has none), as the codec pairs them.
+        first = max(groups.values(), key=len)
+        pair_cnt = cnt_blobs or cnt8[:1]
+        err = max(err, fields_held(torch, np, dev, rans_codec.delta_lanes(first),
+                                   rans_codec.contour_lanes(pair_cnt)[0], f"on {what}"))
+        shapes.append(f"one launch: {len(first)} residual + {len(pair_cnt)} contour frames")
         for fn, blobs in ((rans_codec.decompress_delta_batch, res_blobs), (rans_codec.decompress_contour_batch, cnt_blobs)):
             if blobs:
                 with rans_backend("cpu"):
                     want = fn(blobs)
                 with rans_backend("default"):
                     check(fn(blobs) == want, f"the default backend's bytes differ from the native backend's on {what}")
+        if cnt_blobs:
+            packed = [{"residual_quantized": r, "contour_map": c} for r, c in zip(res_blobs, cnt_blobs)]
+            with rans_backend("cpu"):
+                want = rans_codec.batch_decode_big_fields(packed)
+            with rans_backend("default"):
+                check(rans_codec.batch_decode_big_fields(packed) == want,
+                      f"the default backend's batch_decode_big_fields differs from the native backend's on {what}")
         print(f"[phase 3f] rans decode kernel == plain == native, default backend bytes == native on {what}: "
               + "; ".join(shapes))
 
@@ -1140,7 +1221,7 @@ def phase_rans_decode(torch, np, dev, card, lidar, codec, frames, eng):
                 raise RuntimeError(f"the default backend decoded {what}")
 
     # End to end: the engine's decode of phase 6's 20 blobs on each backend;
-    # on the card one decode launch per field group (residual, contour) per batch.
+    # on the card one decode launch per batch (residual and contour together).
     B = 8
     engine = BatchEngine(lidar, cfg, dev, batch_size=B)
     batches = _batches(eng["blobs"], B)
@@ -1158,41 +1239,65 @@ def phase_rans_decode(torch, np, dev, card, lidar, codec, frames, eng):
     finally:
         engine.close()
     check(all(np.array_equal(a, b) for a, b in zip(got, want)), "the engine's range images differ between the backends")
-    check(launches == 2 * len(batches), f"{launches} decode launches for {len(batches)} engine batches, expected 2 each")
+    check(launches == len(batches), f"{launches} decode launches for {len(batches)} engine batches, expected one each")
     print(f"[phase 3f] engine decode of phase 6's {len(eng['blobs'])} blobs in batches {[len(b) for b in batches]} "
           f"with RPCC_RANS_DEVICE=default: range images == the cpu backend's, {launches} decode launches")
 
-    out = {"err": err, "launches": launches, "batches": len(batches)}
-    clock = max_sm_clock_mhz()
+    # Words read back per live step (a renormalization each) over phase 6's
+    # 20 frames, and the latencies of a step's dependent operations.
+    all_res = rans_codec.delta_lanes([f["residual_quantized"] for f in main])
+    all_cnt = rans_codec.contour_lanes([f["contour_map"] for f in main])[0]
+    renorm = {f: float(g.counts.sum()) / float(g.lives.clip(0, g.words.shape[2]).sum())
+              for f, g in (("residual", all_res), ("contour", all_cnt))}
+    print(f"[phase 3f] renormalizations per live step over phase 6's {len(main)} frames (words / live steps): "
+          f"residual {renorm['residual']:.4f}, contour {renorm['contour']:.4f}")
+    probe = run_chain_probe("phase 3f")
+    floor_ns = {"residual": probe["floor_ns_per_step"]["decode_residual"],
+                "contour": probe["floor_ns_per_step"]["decode_contour"]}
+
+    out = {"err": err, "launches": launches, "batches": len(batches), "renorm": renorm, "probe": probe}
     for Bt in (1, B):
         rl = rans_codec.delta_lanes(res8[:Bt])
         cl = rans_codec.contour_lanes(cnt8[:Bt])[0]
-        row = {}
-        for field, lanes in (("residual", rl), ("contour", cl)):
-            args = upload_lanes(dev, lanes)
+        args_r, args_c = upload_lanes(dev, rl), upload_lanes(dev, cl)
+        short = [upload_lanes(dev, g._replace(words=g.words[:, :, :16], lives=np.minimum(g.lives, 16)))
+                 for g in (rl, cl)]
+        both = lambda: rd.decode_fields_cuda(args_r, args_c, rl.mode)  # noqa: E731
+        row = dict(ms=median_ms(torch, both), b2b=median_ms(torch, both, BACK_TO_BACK),
+                   tables_ms=median_ms(torch, lambda: rd.decode_fields_cuda(*short, rl.mode)),
+                   split=decode_split(torch, rd, args_r, args_c, rl.mode), bound=rans_decode_bound([rl, cl]),
+                   shape=f"B={Bt} residual {tuple(rl.words.shape)} + contour {tuple(cl.words.shape)}",
+                   ns_step={}, floor_ms={})
+        for field, lanes, args in (("residual", rl, args_r), ("contour", cl, args_c)):
             T = lanes.words.shape[2]
             run = lambda a=args, m=lanes.mode: rd.decode_streams_cuda(*a, m)  # noqa: E731
-            short = upload_lanes(dev, lanes._replace(words=lanes.words[:, :, :16], lives=np.minimum(lanes.lives, 16)))
             row[field] = dict(
                 ms=median_ms(torch, run), b2b=median_ms(torch, run, BACK_TO_BACK),
-                tables_ms=median_ms(torch, lambda a=short, m=lanes.mode: rd.decode_streams_cuda(*a, m)),
                 plain_ms=median_ms(torch, lambda a=args, m=lanes.mode: rd.decode_streams_plain(*a, m),
                                    runs=PLAIN_RANS_RUNS),
                 host_ms=host_median_ms(lambda g=lanes: rans_codec.decode_lanes(g)),
-                bound=rans_decode_bound([lanes]), floor_ms=T * DECODE_CHAIN_CYCLES[field] / (clock * 1e3),
-                shape=f"{tuple(lanes.words.shape)}", steps=T,
+                bound=rans_decode_bound([lanes]), shape=f"{tuple(lanes.words.shape)}",
             )
+            # the one launch's walk stamp over its steps, and the chain floor at them
+            row["ns_step"][field] = row["split"][field]["walk"] * 1e3 / T
+            row["floor_ms"][field] = T * floor_ns[field] / 1e6
             r = row[field]
-            print(f"[phase 3f] [{card}] rans decode {field} B={Bt} {r['shape']} median of {TIMED_RUNS}: kernel "
-                  f"{r['ms']:.4f} ms ({r['b2b']:.4f} ms over {BACK_TO_BACK} back to back; {r['ms'] * 1e6 / T:.2f} ns "
-                  f"a step), at T = 16 (tables and launch) {r['tables_ms']:.4f} ms; plain {r['plain_ms']:.4f} ms "
-                  f"(median of {PLAIN_RANS_RUNS}); native host decode {r['host_ms']:.4f} ms (median of {HOST_RUNS}); "
-                  f"bound {r['bound'][0]:.6f} ms ({r['bound'][1]}); chain floor, a model, not measured: "
-                  f"{r['floor_ms']:.6f} ms ({T} steps x {DECODE_CHAIN_CYCLES[field]} assumed cycles at {clock:.0f} MHz)")
-        both = lambda k: row["residual"][k] + row["contour"][k]  # noqa: E731
-        out[Bt] = dict(row, ms=both("ms"), b2b=both("b2b"), plain_ms=both("plain_ms"), host_ms=both("host_ms"),
-                       bound=rans_decode_bound([rl, cl]),
-                       shape=f"B={Bt} residual {row['residual']['shape']} + contour {row['contour']['shape']}")
+            print(f"[phase 3f] [{card}] rans decode {field} B={Bt} {r['shape']} alone, median of {TIMED_RUNS}: kernel "
+                  f"{r['ms']:.4f} ms ({r['b2b']:.4f} ms over {BACK_TO_BACK} back to back); plain {r['plain_ms']:.4f} "
+                  f"ms (median of {PLAIN_RANS_RUNS}); native host decode {r['host_ms']:.4f} ms (median of {HOST_RUNS}); "
+                  f"bound {r['bound'][0]:.6f} ms ({r['bound'][1]}). In the one launch: its walk "
+                  f"{row['ns_step'][field]:.2f} ns a step; chain floor (measured latencies x the chain counted in the "
+                  f"source) {row['floor_ms'][field]:.6f} ms ({T} steps x {floor_ns[field]:.3f} ns)")
+        row.update(plain_ms=row["residual"]["plain_ms"] + row["contour"]["plain_ms"],
+                   host_ms=row["residual"]["host_ms"] + row["contour"]["host_ms"])
+        print(f"[phase 3f] [{card}] rans decode both fields in one launch ({row['shape']}), median of {TIMED_RUNS}: "
+              f"{row['ms']:.4f} ms ({row['b2b']:.4f} ms over {BACK_TO_BACK} back to back), at T = 16 (tables and "
+              f"launch) {row['tables_ms']:.4f} ms; the two fields as two launches {row['residual']['ms']:.4f} + "
+              f"{row['contour']['ms']:.4f} ms; bound {row['bound'][0]:.6f} ms ({row['bound'][1]})")
+        for block in rd.DECODE_STAMP_BLOCKS:
+            print(f"[phase 3f] [{card}] rans decode B={Bt} frame 0 {block} block phase split (us, median of "
+                  f"{TIMED_RUNS}): " + json.dumps({k: round(v, 3) for k, v in row["split"][block].items()}))
+        out[Bt] = row
         # The codec's decode of the batch's two big fields, host work included.
         packed = main[:Bt]
         with rans_backend("cpu"):
@@ -1200,7 +1305,7 @@ def phase_rans_decode(torch, np, dev, card, lidar, codec, frames, eng):
         with rans_backend("default"):
             dev_fields = host_median_ms(lambda: rans_codec.batch_decode_big_fields(packed), RATE_PASSES)
         out[Bt].update(codec_cpu_ms=cpu_fields, codec_default_ms=dev_fields)
-        print(f"[phase 3f] [{card}] B={Bt}: both fields' kernels {out[Bt]['ms']:.4f} ms against the native host decode "
+        print(f"[phase 3f] [{card}] B={Bt}: both fields' launch {out[Bt]['ms']:.4f} ms against the native host decode "
               f"{out[Bt]['host_ms']:.4f} ms; batch_decode_big_fields (parse, assemble, decode, finalize), median of "
               f"{RATE_PASSES}: cpu backend {cpu_fields:.3f} ms, default backend {dev_fields:.3f} ms")
     out.update(engine_cpu_ms=cpu_ms, engine_default_ms=dev_ms)
@@ -2519,6 +2624,68 @@ def phase_data_parallel(torch, np, card, lidar, codec, eng):
     return runs[2][2]
 
 
+def decode_device_us(torch, fn, runs: int = TIMED_RUNS):
+    """Median device time (us) of the rANS decode kernel's launches in
+    ``runs`` calls of ``fn`` (one launch each), from ``torch.profiler``'s
+    kernel events: the wrapper's host time left out; None where the
+    profiler recorded no such event."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if str(e.device_type).endswith("CUDA") and "rans_decode" in e.name]
+    return statistics.median(us) if us else None
+
+
+def against_decode(torch, np, rd, dev, card, root: str, blobs) -> None:
+    """``--against``: the rANS decode kernel of ``root``'s package on the
+    device containers of phase 6's first batch at B = 1 and 8: the two field
+    groups as two launches (every checkout with the decode kernel), and in one launch
+    with both blocks' phase split where the checkout has that entry; each
+    launch's device time under the profiler, at full length and at T = 16
+    (the tables)."""
+    from rpcc_tpu_torch.codec import rans_codec
+    from rpcc_tpu_torch.codec.bitstream import unpack_bitstream
+    from rpcc_tpu_torch.config import CodecConfig
+
+    fields = [unpack_bitstream(b, uniform=CodecConfig().uniform) for b in blobs]
+    for B in (1, 8):
+        rl = rans_codec.delta_lanes([f["residual_quantized"] for f in fields[:B]])
+        cl = rans_codec.contour_lanes([f["contour_map"] for f in fields[:B]])[0]
+        ar, ac = rd.upload_decode_lanes(*rl[:5], dev), rd.upload_decode_lanes(*cl[:5], dev)
+        # the same lanes cut to 16 steps: the tables and the launch
+        sr, sc = (rd.upload_decode_lanes(g.words[:, :, :16], g.counts, g.states, np.minimum(g.lives, 16), g.freqs, dev)
+                  for g in (rl, cl))
+        two = lambda: (rd.decode_streams_cuda(*ar, rl.mode), rd.decode_streams_cuda(*ac, cl.mode))  # noqa: E731
+        two16 = lambda: (rd.decode_streams_cuda(*sr, rl.mode), rd.decode_streams_cuda(*sc, cl.mode))  # noqa: E731
+        line = (f"two launches {median_ms(torch, two):.4f} ms one call, {median_ms(torch, two, BACK_TO_BACK):.4f} ms "
+                f"over {BACK_TO_BACK} back to back, each alone {median_ms(torch, lambda: rd.decode_streams_cuda(*ar, rl.mode)):.4f} + "
+                f"{median_ms(torch, lambda: rd.decode_streams_cuda(*ac, cl.mode)):.4f} ms; at T = 16 "
+                f"{median_ms(torch, two16):.4f} ms")
+        runs = {"residual": lambda: rd.decode_streams_cuda(*ar, rl.mode),
+                "contour": lambda: rd.decode_streams_cuda(*ac, cl.mode),
+                "residual_T16": lambda: rd.decode_streams_cuda(*sr, rl.mode),
+                "contour_T16": lambda: rd.decode_streams_cuda(*sc, cl.mode)}
+        if hasattr(rd, "decode_fields_cuda"):
+            one = lambda: rd.decode_fields_cuda(ar, ac, rl.mode)  # noqa: E731
+            line += (f"; one launch {median_ms(torch, one):.4f} ms one call, "
+                     f"{median_ms(torch, one, BACK_TO_BACK):.4f} ms over {BACK_TO_BACK} back to back, at T = 16 "
+                     f"{median_ms(torch, lambda: rd.decode_fields_cuda(sr, sc, rl.mode)):.4f} ms; phase split (us) "
+                     + json.dumps({b: {k: round(v, 3) for k, v in sp.items()}
+                                   for b, sp in decode_split(torch, rd, ar, ac, rl.mode).items()}))
+            runs.update(both=one, both_T16=lambda: rd.decode_fields_cuda(sr, sc, rl.mode))
+        device = {k: decode_device_us(torch, fn) for k, fn in runs.items()}
+        line += ("; device time a launch (us, torch.profiler, median of "
+                 f"{TIMED_RUNS}): " + json.dumps({k: None if v is None else round(v, 3) for k, v in device.items()}))
+        print(f"[against] [{card}] rans decode (B={B}, residual {tuple(rl.words.shape)} + contour "
+              f"{tuple(cl.words.shape)}) of {root} median of {TIMED_RUNS}: {line}")
+
+
 def phase_against(torch, np, dev, card, lidar, root: str) -> None:
     """``--against``: the FPS, DBSCAN and (where the checkout has it) rANS
     kernels of ``root``'s package timed as in phases 3/3b/3c/3e, and the
@@ -2586,6 +2753,8 @@ def phase_against(torch, np, dev, card, lidar, root: str) -> None:
         finally:
             engine.close()
         print(f"[phase 6] device-entropy engine (B=8) sha256 {[hashlib.sha256(b).hexdigest() for b in blobs]}")
+        if hasattr(rd, "decode_streams_cuda"):  # a checkout with the rANS decode kernel: phase 3f's shapes
+            against_decode(torch, np, rd, dev, card, root, blobs[:8])
     cfg = CodecConfig(segment_method="DBSCAN", device_entropy=False)
     codec = RPCCCodec(lidar, cfg, dev)
     for s in MODE_SEEDS:
@@ -2678,10 +2847,11 @@ def main() -> int:
     # no PyTorch call computes a rANS encode.  ``launches_per_points_encode``
     # is each kernel's launches in one from-points encode (phase 4d: FPS in
     # the default mode, DBSCAN in its mode, rANS in both, no decode).  The
-    # decode kernel's ``ms`` are its two field groups' launches on phase
-    # 6's first batch at B = 8 (phase 3f), its ``launches`` the engine's
-    # decode of phase 6's blobs with ``RPCC_RANS_DEVICE=default``; no
-    # PyTorch call decodes rANS.  The rANS entry's ``host_path`` is the same
+    # decode kernel's ``ms`` are one launch of both field groups of phase
+    # 6's first batch at B = 8 (phase 3f; ``fields_alone`` each group in a
+    # launch of its own), its ``launches`` the engine's decode of phase 6's
+    # blobs with ``RPCC_RANS_DEVICE=default`` (one per batch); no PyTorch
+    # call decodes rANS.  The rANS entry's ``host_path`` is the same
     # kernel at the host containers' geometry under RPCC_RANS_DEVICE=default
     # (phase 3g, on phase 6's first batch at B = 1 and 8, and a 1,000-symbol
     # field): kernel times, the encode calls on both backends and the native
@@ -2827,22 +2997,26 @@ def main() -> int:
             "bound_by": dec[8]["bound"][1],
             "library_ms": None,
             "host_native_ms": dec[8]["host_ms"],
-            "fields": {f: {k: dec[8][f][k] for k in ("ms", "b2b", "tables_ms", "plain_ms", "host_ms")}
-                       for f in ("residual", "contour")},
+            "tables_and_launch_ms": dec[8]["tables_ms"],
+            "phase_us": {b: {k: round(v, 3) for k, v in sp.items()} for b, sp in dec[8]["split"].items()},
+            "ns_per_step": dec[8]["ns_step"],
+            "chain_floor_ms": dec[8]["floor_ms"],
+            "fields_alone": {f: {k: dec[8][f][k] for k in ("ms", "b2b", "plain_ms", "host_ms")}
+                             for f in ("residual", "contour")},
             "single_frame_shape": dec[1]["shape"],
             "single_frame_ms": dec[1]["ms"],
             "single_frame_ms_10_back_to_back": dec[1]["b2b"],
             "single_frame_plain_ms": dec[1]["plain_ms"],
             "single_frame_bound_ms": dec[1]["bound"][0],
             "single_frame_host_native_ms": dec[1]["host_ms"],
-            "single_frame_fields": {f: {k: dec[1][f][k] for k in ("ms", "b2b", "tables_ms", "plain_ms", "host_ms")}
-                                    for f in ("residual", "contour")},
-            "single_frame_phase_us": {f: {"call": dec[1][f]["ms"] * 1e3, "tables_and_launch": dec[1][f]["tables_ms"] * 1e3}
-                                      for f in ("residual", "contour")},
-            "phase_us": {f: {"call": dec[8][f]["ms"] * 1e3, "tables_and_launch": dec[8][f]["tables_ms"] * 1e3}
-                         for f in ("residual", "contour")},
-            "single_frame_ns_per_step": {f: dec[1][f]["ms"] * 1e6 / dec[1][f]["steps"] for f in ("residual", "contour")},
-            "ns_per_step": {f: dec[8][f]["ms"] * 1e6 / dec[8][f]["steps"] for f in ("residual", "contour")},
+            "single_frame_tables_and_launch_ms": dec[1]["tables_ms"],
+            "single_frame_phase_us": {b: {k: round(v, 3) for k, v in sp.items()} for b, sp in dec[1]["split"].items()},
+            "single_frame_ns_per_step": dec[1]["ns_step"],
+            "single_frame_fields_alone": {f: {k: dec[1][f][k] for k in ("ms", "b2b", "plain_ms", "host_ms")}
+                                          for f in ("residual", "contour")},
+            "renormalizations_per_step": dec["renorm"],
+            "chain_probe_cycles": {k: round(v, 3) for k, v in dec["probe"]["cycles"].items()},
+            "chain_probe_mhz": dec["probe"]["mhz"],
             "engine_decode_ms": {"cpu": dec["engine_cpu_ms"], "default": dec["engine_default_ms"]},
         },
     ]}))

@@ -13,8 +13,9 @@ device and raises without one: a batch encode's residual streams are one
 launch of the encode kernel (``csrc/rans.cu``) at the batch's lane
 geometry, its contours another; a decode is one launch of the decode
 kernel (``csrc/rans_decode.cu``) per field group (the residual containers
-of one kind and lane count, or a batch's contours), both through
-``ops/rans_device.py``.  The batch decoders' ``device=`` names a device
+of one kind and lane count, or a batch's contours; a batch's contours and
+its largest residual group share one launch in
+:func:`batch_decode_big_fields`), both through ``ops/rans_device.py``.  The batch decoders' ``device=`` names a device
 instead (``"cpu"``: the decode kernel's plain version, through the same
 container path).  The host symbolizes what the bzip2 comparisons need, assembles the
 containers and the lanes, and the native tails finalize decoded symbols.
@@ -303,10 +304,14 @@ def decompress_contour_batch(blobs: Sequence[bytes], device=None) -> List[bytes]
     """Decode a batch of 'N' contour containers of one geometry in one
     native call or kernel launch (``device``: see :func:`_coding_device`)."""
     lanes, H, W = contour_lanes(blobs)
-    T = lanes.words.shape[2]
-    sym = decode_lanes(lanes, _coding_device(device, "decodes"))
-    packed = rans_native.contour_finalize_frames(sym.reshape(len(blobs), H, T), H, W, T)
-    return [packed[i].tobytes() for i in range(len(blobs))]
+    return _finalize_contours(decode_lanes(lanes, _coding_device(device, "decodes")), lanes, H, W)
+
+
+def _finalize_contours(sym: np.ndarray, lanes, H: int, W: int) -> List[bytes]:
+    """Each frame's packed contour bits from its decoded wavefront symbols."""
+    B, _, T = lanes.words.shape
+    packed = rans_native.contour_finalize_frames(sym.reshape(B, H, T), H, W, T)
+    return [packed[i].tobytes() for i in range(B)]
 
 
 class Lanes(NamedTuple):
@@ -364,23 +369,47 @@ def batch_decode_big_fields(packed: Sequence[dict], device=None):
     """Batch-decode the residual and contour fields of a blob batch:
     ``(resid_bytes | None, contour_bytes | None)``, one entry per frame, or
     None for a field some frame codes with another container (plain bzip2
-    of a small field); the caller then decodes each frame on its own."""
-    resid = None
-    if all(p["residual_quantized"][0] in (MAGIC_DELTA, MAGIC_CTX, MAGIC_BZD) for p in packed):
-        resid = decompress_delta_batch([p["residual_quantized"] for p in packed], device=device)
+    of a small field); the caller then decodes each frame on its own.  On a
+    device (``device``: see :func:`_coding_device`) the batch's contours and
+    its largest residual group (the 'C' or 'D' containers of one lane count
+    with the most frames, the first on ties) decode in one kernel launch and
+    come back in one copy, each other residual group in a launch of its own."""
+    res_blobs = [p["residual_quantized"] for p in packed]
     cms = [p["contour_map"] for p in packed]
-    contour = None
-    if cms and all(len(c) > 0 and c[0] == MAGIC_BITS for c in cms):
-        contour = decompress_contour_batch(cms, device=device)
-    return resid, contour
+    do_res = all(b[0] in (MAGIC_DELTA, MAGIC_CTX, MAGIC_BZD) for b in res_blobs)
+    do_cnt = bool(cms) and all(len(c) > 0 and c[0] == MAGIC_BITS for c in cms)
+    out, groups = _parse_delta_batch(res_blobs) if do_res else (None, {})
+    dev = _coding_device(device, "decodes") if groups or do_cnt else None
+    if dev is None:  # the native decoder, or nothing coded with rANS
+        return (_decode_delta_groups(out, groups, None) if do_res else None,
+                decompress_contour_batch(cms) if do_cnt else None)
+    from rpcc_tpu_torch.ops import rans_device
+
+    lanes = {k: _delta_lanes([p for _, p in items]) for k, items in groups.items()}
+    cnt = contour_lanes(cms) if do_cnt else None
+    for g in [*lanes.values(), *([cnt[0]] if cnt else [])]:
+        _check_tables(g)
+    first = max(lanes, key=lambda k: len(groups[k]), default=None)
+    pair = lanes.get(first)
+    sym_r, sym_c = rans_device.fields_to_host(*rans_device.decode_fields_device(
+        None if pair is None else pair[:5], None if cnt is None else cnt[0][:5],
+        rans_native.MODE_ZIGZAG if pair is None else pair.mode, dev))
+    for k, items in groups.items():
+        _finalize_delta_group(out, items, lanes[k], sym_r if k == first else decode_lanes(lanes[k], dev))
+    return out, (_finalize_contours(sym_c, *cnt) if do_cnt else None)
+
+
+def _check_tables(lanes: Lanes) -> None:
+    """Every table must sum to M, as every encoder's does."""
+    if (lanes.freqs.sum(-1) != rans_native.M).any():
+        raise ValueError(f"corrupt rans container: a frequency table does not sum to {rans_native.M}")
 
 
 def decode_lanes(lanes: Lanes, device=None) -> np.ndarray:
     """(B, L*T) int32 symbols of one field group: the native decoder
-    (``device`` None) or one launch on ``device``.  Every table must sum to
-    M, as every encoder's does."""
-    if (lanes.freqs.sum(-1) != rans_native.M).any():
-        raise ValueError(f"corrupt rans container: a frequency table does not sum to {rans_native.M}")
+    (``device`` None) or one launch on ``device``; raises unless every
+    table sums to M (:func:`_check_tables`)."""
+    _check_tables(lanes)
     if device is None:
         return rans_native.decode_ctx_batch(lanes.words, lanes.counts, lanes.states, lanes.freqs,
                                             lanes.words.shape[2], lanes.mode, lives=lanes.lives)
@@ -630,6 +659,23 @@ def decompress_delta_batch(blobs: Sequence[bytes], device=None) -> List[bytes]:
     lane count in one native call or kernel launch (``device``: see
     :func:`_coding_device`; mixed T decode at the largest, each frame's
     symbols its own)."""
+    out, groups = _parse_delta_batch(blobs)
+    return _decode_delta_groups(out, groups, _coding_device(device, "decodes") if groups else None)
+
+
+def _decode_delta_groups(out: List[bytes], groups: dict, device) -> List[bytes]:
+    """Each parsed group decoded (:func:`decode_lanes` on ``device``) and
+    finalized into ``out``."""
+    for items in groups.values():
+        lanes = _delta_lanes([p for _, p in items])
+        _finalize_delta_group(out, items, lanes, decode_lanes(lanes, device))
+    return out
+
+
+def _parse_delta_batch(blobs: Sequence[bytes]):
+    """-> (out, groups): 'Z' and 'B' containers decoded into ``out`` (the
+    others b""), the parsed 'C' and 'D' ones as {(magic, lanes): [(index,
+    parsed), ...]}."""
     out: List[bytes] = [b""] * len(blobs)
     groups: dict = {}
     for i, b in enumerate(blobs):
@@ -642,18 +688,18 @@ def decompress_delta_batch(blobs: Sequence[bytes], device=None) -> List[bytes]:
             groups.setdefault(p[:2], []).append((i, p))
         else:
             raise ValueError("unknown delta container magic")
-    dev = _coding_device(device, "decodes") if groups else None
-    for items in groups.values():
-        parsed = [p for _, p in items]
-        lanes = _delta_lanes(parsed)
-        sym = decode_lanes(lanes, dev)
-        outs = rans_native.delta_finalize_frames_3d(
-            sym.reshape(lanes.words.shape), ALPHABET, [p[2] for p in parsed], [p[3] for p in parsed],
-            [p[4] for p in parsed], [p[5] for p in parsed], [p[10] for p in parsed],
-        )
-        for (i, _), o in zip(items, outs):
-            out[i] = o.tobytes()
-    return out
+    return out, groups
+
+
+def _finalize_delta_group(out: List[bytes], items, lanes: Lanes, sym: np.ndarray) -> None:
+    """A group's decoded symbols -> each of its frames' bytes in ``out``."""
+    parsed = [p for _, p in items]
+    outs = rans_native.delta_finalize_frames_3d(
+        sym.reshape(lanes.words.shape), ALPHABET, [p[2] for p in parsed], [p[3] for p in parsed],
+        [p[4] for p in parsed], [p[5] for p in parsed], [p[10] for p in parsed],
+    )
+    for (i, _), o in zip(items, outs):
+        out[i] = o.tobytes()
 
 
 def _delta_lanes(parsed) -> Lanes:

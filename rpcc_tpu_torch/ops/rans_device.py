@@ -46,9 +46,10 @@ plain version: if the kernel cannot build or launch, the call raises.
 
 :func:`decode_streams_device` decodes host-assembled containers' lanes
 (one field group: residual lanes with zigzag or order-0 contexts, or
-wavefront contour lanes) on a device: one launch of ``csrc/rans_decode.cu``
-for CUDA, the plain decoders of :mod:`rpcc_tpu_torch.ops.rans` for the
-CPU, with the same rule.
+wavefront contour lanes) on a device, and :func:`decode_fields_device` a
+batch's residual group and its contours together: one launch of
+``csrc/rans_decode.cu`` for CUDA, the plain decoders of
+:mod:`rpcc_tpu_torch.ops.rans` for the CPU, with the same rule.
 """
 
 from __future__ import annotations
@@ -458,8 +459,13 @@ MODE_ZIGZAG, MODE_WAVEFRONT, MODE_ORDER0 = 0, 1, 2
 _DECODE_CTX = {MODE_ZIGZAG: zigzag_magnitude_context, MODE_WAVEFRONT: wavefront_bit_context, MODE_ORDER0: zero_context}
 _DECODE_TABLES = {MODE_ZIGZAG: NUM_CTX, MODE_WAVEFRONT: 4, MODE_ORDER0: 1}  # contexts C of the (B, C, A) freqs
 # Launches of the decode kernel since the count was last reset (one per call
-# of :func:`decode_streams_cuda`).
+# of :func:`decode_fields_cuda` or :func:`decode_streams_cuda`, whatever
+# groups it decodes; rises under the encode's lock).
 DECODE_LAUNCHES = 0
+# Spans timed by ``phase_stamps`` (csrc/rans_decode.cu) in two blocks: the
+# residual group's frame 0 (stamps 0-3), the contour group's frame 0 (4-7).
+DECODE_PHASES = ("tables", "walk", "flush")
+DECODE_STAMP_BLOCKS = ("residual", "contour")
 
 
 @functools.lru_cache(maxsize=None)
@@ -467,17 +473,17 @@ def _decode_library():
     from rpcc_tpu_torch.ops.cuda_build import load_cuda_library
 
     lib = load_cuda_library("rans_decode.cu")
-    lib.rpcc_rans_decode_launch.restype = ctypes.c_int
-    lib.rpcc_rans_decode_launch.argtypes = (
-        [ctypes.c_void_p] * 6  # words, counts, states, lives, freqs, out
-        + [ctypes.c_int] * 6  # B, L, T, C, A, mode
-        + [ctypes.c_void_p]  # stream
+    lib.rpcc_rans_decode_fields_launch.restype = ctypes.c_int
+    lib.rpcc_rans_decode_fields_launch.argtypes = (
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6  # residual: words, counts, states, lives, freqs, out; B, L, T, C, A, mode
+        + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3  # contour: the same six; B, H, T
+        + [ctypes.c_void_p] * 2  # phase stamps, stream
     )
     return lib
 
 
 def _decode_kernel():
-    return _decode_library().rpcc_rans_decode_launch
+    return _decode_library().rpcc_rans_decode_fields_launch
 
 
 def _check_decode(words, counts, states, lives, freqs, mode: int) -> None:
@@ -522,32 +528,74 @@ def decode_streams_plain(words, counts, states, lives, freqs, mode: int) -> torc
                                     ctx_fn=_DECODE_CTX[mode], lives=lives)
 
 
-def decode_streams_cuda(words, counts, states, lives, freqs, mode: int) -> torch.Tensor:
-    """The CUDA decode kernel on contiguous CUDA tensors of
-    :func:`decode_streams_plain`'s types: one launch on the current stream
-    (no synchronize) -> (B, L*T) int32; raises on any other input.  The
-    kernel reads each frequency as u16 (the wire's type) and equals the
-    plain version for frequencies in [0, 2^16)."""
-    global DECODE_LAUNCHES
-    tensors = (words, counts, states, lives, freqs)
+def _cuda_group(tensors, mode: int, dev) -> Tuple[int, int, int, int, int]:
+    """Raises unless one field group's tensors are the kernel's: contiguous,
+    on ``dev`` (a CUDA device), within its limits -> (B, L, T, C, A)."""
     _check_decode(*tensors, mode)
-    dev = words.device
-    if dev.type != "cuda":
-        raise ValueError(f"decode_streams_cuda needs CUDA tensors, got {dev}")
+    if dev.type != "cuda" or tensors[0].device != dev:
+        raise ValueError(f"the decode kernel needs CUDA tensors on one device, got {tensors[0].device} and {dev}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("words, counts, states, lives and freqs must be contiguous")
-    B, L, T = words.shape
-    C, A = freqs.shape[1:]
+    B, L, T = tensors[0].shape
+    C, A = tensors[4].shape[1:]
     check_decode_fits_kernel(L, A, mode)
+    return B, L, T, C, A
+
+
+def decode_fields_cuda(residual, contour, mode: int = MODE_ZIGZAG,
+                       phase_stamps: Optional[torch.Tensor] = None) -> Tuple[Optional[torch.Tensor], ...]:
+    """Both big fields of a batch in one launch of the CUDA decode kernel:
+    ``residual`` (the tensors of :func:`decode_streams_plain`: words, counts,
+    states, lives, freqs) decoded with ``mode``'s contexts (zigzag or
+    order-0) and ``contour`` (the same five, wavefront contexts), either
+    None, all contiguous on one CUDA device -> ((B_r, L * T_r) int32 or
+    None, (B_c, H * T_c) int32 or None) on the current stream (no
+    synchronize); raises on any other input.  ``phase_stamps``, an int64 CUDA tensor of
+    ``len(DECODE_STAMP_BLOCKS) * (len(DECODE_PHASES) + 1)`` elements,
+    receives the ``%globaltimer`` (ns) at the bounds of the phases of the
+    residual group's frame 0, then of the contour group's (a group not
+    decoded leaves its stamps as they were)."""
+    global DECODE_LAUNCHES
+    if residual is None and contour is None:
+        raise ValueError("nothing to decode")
+    if mode not in (MODE_ZIGZAG, MODE_ORDER0):
+        raise ValueError(f"the residual group's mode must be {MODE_ZIGZAG} or {MODE_ORDER0}, got {mode}")
+    dev = (residual if residual is not None else contour)[0].device
+    shape_r = _cuda_group(residual, mode, dev) if residual is not None else (0, 1, 1, 1, 1)
+    shape_c = _cuda_group(contour, MODE_WAVEFRONT, dev) if contour is not None else (0, 1, 1, 4, 2)
+    n_stamps = len(DECODE_STAMP_BLOCKS) * (len(DECODE_PHASES) + 1)
+    if phase_stamps is not None and (
+        phase_stamps.device != dev or phase_stamps.dtype != torch.int64
+        or phase_stamps.numel() != n_stamps or not phase_stamps.is_contiguous()
+    ):
+        raise ValueError(f"phase_stamps must be a contiguous int64 tensor of {n_stamps} on {dev}")
+    (br, L, tr, C, A), (bc, H, tc) = shape_r, shape_c[:3]
     fn = _decode_kernel()
     with torch.cuda.device(dev):
-        out = torch.empty((B, L, T), dtype=torch.int32, device=dev)
-        err = fn(*(t.data_ptr() for t in tensors), out.data_ptr(), B, L, T, C, A, mode,
-                 torch.cuda.current_stream(dev).cuda_stream)
+        res_out = torch.empty((br, L * tr), dtype=torch.int32, device=dev)
+        cnt_out = torch.empty((bc, H * tc), dtype=torch.int32, device=dev)
+        ptrs = lambda g, out: [t.data_ptr() for t in g] + [out.data_ptr()] if g is not None else [None] * 6  # noqa: E731
+        err = fn(*ptrs(residual, res_out), br, L, tr, C, A, mode, *ptrs(contour, cnt_out), bc, H, tc,
+                 None if phase_stamps is None else phase_stamps.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"rANS decode kernel launch failed: cudaError_t {err}")
-    DECODE_LAUNCHES += 1
-    return out.reshape(B, L * T)
+    with _LAUNCHES_LOCK:
+        DECODE_LAUNCHES += 1
+    return (res_out if residual is not None else None), (cnt_out if contour is not None else None)
+
+
+def decode_streams_cuda(words, counts, states, lives, freqs, mode: int,
+                        phase_stamps: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The CUDA decode kernel on one field group's contiguous CUDA tensors
+    of :func:`decode_streams_plain`'s types: one launch on the current
+    stream (no synchronize) -> (B, L*T) int32; raises on any other input.
+    The kernel reads each frequency as u16 (the wire's type) and equals the
+    plain version for frequencies in [0, 2^16).  ``phase_stamps`` as in
+    :func:`decode_fields_cuda`."""
+    group = (words, counts, states, lives, freqs)
+    if mode == MODE_WAVEFRONT:
+        return decode_fields_cuda(None, group, phase_stamps=phase_stamps)[1]
+    return decode_fields_cuda(group, None, mode, phase_stamps)[0]
 
 
 def upload_decode_lanes(words: np.ndarray, counts: np.ndarray, states: np.ndarray, lives: np.ndarray,
@@ -576,3 +624,36 @@ def decode_streams_device(words: np.ndarray, counts: np.ndarray, states: np.ndar
     if device.type == "cuda":
         return decode_streams_cuda(*args, mode)
     return decode_streams_plain(*args, mode)
+
+
+def decode_fields_device(residual, contour, mode: int, device) -> Tuple[Optional[torch.Tensor], ...]:
+    """Host-assembled lanes of a residual group (decoded with ``mode``'s
+    contexts) and of a contour group (numpy (words, counts, states, lives,
+    freqs) each, as :func:`upload_decode_lanes` takes them; either None)
+    uploaded to ``device`` and decoded there: one kernel launch for both on
+    a CUDA device (:func:`decode_fields_cuda`), the plain version of each on
+    the CPU -> ((B_r, L * T_r) int32 or None, (B_c, H * T_c) int32 or None)
+    on ``device``."""
+    device = torch.device(device)
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {device}")
+    res = None if residual is None else upload_decode_lanes(*residual, device)
+    cnt = None if contour is None else upload_decode_lanes(*contour, device)
+    if device.type == "cuda":
+        return decode_fields_cuda(res, cnt, mode)
+    if res is None and cnt is None:
+        raise ValueError("nothing to decode")
+    return (None if res is None else decode_streams_plain(*res, mode),
+            None if cnt is None else decode_streams_plain(*cnt, MODE_WAVEFRONT))
+
+
+def fields_to_host(residual: Optional[torch.Tensor], contour: Optional[torch.Tensor]):
+    """numpy copies of :func:`decode_fields_device`'s outputs (None stays
+    None), joined on their device and downloaded in one copy."""
+    outs = [t for t in (residual, contour) if t is not None]
+    flat = torch.cat([t.reshape(-1) for t in outs]).cpu().numpy()
+    host, at = [], 0
+    for t in (residual, contour):
+        host.append(None if t is None else flat[at:at + t.numel()].reshape(t.shape))
+        at += 0 if t is None else t.numel()
+    return tuple(host)

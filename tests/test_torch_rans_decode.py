@@ -432,16 +432,22 @@ def test_default_backend_needs_a_card(monkeypatch):
 
 
 def test_default_backend_makes_one_call_per_field_group(monkeypatch):
-    """Under RPCC_RANS_DEVICE=default every field group (the 'C' containers
-    of one lane count, the 'D' ones, the batch's contours) is one call of
-    decode_streams_device on the CUDA device; here the calls run the plain
-    version on the CPU, and the bytes are the native backend's."""
+    """Under RPCC_RANS_DEVICE=default batch_decode_big_fields decodes the
+    batch's contours and its largest residual group (here the 'C'
+    containers of one lane count) in one call of decode_fields_device, and
+    every other group (the 'D' ones) in one call of decode_streams_device,
+    all on the CUDA device; here the calls run the plain version on the CPU,
+    and the bytes are the native backend's."""
     calls = []
-    plain = rans_device.decode_streams_device
+    plain_streams, plain_fields = rans_device.decode_streams_device, rans_device.decode_fields_device
 
-    def record(words, counts, states, lives, freqs, mode, device):
-        calls.append((mode, str(device), words.shape))
-        return plain(words, counts, states, lives, freqs, mode, "cpu")
+    def record_streams(words, counts, states, lives, freqs, mode, device):
+        calls.append(("streams", mode, str(device), words.shape[0]))
+        return plain_streams(words, counts, states, lives, freqs, mode, "cpu")
+
+    def record_fields(residual, contour, mode, device):
+        calls.append(("fields", mode, str(device), residual[0].shape[0], contour[0].shape[0]))
+        return plain_fields(residual, contour, mode, "cpu")
 
     h_blobs, h_want = _host_residual_blobs()
     d_blob = _order0_blob(np.arange(500, dtype=np.int16) % 7)
@@ -452,12 +458,70 @@ def test_default_backend_makes_one_call_per_field_group(monkeypatch):
     want = rans_codec.batch_decode_big_fields(packed)
     monkeypatch.setattr(rans_codec, "_RANS_DEVICE", "default")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    monkeypatch.setattr(rans_device, "decode_streams_device", record)
+    monkeypatch.setattr(rans_device, "decode_streams_device", record_streams)
+    monkeypatch.setattr(rans_device, "decode_fields_device", record_fields)
     assert rans_codec.batch_decode_big_fields(packed) == want
     assert want[0][:5] == h_want and want[1][:3] == c_want
-    lanes = sorted({b[1] for b in h_blobs if b[0] == rans_codec.MAGIC_CTX})
-    assert sorted(c[:2] for c in calls) == sorted([(rans_device.MODE_ZIGZAG, "cuda")] * len(lanes)
-                                                  + [(rans_device.MODE_ORDER0, "cuda"), (rans_device.MODE_WAVEFRONT, "cuda")])
+    c_groups = {}
+    for b in h_blobs:
+        if b[0] == rans_codec.MAGIC_CTX:
+            c_groups[b[1]] = c_groups.get(b[1], 0) + 1
+    assert len(c_groups) == 1  # one lane count: the largest group, paired with the contours
+    assert sorted(calls) == sorted([("fields", rans_device.MODE_ZIGZAG, "cuda", max(c_groups.values()), len(c_blobs)),
+                                    ("streams", rans_device.MODE_ORDER0, "cuda", 1)])
+
+
+def _fields_lanes(kind: str, B: int, seed: int, mode: int, H: int = 64, T: int = 160):
+    """Numpy lanes (words, counts, states, lives, freqs) of B natively coded
+    frames: residual-like or skewed symbols at 32 lanes (``mode``'s
+    contexts, live-aware), or an H-row contour."""
+    if mode == rans_device.MODE_WAVEFRONT:
+        sym = _symbols("bits", B, H, T, seed)
+        words, counts, states, freqs = _native_code(sym, mode)
+        return words, counts, states, _lives([H * T] * B, H, T), freqs
+    L = 32
+    ns = [L * T - 3 * b for b in range(B)]
+    sym = _symbols(kind, B, L, T, seed)
+    words, counts, states, freqs = _native_code(sym, mode, ns)
+    return words, counts, states, _lives(ns, L, T), freqs
+
+
+def _plain_of(lanes, mode):
+    return rans_device.decode_streams_device(*lanes, mode, "cpu")
+
+
+@pytest.mark.parametrize("case", ["zigzag_and_contour", "order0_and_contour", "residual_only", "contour_only"])
+def test_decode_fields_device_on_the_cpu_is_the_plain_version(case):
+    """decode_fields_device on the CPU: each group's plain version, B_r != B_c."""
+    mode = rans_device.MODE_ORDER0 if case.startswith("order0") else rans_device.MODE_ZIGZAG
+    res = None if case == "contour_only" else _fields_lanes("residual", 3, 51, mode)
+    cnt = None if case == "residual_only" else _fields_lanes("bits", 2, 52, rans_device.MODE_WAVEFRONT, H=40, T=96)
+    got_r, got_c = rans_device.decode_fields_device(res, cnt, mode, "cpu")
+    for got, lanes, m in ((got_r, res, mode), (got_c, cnt, rans_device.MODE_WAVEFRONT)):
+        if lanes is None:
+            assert got is None
+            continue
+        assert got.device.type == "cpu" and got.dtype == torch.int32
+        assert torch.equal(got, _plain_of(lanes, m))
+        assert np.array_equal(got.numpy(), rans_native.decode_ctx_batch(*lanes[:3], lanes[4], lanes[0].shape[2], m,
+                                                                          lives=lanes[3]))
+    host_r, host_c = rans_device.fields_to_host(got_r, got_c)
+    assert all(h is None if g is None else np.array_equal(h, g.numpy()) for h, g in ((host_r, got_r), (host_c, got_c)))
+
+
+def test_decode_fields_wrapper_checks_inputs():
+    res = [torch.from_numpy(np.ascontiguousarray(a)) for a in _fields_lanes("residual", 2, 53, rans_device.MODE_ZIGZAG)]
+    res[0], res[2] = res[0].view(torch.int16), res[2].to(torch.int64)
+    with pytest.raises(ValueError):  # nothing to decode
+        rans_device.decode_fields_cuda(None, None)
+    with pytest.raises(ValueError):  # the residual group in the wavefront mode
+        rans_device.decode_fields_cuda(res, None, rans_device.MODE_WAVEFRONT)
+    with pytest.raises(ValueError):  # CPU tensors
+        rans_device.decode_fields_cuda(res, None)
+    with pytest.raises(ValueError):
+        rans_device.decode_fields_device(None, None, rans_device.MODE_ZIGZAG, "cpu")
+    with pytest.raises(ValueError):
+        rans_device.decode_fields_device(None, None, rans_device.MODE_ZIGZAG, "meta")
 
 
 # ------------------------------------------------------------------ the card
@@ -545,3 +609,88 @@ def test_cuda_default_backend_decodes_the_containers(cuda_device, monkeypatch):
     assert rans_codec.decompress_contour_batch(c_blobs) == c_want
     lanes = {b[1] for b in h_blobs + d_blobs if b[0] == rans_codec.MAGIC_CTX}
     assert rans_device.DECODE_LAUNCHES == before + len(lanes) + 2
+
+
+def _counted_lanes(mode: int, B: int, L: int, T: int, counts, seed: int):
+    """Lanes of random words and u32 states with the given word counts per
+    lane (cycled over the lanes), normalized tables and full lives: the
+    ring's edges at chosen cursors, with the plain version as the oracle."""
+    rng = np.random.default_rng(seed)
+    C, A = (4, 2) if mode == rans_device.MODE_WAVEFRONT else ((1, 512) if mode == rans_device.MODE_ORDER0 else (4, 512))
+    freqs = rans_native.normalize_freqs(rng.integers(0, 40, (B * C, A)) + (rng.random((B * C, A)) < 0.5))
+    counts = np.resize(np.asarray(counts, np.int32), (B, L))
+    return (rng.integers(0, 1 << 16, (B, L, T)).astype(np.uint16), counts,
+            rng.integers(1 << 16, 1 << 32, (B, L)).astype(np.uint32), np.full((B, L), T, np.int32),
+            np.asarray(freqs, np.int32).reshape(B, C, A))
+
+
+# Word counts one before, at and after the residual's 64-step rounds and
+# 256-word ring, and the contour's 32-step rounds and 128-word ring.
+RES_COUNTS = (0, 1, 63, 64, 65, 127, 128, 129, 191, 192, 193, 255, 256, 257, 299, 300, 301, 7)
+CNT_COUNTS = (0, 1, 31, 32, 33, 63, 64, 65, 95, 96, 97, 127, 128, 129, 300)
+
+
+def _fields_case(case: str):
+    """(residual lanes or None, contour lanes or None, mode, natively coded) of one named card case."""
+    Z, W, O = rans_device.MODE_ZIGZAG, rans_device.MODE_WAVEFRONT, rans_device.MODE_ORDER0
+    if case.startswith("counts_T"):
+        T = int(case[len("counts_T"):])
+        return _counted_lanes(Z, 3, 32, T, RES_COUNTS, 61), _counted_lanes(W, 2, 40, T, CNT_COUNTS, 62), Z, False
+    if case == "zero_words":  # frame 0 one symbol (f = M, no word), frame 1 five live lanes
+        sym = _symbols("residual", 2, 32, 128, 63)
+        sym[0] = 3
+        ns = [32 * 128, 5 * 128]
+        words, counts, states, freqs = _native_code(sym, Z, ns)
+        assert (counts[0] == 0).all() and (counts[1, 5:] == 0).all()
+        res = (words, counts, states, _lives(ns, 32, 128), freqs)
+        return res, _fields_lanes("bits", 3, 64, W, H=33, T=128), Z, True
+    res_kind, _, cnt = case.partition("_contour")
+    H, B_c = (int(v) for v in cnt.split("x")) if cnt else (0, 0)
+    mode = O if res_kind == "order0" else Z
+    res = None
+    if res_kind != "none":
+        kind = {"zigzag": "residual", "order0": "uniform"}.get(res_kind, res_kind)
+        res = _fields_lanes(kind, 3, 65, mode, T=512 if kind in ("skewed", "uniform") else 160)
+    cnt_lanes = _fields_lanes("bits", B_c, 66, W, H=H, T=2064 if H == 64 else 200) if H else None
+    return res, cnt_lanes, mode, True
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["zigzag_contour64x2", "order0_contour33x1", "skewed_contour1x2", "uniform_contour512x1",
+                                  "zigzag", "none_contour64x3", "zero_words", "counts_T300", "counts_T320"])
+def test_cuda_fields_launch_equals_plain(cuda_device, case):
+    """One launch of both field groups (B_r != B_c where both are given)
+    equals each group's plain version and, on coded inputs, the native
+    decoder; a residual lane's word counts around the ring's rounds; lanes
+    with no word; the skewed and uniform tables; contours of H 1, 33, 64
+    and 512."""
+    res, cnt, mode, coded = _fields_case(case)
+    before = rans_device.DECODE_LAUNCHES
+    got = rans_device.decode_fields_device(res, cnt, mode, cuda_device)
+    torch.cuda.synchronize(cuda_device)
+    assert rans_device.DECODE_LAUNCHES == before + 1
+    host = rans_device.fields_to_host(*got)
+    for g, lanes, m in ((host[0], res, mode), (host[1], cnt, rans_device.MODE_WAVEFRONT)):
+        if lanes is None:
+            assert g is None
+            continue
+        want = _plain_of(lanes, m).numpy()
+        assert g.dtype == np.int32 and np.array_equal(g, want)
+        if coded:
+            assert np.array_equal(want, rans_native.decode_ctx_batch(*lanes[:3], lanes[4], lanes[0].shape[2], m,
+                                                                     lives=lanes[3]))
+
+
+@pytest.mark.cuda
+def test_cuda_decode_stamps_in_phase_order(cuda_device):
+    """The phase stamps of both blocks are set and come in phase order."""
+    res, cnt, mode, _ = _fields_case("zigzag_contour64x2")
+    args = [rans_device.upload_decode_lanes(*g, cuda_device) for g in (res, cnt)]
+    k = len(rans_device.DECODE_PHASES) + 1
+    stamps = torch.zeros(len(rans_device.DECODE_STAMP_BLOCKS) * k, dtype=torch.int64, device=cuda_device)
+    rans_device.decode_fields_cuda(*args, mode, phase_stamps=stamps)
+    torch.cuda.synchronize(cuda_device)
+    for block in stamps.cpu().reshape(-1, k).tolist():
+        assert block[0] > 0 and all(a <= b for a, b in zip(block, block[1:])), block
+    with pytest.raises(ValueError):  # stamps of the wrong size
+        rans_device.decode_fields_cuda(*args, mode, phase_stamps=stamps[:-1])
