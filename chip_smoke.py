@@ -14,7 +14,11 @@ device-entropy engine run (20 frames at B = 8, their blobs' sha256), the
 rANS decode kernel's timings of phase 3f on that run's first batch (B = 1,
 8: the two field groups as two launches, and in one launch with its phase
 split where the checkout has it; each launch's device time under
-``torch.profiler``, at full length and at T = 16), the main
+``torch.profiler``, at full length and at T = 16), the rANS coder's calls
+on the card with the wrappers' host time (a 1,000-symbol field's encode and
+decode calls, a T = 16 decode call, the big fields' encode and decode calls
+at B = 1 and 8; a checkout whose coder takes no ``device=`` must be run
+with the reference's device variable set to ``default``), the main
 path's encodes of phase 4 and the DBSCAN-mode encodes of phases 4b/6 with the
 ``rpcc_tpu_torch``
 package of another checkout (``.`` for this one), through entry points
@@ -53,8 +57,10 @@ Phases (each raises on failure, and the process then exits nonzero):
      kernel's per-phase split (``%globaltimer`` stamps of frame 0);
   4. the main path: ``RPCCCodec(Velodyne64E, CodecConfig(), "cuda")``
      compresses and decompresses four synthetic 64x2000 frames; error
-     bound, exact zero pixels, one FPS launch and no rANS launch per encode
-     (the single-frame codec entropy-codes on the host), byte-identical
+     bound, exact zero pixels, one FPS launch per encode, its rANS
+     containers coded on the card (one encode launch per coded field, one
+     decode launch for both big fields and one per small rANS field; none
+     with ``device="cpu"``), byte-identical
      repeat encodes, and the GPU-vs-CPU bpp difference;
   3e. (run after 4) the rANS kernel (one launch per batch: a block per
      frame and field) against its plain PyTorch version on the GPU, every
@@ -98,8 +104,11 @@ Phases (each raises on failure, and the process then exits nonzero):
      back to back) beside the host's f32 projection and its byte bound,
      and the from-points encode's wall and profiled device time at B = 1
      and 8;
-  5. the compress/decompress CLIs with ``--device cuda`` in subprocesses;
-     compress ``--profile`` names the FPS kernel in its table; compress
+  5. the compress/decompress CLIs with ``--device cuda`` in subprocesses,
+     then in this process with the launch counts read (compress codes its
+     containers on the card, ``--decode_backend device`` decodes them
+     there, ``host`` launches neither rANS kernel, each writing what its
+     subprocess wrote); compress ``--profile`` names the FPS kernel in its table; compress
      ``--self_describing --eval`` decoded by a decompress with no
      codec flags and no ``--lidar`` (then with ``--eval
      --original_point_cloud``), and the 32E channel table with ``f32`` and
@@ -113,22 +122,28 @@ Phases (each raises on failure, and the process then exits nonzero):
      encodes 20 frames through ``encode_pipeline`` (batches of 8, 8, 4) and
      decodes them through ``decode_pipeline`` and the host decoder: points
      within bound with zero pixels dropped, blobs equal the B = 1 engine's,
-     a repeat run byte-identical, one FPS and one rANS launch per batch,
-     the count of frames whose i16 stream came back; then with
-     ``device_entropy=False``: blobs equal phase 4's single-frame blobs
-     byte for byte, one FPS launch and no rANS launch per batch; the
+     a repeat run byte-identical, one FPS and one rANS launch per batch
+     (and one for each frame whose i16 stream came back, re-encoded on the
+     card), the count of those frames, the decode's launches (one a batch
+     for both big fields, one a small rANS field; none in the host
+     decoder); then with ``device_entropy=False``: blobs equal phase 4's
+     single-frame blobs byte for byte, one FPS launch per batch and the
+     containers' rANS launches on the card (one a residual lane geometry,
+     one for the contours, one a sequence field); the
      DBSCAN mode at B = 4 (host entropy) equals its single-frame blobs with
      one DBSCAN launch per batch (their sha256 printed); encode and decode
      frames/s at B = 1 and B = 8 for both entropy settings (median, min and
      max of five passes), the stage stats, and one profiled B = 8 encode
      (launches, summed device time); the engine at B = 8 on the 32E channel
      table and in f32 (its 4-byte ring), host entropy: blobs equal the
-     single-frame blobs, one FPS launch per batch, decodes within bound;
+     single-frame blobs, one FPS launch per batch and the containers' rANS
+     launches, decodes within bound;
      device entropy on the 32E channel table at B = 8 and in DBSCAN mode at
      B = 4, each batch holding street scenes cut at 26 m (dropped returns),
      a ground sector of at most
      32,768 returns and a frame of random ranges (past 512 escapes): one
-     segmentation and one rANS launch per batch, the host's pick and the
+     segmentation and one rANS launch per batch (and one a re-encoded
+     frame), the host's pick and the
      escape fallback both taken, the i16 stream downloads counted, blobs
      equal the B = 1 engine's, a repeat run byte-identical, decodes within
      bound through both decoders, street-scene bytes within 2% of host
@@ -138,42 +153,51 @@ Phases (each raises on failure, and the process then exits nonzero):
      together) against its plain PyTorch version on the GPU and the native
      host decoder, every symbol equal, each field group alone and the
      largest residual group with the contours in one launch, and the
-     codec's ``RPCC_RANS_DEVICE=default`` backend's bytes against the
-     native backend's: phase 6's first batch (eight distinct frames, device
+     codec's decode on the card against the native host coder's
+     (``device=None``): phase 6's first batch (eight distinct frames, device
      containers) at B = 8 and B = 1, phase 4's four host-coded frames, a
      mixed-T batch (device containers and cut street scenes), stream lengths
      0, 1 and HW and a few hundred escapes (device) and > 512 escapes
      (host), two order-0 'D' containers, a 32x2250 32E frame (cases without
      contours share their launch with phase 6's frame 0's); a corrupt
      escape list and a 513-row contour raising; the engine's decode of phase
-     6's 20 blobs on both backends, range images equal, one decode launch
-     per batch; the renormalizations per live step of phase 6's 20 frames;
+     6's 20 blobs on the card and with its coder on the host, range images
+     equal, one decode launch per batch and per small rANS field, its steps
+     split (unpack, parse, staged call, finalize, small fields, stacking);
+     the renormalizations per live step of phase 6's 20 frames;
      ``python -m rpcc_tpu_torch.utils.chain_probe`` (the latencies of a
      step's dependent operations, measured); both fields in one launch,
      each alone, the plain version and the native host decode timed on
      phase 6's first batch at B = 1 and 8, with the phase stamps of both
      blocks, ns per step, the byte bound and the chain floor from the
-     measured latencies, the codec's and the engine's decode on both
-     backends;
+     measured latencies, the codec's and the engine's decode on the card and
+     on the host coder, in turns;
   3g. (run after 3f) the rANS encode kernel on the host containers' path
-     (``RPCC_RANS_DEVICE=default``, set in a block): phase 4's and 4b's
+     (every card encode's containers): phase 4's and 4b's
      single-frame blobs, the engine's ``--no-device_entropy`` blobs of
      phase 6's first batch and the host-encode test's edge fields (stream
      lengths 0 to 128,000, lanes 1 / 2 / 8 / 32, int32 deltas of
-     +-(2^31 - 1), 513 escapes, a u16 run field) byte-equal to the cpu
-     backend's, one launch per batch call (a field, a lane-geometry group
-     or a contour batch), a mixed small / big batch equal to the plain
-     version's bytes (the reference's default bytes) and a 513-row contour
+     +-(2^31 - 1), 513 escapes, a u16 run field) byte-equal to the native
+     host coder's (``device=None``), one launch per batch call (a field, a
+     lane-geometry group or a contour batch), divergence 33's mixed small /
+     big batch equal to the reference's default bytes (decoded on both,
+     sizes within 0.5%) and a 513-row contour
      raising; the kernel at the host geometry against its plain version,
      timed on phase 6's first batch at B = 1 and 8 (both fields in one
-     launch, each alone, 10 back to back) beside the byte bound, the encode
-     calls on both backends and the native host encode of the same batch,
-     and a 1,000-symbol field (16 lanes);
-  7. the datalist CLIs in subprocesses: ``compress_datalist --batch 4
+     launch, each alone, 10 back to back) beside the byte bound, the staged
+     wrapper's pieces equal to the kernel's on uploaded tensors, the encode
+     calls on the card and on the host coder in turns and the native host
+     encode of the same batch; a 1,000-symbol field (16 lanes): its encode
+     call and its container's decode call, a frame's sequence field, and a
+     T = 16 decode call of both big fields, each against the native coder
+     in turns;
+  7. the datalist CLIs: ``compress_datalist --batch 4
      --device cuda`` on 10 frames at the default (device entropy) and with
      ``--no-device_entropy``, the latter equal to the single-frame codec per
-     seed; ``decompress_datalist`` of both on the host and the device
-     backend within bound and equal to each other; then both CLIs on four
+     seed, each with its rank's rANS launches (> 0); ``decompress_datalist``
+     of both on the host (no launch) and the device backend (rANS decode
+     launches) within bound and equal to each other, all in this process;
+     then, in subprocesses, both CLIs on four
      32E channel-table frames in f32 with ``cpu_fps`` from a
      ``--compressor_yaml``, ``--no-device_entropy`` and ``--eval`` (one OK
      line per frame);
@@ -187,7 +211,8 @@ Phases (each raises on failure, and the process then exits nonzero):
      the FPS and rANS kernels once per batch of its own; the rate after
      every rank's first batch, each rank's start-up and the all-reduce's
      time are printed; the 2-rank device decode of copy 0 writes the host
-     decoder's points; ``compress_datalist`` at its default
+     decoder's points, each rank decoding its batches' rANS containers on
+     the card (its decode launches counted); ``compress_datalist`` at its default
      ``--num_devices`` (one process on one card) writes phase 6's blobs.
      A watchdog stops the ranks of a launch that outlasts 300 s.
 
@@ -754,19 +779,27 @@ def phase_main(torch, np, dev, card, lidar):
     codec.decompress(codec.compress(frames[SEEDS[0]])[0])  # warm-up
     torch.cuda.synchronize()
 
-    fps.LAUNCHES = dbscan.LAUNCHES = rans_device.LAUNCHES = 0
+    fps.LAUNCHES = dbscan.LAUNCHES = rans_device.LAUNCHES = rans_device.DECODE_LAUNCHES = 0
     results = encode_frames(codec, frames)
     launches = fps.LAUNCHES
+    rans_enc, rans_dec = rans_device.LAUNCHES, rans_device.DECODE_LAUNCHES
+    want_enc = sum(2 * rans_encode_calls(np, r[3]) for r in results.values())
+    want_dec = sum(1 + small_rans_fields(r[1]) for r in results.values())
     check(launches == 2 * len(SEEDS), f"fps.LAUNCHES rose by {launches} over {2 * len(SEEDS)} encodes")
     check(dbscan.LAUNCHES == 0, "the FPS path launched the DBSCAN kernel")
-    check(rans_device.LAUNCHES == 0, "the single-frame codec launched the rANS kernel")
-    print(f"[phase 4] fps.LAUNCHES = {launches} for {2 * len(SEEDS)} encodes")
+    check(rans_enc == want_enc > 0, f"the single-frame codec's encodes made {rans_enc} rANS launches, expected "
+          f"{want_enc} (one per coded field and the contour)")
+    check(rans_dec == want_dec > 0, f"the single-frame codec's decodes made {rans_dec} rANS decode launches, "
+          f"expected {want_dec} (both big fields in one, one per small rANS field)")
+    print(f"[phase 4] fps.LAUNCHES = {launches} for {2 * len(SEEDS)} encodes; rans_device.LAUNCHES = {rans_enc}, "
+          f"DECODE_LAUNCHES = {rans_dec} for {2 * len(SEEDS)} encodes and {len(SEEDS)} decodes on the card")
     for s, res in results.items():
         print(f"[phase 4] default seed {s} blob sha256 {hashlib.sha256(res[1]).hexdigest()}")
     bpps = check_frames(np, codec, results, bound, card, "default", 4)
 
     cpu_codec = RPCCCodec(lidar, cfg, "cpu")
     pc0 = frames[SEEDS[0]]
+    rans_device.LAUNCHES = rans_device.DECODE_LAUNCHES = 0
     seg_gpu = codec.encode_device(pc0).seg_idx.cpu()
     seg_cpu = cpu_codec.encode_device(pc0).seg_idx
     flips = int((seg_gpu != seg_cpu).sum())
@@ -776,12 +809,16 @@ def phase_main(torch, np, dev, card, lidar):
     _, ri_x, _ = cpu_codec.decompress(results[SEEDS[0]][1])  # GPU blob, CPU decoder
     q, d = codec.project(pc0)
     x_err = float(np.abs(ri_x - q.astype(np.float32) * d).max())
+    check(rans_device.LAUNCHES == rans_device.DECODE_LAUNCHES == 0,
+          f"the codec on device='cpu' launched the rANS kernels ({rans_device.LAUNCHES}, {rans_device.DECODE_LAUNCHES})")
     print(f"[phase 4] seed {SEEDS[0]} cuda vs cpu: seg flips {flips}, bpp {bpps[SEEDS[0]]:.5f} "
           f"vs {bpp_cpu:.5f} (rel diff {rel:.5f}), cpu decode of the cuda blob max_err {x_err:.6f}, "
           f"blobs identical {blob_cpu == results[SEEDS[0]][1]}")
     check(rel <= BPP_TOL, f"cuda vs cpu bpp differ by {rel:.4%}")
     check(x_err <= bound, f"cpu decode of the cuda blob: max_err {x_err} > {bound}")
-    return codec, frames, launches / (2 * len(SEEDS))
+    print(f"[phase 4] RPCCCodec(..., 'cpu') encode and decode: 0 rANS launches of either kernel")
+    return codec, frames, dict(fps=launches / (2 * len(SEEDS)), rans=rans_enc / (2 * len(SEEDS)),
+                               rans_decode=rans_dec / len(SEEDS))
 
 
 def rans_inputs(torch, codec, clouds):
@@ -965,15 +1002,57 @@ def rans_decode_bound(lanes_list):
 
 
 @contextlib.contextmanager
-def rans_backend(name: str):
-    """The port's codec coding with ``RPCC_RANS_DEVICE=name`` in the block."""
-    from rpcc_tpu_torch.codec import rans_codec
-
-    old, rans_codec._RANS_DEVICE = rans_codec._RANS_DEVICE, name
+def coder_on(owner, device):
+    """``owner``'s (a codec's or an engine's) rANS coder on ``device`` in
+    the block: None asks for the native host coder explicitly."""
+    old, owner.entropy.device = owner.entropy.device, device
     try:
         yield
     finally:
-        rans_codec._RANS_DEVICE = old
+        owner.entropy.device = old
+
+
+def in_turns(fa, fb, passes: int = RATE_PASSES):
+    """Host-clock medians (ms) of ``fa`` and ``fb`` over ``passes`` samples
+    each, taken in turns (a b b a a b ...) after one warm-up call each."""
+    fa()
+    fb()
+    times = ([], [])
+    for i in range(passes):
+        for k in ((0, 1) if i % 2 == 0 else (1, 0)):
+            t = time.perf_counter()
+            (fa, fb)[k]()
+            times[k].append((time.perf_counter() - t) * 1e3)
+    return statistics.median(times[0]), statistics.median(times[1])
+
+
+def small_rans_fields(blob: bytes, uniform: bool = True) -> int:
+    """The fields of a payload other than the two big ones that are coded
+    in rANS containers ('C' or 'D'): one decode launch each on the card."""
+    from rpcc_tpu_torch.codec import rans_codec
+    from rpcc_tpu_torch.codec.bitstream import unpack_bitstream
+
+    return sum(v[0] in (rans_codec.MAGIC_CTX, rans_codec.MAGIC_DELTA)
+               for k, v in unpack_bitstream(blob, uniform=uniform).items()
+               if k not in ("residual_quantized", "contour_map") and v)
+
+
+def rans_encode_calls(np, fields) -> int:
+    """The encode launches of a single-frame codec's encode on the card: one
+    a field coded in rANS (the int fields' batch calls), one for the contour."""
+    return sum(1 for k, v in fields.items() if k != "contour_map" and v.dtype in (np.int16, np.uint16, np.int32)) + 1
+
+
+def big_rans_decodes(blobs, uniform: bool = True) -> int:
+    """1 when a batch decode of ``blobs`` has a rANS big field (both go in one launch), else 0."""
+    from rpcc_tpu_torch.codec import rans_codec
+    from rpcc_tpu_torch.codec.bitstream import unpack_bitstream
+
+    fields = [unpack_bitstream(b, uniform=uniform) for b in blobs]
+    res = all(f["residual_quantized"][0] in (rans_codec.MAGIC_CTX, rans_codec.MAGIC_DELTA, rans_codec.MAGIC_BZD)
+              for f in fields) and any(f["residual_quantized"][0] != rans_codec.MAGIC_BZD for f in fields)
+    cnt = all(f["contour_map"][:1] == bytes([rans_codec.MAGIC_BITS]) for f in fields)
+    return int(res or cnt)
 
 
 def upload_lanes(dev, lanes):
@@ -1110,8 +1189,9 @@ def order0_container(np, arr):
 
 def phase_rans_decode(torch, np, dev, card, lidar, codec, frames, eng):
     """3f: the rANS decode kernel against its plain version and the native
-    decoder, the codec's ``RPCC_RANS_DEVICE=default`` backend against the
-    native one, the engine's decode of phase 6's blobs on it, and times."""
+    decoder, the codec's decode on the card against the native host coder
+    (``device=None``), the engine's decode of phase 6's blobs on both, and
+    times."""
     from rpcc_tpu_torch.codec import rans_codec, rans_native
     from rpcc_tpu_torch.codec.bitstream import unpack_bitstream
     from rpcc_tpu_torch.config import CodecConfig
@@ -1182,18 +1262,12 @@ def phase_rans_decode(torch, np, dev, card, lidar, codec, frames, eng):
         shapes.append(f"one launch: {len(first)} residual + {len(pair_cnt)} contour frames")
         for fn, blobs in ((rans_codec.decompress_delta_batch, res_blobs), (rans_codec.decompress_contour_batch, cnt_blobs)):
             if blobs:
-                with rans_backend("cpu"):
-                    want = fn(blobs)
-                with rans_backend("default"):
-                    check(fn(blobs) == want, f"the default backend's bytes differ from the native backend's on {what}")
+                check(fn(blobs, dev) == fn(blobs, None), f"the card's decoded bytes differ from the host coder's on {what}")
         if cnt_blobs:
             packed = [{"residual_quantized": r, "contour_map": c} for r, c in zip(res_blobs, cnt_blobs)]
-            with rans_backend("cpu"):
-                want = rans_codec.batch_decode_big_fields(packed)
-            with rans_backend("default"):
-                check(rans_codec.batch_decode_big_fields(packed) == want,
-                      f"the default backend's batch_decode_big_fields differs from the native backend's on {what}")
-        print(f"[phase 3f] rans decode kernel == plain == native, default backend bytes == native on {what}: "
+            check(rans_codec.batch_decode_big_fields(packed, dev) == rans_codec.batch_decode_big_fields(packed, None),
+                  f"batch_decode_big_fields on the card differs from the host coder's on {what}")
+        print(f"[phase 3f] rans decode kernel == plain == native, the codec's card decode == host decode on {what}: "
               + "; ".join(shapes))
 
     # Raises: a corrupt escape list (one more listed than decoded), a contour
@@ -1208,40 +1282,47 @@ def phase_rans_decode(torch, np, dev, card, lidar, codec, frames, eng):
     cw, cnw, ccounts, cstates, cfreqs = rans_native.contour_encode_frames(tall_bits[None], H, W, T_tall)
     tall = rans_codec.build_bits_container(T_tall, H, W, cfreqs[0], cstates[0], ccounts[0].astype(np.uint16),
                                            cw[0, :cnw[0]])
-    with rans_backend("cpu"):
-        check(rans_codec.decompress_contour_batch([tall]) == [tall_bits.tobytes()], "the native decoder of 513 rows")
+    check(rans_codec.decompress_contour_batch([tall], None) == [tall_bits.tobytes()], "the native decoder of 513 rows")
     for what, fn, blob in (("a corrupt escape list", rans_codec.decompress_delta_batch, bytes(bad)),
                            (f"a contour of {H} rows", rans_codec.decompress_contour_batch, tall)):
-        with rans_backend("default"):
-            try:
-                fn([blob])
-            except ValueError as e:
-                print(f"[phase 3f] the default backend raises on {what}: {e}")
-            else:
-                raise RuntimeError(f"the default backend decoded {what}")
+        try:
+            fn([blob], dev)
+        except ValueError as e:
+            print(f"[phase 3f] the card's decode raises on {what}: {e}")
+        else:
+            raise RuntimeError(f"the card's decode decoded {what}")
 
-    # End to end: the engine's decode of phase 6's 20 blobs on each backend;
-    # on the card one decode launch per batch (residual and contour together).
+    # End to end: the engine's decode of phase 6's 20 blobs with its coder on
+    # the card (the default) and on the host (asked for explicitly); on the
+    # card one decode launch per batch (residual and contour together) and
+    # one per small rANS field.
     B = 8
     engine = BatchEngine(lidar, cfg, dev, batch_size=B)
     batches = _batches(eng["blobs"], B)
     try:
-        with rans_backend("cpu"):
+        with coder_on(engine, None):
             want = [engine.decode_range_images(b) for b in batches]
-            cpu_ms = host_median_ms(lambda: engine.decode_range_images(batches[0]), RATE_PASSES)
-        with rans_backend("default"):
-            engine.decode_range_images(batches[0])  # warm-up
-            torch.cuda.synchronize()
-            rd.DECODE_LAUNCHES = 0
-            got = [engine.decode_range_images(b) for b in batches]
-            launches = rd.DECODE_LAUNCHES
-            dev_ms = host_median_ms(lambda: engine.decode_range_images(batches[0]), RATE_PASSES)
+        engine.decode_range_images(batches[0])  # warm-up
+        torch.cuda.synchronize()
+        rd.DECODE_LAUNCHES = 0
+        got = [engine.decode_range_images(b) for b in batches]
+        launches = rd.DECODE_LAUNCHES
+
+        def host_decode():
+            with coder_on(engine, None):
+                engine.decode_range_images(batches[0])
+
+        cpu_ms, dev_ms = in_turns(host_decode, lambda: engine.decode_range_images(batches[0]), 2 * RATE_PASSES)
+        split = engine_decode_split(np, rd, rans_codec, engine, batches[0], dev)
     finally:
         engine.close()
-    check(all(np.array_equal(a, b) for a, b in zip(got, want)), "the engine's range images differ between the backends")
-    check(launches == len(batches), f"{launches} decode launches for {len(batches)} engine batches, expected one each")
+    small = sum(map(small_rans_fields, eng["blobs"]))
+    check(all(np.array_equal(a, b) for a, b in zip(got, want)), "the engine's range images differ between the coders")
+    check(launches == len(batches) + small, f"{launches} decode launches for {len(batches)} engine batches and {small} "
+          "small rANS fields, expected one each")
     print(f"[phase 3f] engine decode of phase 6's {len(eng['blobs'])} blobs in batches {[len(b) for b in batches]} "
-          f"with RPCC_RANS_DEVICE=default: range images == the cpu backend's, {launches} decode launches")
+          f"on the card: range images == the host coder's, {launches} decode launches ({len(batches)} batches, "
+          f"{small} small fields)")
 
     # Words read back per live step (a renormalization each) over phase 6's
     # 20 frames, and the latencies of a step's dependent operations.
@@ -1300,19 +1381,63 @@ def phase_rans_decode(torch, np, dev, card, lidar, codec, frames, eng):
         out[Bt] = row
         # The codec's decode of the batch's two big fields, host work included.
         packed = main[:Bt]
-        with rans_backend("cpu"):
-            cpu_fields = host_median_ms(lambda: rans_codec.batch_decode_big_fields(packed), RATE_PASSES)
-        with rans_backend("default"):
-            dev_fields = host_median_ms(lambda: rans_codec.batch_decode_big_fields(packed), RATE_PASSES)
+        cpu_fields, dev_fields = in_turns(lambda: rans_codec.batch_decode_big_fields(packed, None),
+                                          lambda: rans_codec.batch_decode_big_fields(packed, dev), 2 * RATE_PASSES)
         out[Bt].update(codec_cpu_ms=cpu_fields, codec_default_ms=dev_fields)
         print(f"[phase 3f] [{card}] B={Bt}: both fields' launch {out[Bt]['ms']:.4f} ms against the native host decode "
               f"{out[Bt]['host_ms']:.4f} ms; batch_decode_big_fields (parse, assemble, decode, finalize), median of "
-              f"{RATE_PASSES}: cpu backend {cpu_fields:.3f} ms, default backend {dev_fields:.3f} ms")
-    out.update(engine_cpu_ms=cpu_ms, engine_default_ms=dev_ms)
-    print(f"[phase 3f] [{card}] engine decode_range_images of phase 6's first batch (B={B}), median of {RATE_PASSES}: "
-          f"cpu backend {cpu_ms:.3f} ms, default backend {dev_ms:.3f} ms; the native rANS decode of its two fields "
-          f"{out[B]['host_ms']:.3f} ms = {out[B]['host_ms'] / cpu_ms:.3f} of the cpu backend's decode")
+              f"{2 * RATE_PASSES} in turns: host coder (device=None) {cpu_fields:.3f} ms, card {dev_fields:.3f} ms")
+    out.update(engine_cpu_ms=cpu_ms, engine_default_ms=dev_ms, engine_split=split)
+    print(f"[phase 3f] [{card}] engine decode_range_images of phase 6's first batch (B={B}), median of "
+          f"{2 * RATE_PASSES} in turns: host coder (device=None) {cpu_ms:.3f} ms, card {dev_ms:.3f} ms; the native "
+          f"rANS decode of its two fields {out[B]['host_ms']:.3f} ms = {out[B]['host_ms'] / cpu_ms:.3f} of the host "
+          f"coder's decode")
+    print(f"[phase 3f] [{card}] engine decode of phase 6's first batch (B={B}) on the card, split (ms, median of "
+          f"{HOST_RUNS} each, host clock): " + json.dumps({k: round(v, 4) for k, v in split.items()}))
     return out
+
+
+def engine_decode_split(np, rd, rans_codec, engine, blobs, dev):
+    """The engine's decode of ``blobs`` on the card, step by step, each
+    timed alone on the host clock (ms): unpack the payloads; parse the big
+    fields' containers and assemble their lanes; stage, upload, launch and
+    download (one call of ``decode_fields_host``; beside it the host
+    coder's native decode of the same lanes); finalize the symbols
+    into field bytes; decode the small fields; the whole entropy stage
+    (``decompress_dict_batch``), the engine's stage 1 (the entropy stage
+    and the stacking) and the whole decode (``decode_range_images``)."""
+    from rpcc_tpu_torch.codec.bitstream import unpack_bitstream
+
+    packed = [unpack_bitstream(b, uniform=True) for b in blobs]
+    res = [p["residual_quantized"] for p in packed]
+    cms = [p["contour_map"] for p in packed]
+
+    def parse():
+        _, groups = rans_codec._parse_delta_batch(res)
+        (k, items), = groups.items()
+        return items, rans_codec._delta_lanes([p for _, p in items]), rans_codec.contour_lanes(cms)
+
+    items, rl, (cl, H, W) = parse()
+    sym = rd.decode_fields_host(rl[:5], cl[:5], rl.mode, dev)
+
+    def finalize():
+        out = [b""] * len(res)
+        rans_codec._finalize_delta_group(out, items, rl, sym[0])
+        return out, rans_codec._finalize_contours(sym[1], cl, H, W)
+
+    small = {k: v for p in packed for k, v in p.items() if k not in ("residual_quantized", "contour_map")}
+    return dict(
+        unpack=host_median_ms(lambda: [unpack_bitstream(b, uniform=True) for b in blobs]),
+        parse_and_lanes=host_median_ms(parse),
+        stage_upload_launch_download=host_median_ms(lambda: rd.decode_fields_host(rl[:5], cl[:5], rl.mode, dev)),
+        native_decode_in_its_place=host_median_ms(lambda: (rans_codec.decode_lanes(rl, None),
+                                                           rans_codec.decode_lanes(cl, None))),
+        finalize=host_median_ms(finalize),
+        small_fields=host_median_ms(lambda: [engine.entropy.decompress(p[k]) for p in packed for k in small]),
+        entropy_stage=host_median_ms(lambda: engine.entropy.decompress_dict_batch(packed)),
+        engine_prepare=host_median_ms(lambda: engine._prepare_decode(blobs)),
+        decode_range_images=host_median_ms(lambda: engine.decode_range_images(blobs)),
+    )
 
 
 # ------------------------------------------------------------------ 3g: rANS encode, host path
@@ -1354,21 +1479,21 @@ def host_rans_bound(lens, L: int, T: int, n_contours: int, H: int, W: int):
     return bound(0.0, float(res + cnt))
 
 
-def phase_rans_host(torch, np, dev, card, lidar, codec, frames):
-    """3g: ``RPCC_RANS_DEVICE=default`` encodes the host containers on the
-    card: bytes against the native backend's, one launch per batch call,
-    and the kernel at the host geometry, the encode calls and the native
-    host encode of the same batch timed."""
+def phase_rans_host(torch, np, dev, card, lidar, codec, frames, eng_blobs):
+    """3g: the host containers encoded on the card (the codec's and the
+    engine's default): bytes against the native host coder's (asked for
+    with ``device=None``), one launch per batch call, and the kernel at the
+    host geometry, the encode calls on both and the native host encode of
+    the same batch timed, in turns; the small fields' calls (a 1,000-symbol
+    encode, a T = 16 decode) against the native coder's."""
     from rpcc_tpu_torch.codec import rans_codec, rans_native
+    from rpcc_tpu_torch.codec.bitstream import unpack_bitstream
     from rpcc_tpu_torch.config import CodecConfig
     from rpcc_tpu_torch.data.synth import synth_cloud_for
     from rpcc_tpu_torch.models.pipeline import RPCCCodec
     from rpcc_tpu_torch.ops import rans_device as rd
     from rpcc_tpu_torch.ops.projection_host import build_transform_map
     from rpcc_tpu_torch.parallel.engine import BatchEngine
-
-    def rans_fields(fields):  # the fields a single-frame encode codes with one batch call each
-        return sum(1 for k, v in fields.items() if k != "contour_map" and v.dtype in (np.int16, np.uint16, np.int32)) + 1
 
     counted = {"launches": 0, "calls": 0}  # over every counted run below: kernel launches and batch calls
 
@@ -1383,72 +1508,82 @@ def phase_rans_host(torch, np, dev, card, lidar, codec, frames):
                               {s: scene_cloud(np, tm, s) for s in MODE_SEEDS})):
         c = codec if tag == "default" else RPCCCodec(lidar, cfg, dev)
         for s, pc in clouds.items():
-            with rans_backend("cpu"):
-                want, fields, _ = c.compress(pc)
-            with rans_backend("default"):
+            with coder_on(c, None):
                 rd.LAUNCHES = 0
-                got = c.compress(pc)[0]
-                launches = rd.LAUNCHES
-            check(got == want, f"{tag} seed {s}: the default backend's blob differs from the cpu backend's")
-            check(launches == rans_fields(fields), f"{tag} seed {s}: {launches} rANS launches for "
-                  f"{rans_fields(fields)} coded fields")
-            count(launches, rans_fields(fields))
-            print(f"[phase 3g] {tag} seed {s} blob under RPCC_RANS_DEVICE=default == cpu backend's, sha256 "
+                want, fields, _ = c.compress(pc)
+                check(rd.LAUNCHES == 0, f"{tag} seed {s}: the host coder launched the rANS kernel")
+            rd.LAUNCHES = 0
+            got = c.compress(pc)[0]
+            launches = rd.LAUNCHES
+            check(got == want, f"{tag} seed {s}: the card's blob differs from the host coder's")
+            check(launches == rans_encode_calls(np, fields), f"{tag} seed {s}: {launches} rANS launches for "
+                  f"{rans_encode_calls(np, fields)} coded fields")
+            count(launches, rans_encode_calls(np, fields))
+            print(f"[phase 3g] {tag} seed {s} blob coded on the card == the host coder's, sha256 "
                   f"{hashlib.sha256(got).hexdigest()}, {launches} rANS launches (one a field)")
+
+    codec_turns = codec_in_turns(codec, frames[SEEDS[0]], dev, 2 * RATE_PASSES)
+    print(f"[phase 3g] [{card}] RPCCCodec single-frame encode and decode of seed {SEEDS[0]}, its coder on the card "
+          f"and on the host (device=None), in turns (median of {2 * RATE_PASSES} each, ms): "
+          + json.dumps({k: {d: round(v, 4) for d, v in row.items()} for k, row in codec_turns.items()}))
 
     # The engine's host-entropy path on phase 6's first batch.
     seeds8 = BATCH_SEEDS[:8]
     clouds8 = [synth_cloud_for(lidar, s) for s in seeds8]
     engine = BatchEngine(lidar, CodecConfig(device_entropy=False), dev, batch_size=8)
     try:
-        with rans_backend("cpu"):
+        with coder_on(engine, None):
             want = engine.encode_frames(clouds8, seeds8)
-        with rans_backend("default"):
-            rd.LAUNCHES = 0
-            got = engine.encode_frames(clouds8, seeds8)
-            launches = rd.LAUNCHES
+        rd.LAUNCHES = 0
+        got = engine.encode_frames(clouds8, seeds8)
+        launches = rd.LAUNCHES
     finally:
         engine.close()
-    check([b for b, _ in got] == [b for b, _ in want], "the engine's host-entropy blobs differ between the backends")
+    check([b for b, _ in got] == [b for b, _ in want], "the engine's host-entropy blobs differ between the coders")
     groups = len({rans_codec._geometry(f["residual_quantized"].size) for _, f in want})
     check(launches == groups + 1 + len(seeds8), f"{launches} rANS launches for the engine's batch, expected "
           f"{groups} residual groups + 1 contour batch + {len(seeds8)} sequences")
     count(launches, groups + 1 + len(seeds8))
-    print(f"[phase 3g] engine (B=8, --no-device_entropy) under RPCC_RANS_DEVICE=default: blobs == cpu backend's, "
+    print(f"[phase 3g] engine (B=8, --no-device_entropy) on the card: blobs == the host coder's, "
           f"{launches} rANS launches ({groups} residual lane geometries, 1 contour batch, {len(seeds8)} sequence fields)")
 
     # The tests' edge fields, and the mixed small / big batch.
     for what, arrays, lanes in host_edge_fields(np):
-        with rans_backend("cpu"):
-            want = rans_codec.compress_delta_batch(arrays, lanes=lanes)
-            want_c = [rans_codec.compress(a, lanes=lanes) for a in arrays]
-        with rans_backend("default"):
-            rd.LAUNCHES = 0
-            got = rans_codec.compress_delta_batch(arrays, lanes=lanes)
-            got_c = [rans_codec.compress(a, lanes=lanes) for a in arrays]
-            check(rd.LAUNCHES == 1 + len(arrays), f"{what}: {rd.LAUNCHES} launches for {1 + len(arrays)} calls")
-            count(rd.LAUNCHES, 1 + len(arrays))
-        check(got == want and got_c == want_c, f"the default backend's containers differ on {what}")
-        print(f"[phase 3g] default backend == cpu backend on {what}: {[chr(b[0]) for b in got]}, "
-              f"{[len(b) for b in got]} bytes")
+        want = rans_codec.compress_delta_batch(arrays, lanes=lanes, device=None)
+        want_c = [rans_codec.compress(a, lanes=lanes, device=None) for a in arrays]
+        rd.LAUNCHES = 0
+        got = rans_codec.compress_delta_batch(arrays, lanes=lanes, device=dev)
+        got_c = [rans_codec.compress(a, lanes=lanes, device=dev) for a in arrays]
+        check(rd.LAUNCHES == 1 + len(arrays), f"{what}: {rd.LAUNCHES} launches for {1 + len(arrays)} calls")
+        count(rd.LAUNCHES, 1 + len(arrays))
+        check(got == want and got_c == want_c, f"the card's containers differ from the host coder's on {what}")
+        check([rans_codec.decompress(b, dev) for b in got_c] == [a.tobytes() for a in arrays],
+              f"the card's decode of the card's containers on {what}")
+        print(f"[phase 3g] card == host coder on {what}: {[chr(b[0]) for b in got]}, {[len(b) for b in got]} bytes")
+    # Divergence 33: a batch mixing frames of at most and of more than 32,768
+    # symbols takes one geometry on the card (the reference's default bytes).
     mixed = [walk(np, 20000, 7, step=1), walk(np, 40000, 8)]
-    with rans_backend("cpu"):
-        cpu_mixed = rans_codec.compress_delta_batch(mixed)
-        one_geometry = rans_codec._compress_delta_batch_np(mixed)  # the reference's default recipe, native coder
-    with rans_backend("default"):
-        got = rans_codec.compress_delta_batch(mixed)
-    check(got == one_geometry and got != cpu_mixed, "the mixed batch: default bytes differ from the native coder's "
-          "at one geometry, or equal the native path's")
-    print(f"[phase 3g] mixed batch (20000 + 40000): default == the native coder's at one geometry (the reference's "
-          f"default bytes), {[len(b) for b in got]} vs the native path's {[len(b) for b in cpu_mixed]} bytes")
+    cpu_mixed = rans_codec.compress_delta_batch(mixed, device=None)
+    one_geometry = rans_codec._compress_delta_batch_np(mixed)  # the reference's default recipe, native coder
+    got = rans_codec.compress_delta_batch(mixed, device=dev)
+    check(got == one_geometry and got != cpu_mixed, "the mixed batch: the card's bytes differ from the native "
+          "coder's at one geometry, or equal the host path's")
+    for blobs in (got, cpu_mixed):
+        for d in (None, dev):
+            check(rans_codec.decompress_delta_batch(blobs, d) == [a.tobytes() for a in mixed],
+                  f"divergence 33: a mixed batch's containers do not decode on {d}")
+    rel = abs(sum(map(len, got)) - sum(map(len, cpu_mixed))) / sum(map(len, cpu_mixed))
+    check(rel <= BPP_TOL, f"divergence 33: the two sides' sizes differ by {rel:.4%}")
+    print(f"[phase 3g] divergence 33, mixed batch (20000 + 40000): card == the native coder at one geometry (the "
+          f"reference's default bytes), {[len(b) for b in got]} vs the host path's {[len(b) for b in cpu_mixed]} "
+          f"bytes (rel {rel:.5f}); both decode on both")
     tall = np.packbits(np.zeros(rd.MAX_CONTOUR_ROWS + 1, np.uint8))
-    with rans_backend("default"):
-        try:
-            rans_codec.compress_contour(tall, rd.MAX_CONTOUR_ROWS + 1, 1)
-        except ValueError as e:
-            print(f"[phase 3g] the default backend raises on a contour of {rd.MAX_CONTOUR_ROWS + 1} rows: {e}")
-        else:
-            raise RuntimeError("the default backend coded a contour past the kernel's rows")
+    try:
+        rans_codec.compress_contour(tall, rd.MAX_CONTOUR_ROWS + 1, 1, dev)
+    except ValueError as e:
+        print(f"[phase 3g] the card raises on a contour of {rd.MAX_CONTOUR_ROWS + 1} rows: {e}")
+    else:
+        raise RuntimeError("the card coded a contour past the kernel's rows")
 
     # Times on phase 6's first batch: the kernel at the host geometry, the
     # encode calls on both backends, the native host encode of the batch.
@@ -1457,9 +1592,8 @@ def phase_rans_host(torch, np, dev, card, lidar, codec, frames):
     packed = [f["contour_map"] for f in fields8]
     H, W = lidar.height, lidar.width
     T_c = rd.contour_T(H, W)
-    out = dict(counted)
-    print(f"[phase 3g] {counted['launches']} rANS launches over {counted['calls']} batch calls under "
-          f"RPCC_RANS_DEVICE=default")
+    out = dict(counted, codec=codec_turns)
+    print(f"[phase 3g] {counted['launches']} rANS launches over {counted['calls']} batch calls on the card")
     for B in (1, 8):
         sb, pb = streams[:B], packed[:B]
         L, T = rans_codec._geometry(max(a.size for a in sb))
@@ -1478,15 +1612,16 @@ def phase_rans_host(torch, np, dev, card, lidar, codec, frames):
         both_b2b = median_ms(torch, lambda: rd.encode_fields_cuda(q, n, cont, lanes=L, T=T), BACK_TO_BACK)
         plain_ms = median_ms(torch, lambda: (rd.encode_streams_plain(q, n, L, T), rd.encode_contour_field_plain(cont)),
                              runs=PLAIN_RANS_RUNS)
-        with rans_backend("default"):
-            call_res = host_median_ms(lambda: rans_codec.compress_delta_batch(sb), RATE_PASSES)
-            call_cnt = host_median_ms(lambda: rans_codec.compress_contour_batch(pb, H, W), RATE_PASSES)
-        with rans_backend("cpu"):
-            cpu_res = host_median_ms(lambda: rans_codec.compress_delta_batch(sb), RATE_PASSES)
-            cpu_cnt = host_median_ms(lambda: rans_codec.compress_contour_batch(pb, H, W), RATE_PASSES)
-        # The default call's residual half split: the upload alone, then the
-        # pieces (upload, launch, download), the rest being the assembly.
-        upload_ms = host_median_ms(lambda: (rd.upload_streams(sb, dev), torch.cuda.synchronize()), RATE_PASSES)
+        cpu_res, call_res = in_turns(lambda: rans_codec.compress_delta_batch(sb, device=None),
+                                     lambda: rans_codec.compress_delta_batch(sb, device=dev), 2 * RATE_PASSES)
+        cpu_cnt, call_cnt = in_turns(lambda: rans_codec.compress_contour_batch(pb, H, W, None),
+                                     lambda: rans_codec.compress_contour_batch(pb, H, W, dev), 2 * RATE_PASSES)
+        # The staged wrapper (one upload, one launch, one download) gives the
+        # kernel's pieces on tensors uploaded one at a time; the card call's
+        # residual half split: those pieces, the rest being the assembly.
+        staged = rd.encode_streams_host(sb, L, T, dev)
+        check(all(np.array_equal(a, b.cpu().numpy()) for a, b in zip(staged, got)),
+              f"the staged encode wrapper's pieces differ from the kernel's on uploaded tensors (B={B})")
         pieces_ms = host_median_ms(lambda: rans_codec._device_pieces(sb, L, T, dev), RATE_PASSES)
         native_res = host_median_ms(lambda: rans_native.delta_encode_frames(sb, L, T, rd.ALPHABET, rd.NUM_CTX))
         native_cnt = host_median_ms(lambda: rans_native.contour_encode_frames(np.stack(pb), H, W, T_c))
@@ -1494,7 +1629,7 @@ def phase_rans_host(torch, np, dev, card, lidar, codec, frames):
         out[B] = dict(shape=f"B={B} residual L={L} T={T} (n {[a.size for a in sb]}) + contour {H}x{W} T={T_c}",
                       err=err, ms=both_ms, b2b=both_b2b, residual_ms=res_ms, residual_b2b=res_b2b, contour_ms=cnt_ms,
                       plain_ms=plain_ms, bound=(b_ms, b_by), call_ms=call_res + call_cnt, call_residual_ms=call_res,
-                      call_contour_ms=call_cnt, upload_ms=upload_ms, pieces_ms=pieces_ms,
+                      call_contour_ms=call_cnt, pieces_ms=pieces_ms,
                       cpu_call_ms=cpu_res + cpu_cnt, native_ms=native_res + native_cnt,
                       native_residual_ms=native_res, native_contour_ms=native_cnt)
         r = out[B]
@@ -1502,12 +1637,12 @@ def phase_rans_host(torch, np, dev, card, lidar, codec, frames):
               f"in one launch {both_ms:.4f} ms ({both_b2b:.4f} ms over {BACK_TO_BACK} back to back), residual launch "
               f"{res_ms:.4f} ms ({res_b2b:.4f} back to back), contour launch {cnt_ms:.4f} ms; plain {plain_ms:.4f} ms "
               f"(median of {PLAIN_RANS_RUNS}); bound {b_ms:.6f} ms ({b_by})")
-        print(f"[phase 3g] [{card}] B={B} encode calls (median of {RATE_PASSES}; upload, launch, download, assembly): "
-              f"default backend compress_delta_batch {call_res:.3f} ms + compress_contour_batch {call_cnt:.3f} ms; "
-              f"cpu backend {cpu_res:.3f} + {cpu_cnt:.3f} ms; native delta_encode_frames {native_res:.3f} ms + "
-              f"contour_encode_frames {native_cnt:.3f} ms (median of {HOST_RUNS}); the default residual call's "
-              f"upload {upload_ms:.3f} ms, upload + launch + download {pieces_ms:.3f} ms, assembly the rest "
-              f"({call_res - pieces_ms:.3f} ms)")
+        print(f"[phase 3g] [{card}] B={B} encode calls (median of {2 * RATE_PASSES} in turns; upload, launch, "
+              f"download, assembly): card compress_delta_batch {call_res:.3f} ms + compress_contour_batch "
+              f"{call_cnt:.3f} ms; host coder (device=None) {cpu_res:.3f} + {cpu_cnt:.3f} ms; native "
+              f"delta_encode_frames {native_res:.3f} ms + contour_encode_frames {native_cnt:.3f} ms (median of "
+              f"{HOST_RUNS}); the card's residual call: staged upload + launch + download {pieces_ms:.3f} ms, "
+              f"assembly the rest ({call_res - pieces_ms:.3f} ms)")
     # A small field: 1,000 symbols take 16 lanes of 64 steps.
     small = [streams[0][:1000]]
     L, T = rans_codec._geometry(1000)
@@ -1517,17 +1652,73 @@ def phase_rans_host(torch, np, dev, card, lidar, codec, frames):
     torch.cuda.synchronize()
     check(all(torch.equal(a, b) for a, b in zip(got, want)), "the rANS kernel differs from the plain version at L = 16")
     s_ms = median_ms(torch, lambda: rd.encode_streams_cuda(q, n, L, T))
-    with rans_backend("default"):
-        s_call = host_median_ms(lambda: rans_codec.compress_delta_batch(small))
-    with rans_backend("cpu"):
-        s_cpu = host_median_ms(lambda: rans_codec.compress_delta_batch(small))
+    s_cpu, s_call = in_turns(lambda: rans_codec.compress_delta_batch(small, device=None),
+                             lambda: rans_codec.compress_delta_batch(small, device=dev), HOST_RUNS)
     s_native = host_median_ms(lambda: rans_native.delta_encode_frames(small, L, T, rd.ALPHABET, rd.NUM_CTX))
+    seq = fields8[0]["idx_sequence"]
+    seq_cpu, seq_call = in_turns(lambda: rans_codec.compress(seq, device=None),
+                                 lambda: rans_codec.compress(seq, device=dev), HOST_RUNS)
+    # Its 'C' container's decode call (one field group), and a T = 16 decode
+    # call of phase 6's frame 0's two big fields cut to 16 steps (the
+    # tables, the launch and the wrapper), each against the native coder.
+    w, nw, cts, sts, fqs, esc, n_esc, q0 = rans_native.delta_encode_frames(small, L, T, rd.ALPHABET, rd.NUM_CTX)
+    c_blob = rans_codec.build_ctx_container(L, T, 1000, q0[0], esc[0, :n_esc[0]], fqs[0], sts[0], cts[0],
+                                            w[0, :nw[0]], small[0].dtype)
+    lanes_small = rans_codec.delta_lanes([c_blob])
+    check(rans_codec.decompress_delta_batch([c_blob], dev) == [small[0].tobytes()], "the 1,000-symbol field's decode")
+    d_cpu, d_call = in_turns(lambda: rans_codec.decode_lanes(lanes_small, None),
+                             lambda: rans_codec.decode_lanes(lanes_small, dev), HOST_RUNS)
+    main1 = [unpack_bitstream(b, uniform=True) for b in eng_blobs[:1]]
+    rl = rans_codec.delta_lanes([main1[0]["residual_quantized"]])
+    cl = rans_codec.contour_lanes([main1[0]["contour_map"]])[0]
+    short = [g._replace(words=np.ascontiguousarray(g.words[:, :, :16]), lives=np.minimum(g.lives, 16)) for g in (rl, cl)]
+    # (the cut lanes are not a valid stream: the plain version is the oracle there, as for corrupt lanes)
+    want16 = [rd.decode_streams_plain(*rd.upload_decode_lanes(*g[:5], dev), g.mode).cpu().numpy() for g in short]
+    got16 = rd.decode_fields_host(short[0][:5], short[1][:5], rl.mode, dev)
+    check(all(np.array_equal(a, b) for a, b in zip(got16, want16)), "the T = 16 decode call differs from the plain "
+          "version")
+    t16_cpu, t16_call = in_turns(
+        lambda: [rans_native.decode_ctx_batch(g.words, g.counts, g.states, g.freqs, 16, g.mode, lives=g.lives)
+                 for g in short],
+        lambda: rd.decode_fields_host(short[0][:5], short[1][:5], rl.mode, dev), HOST_RUNS)
     out["small"] = dict(shape=f"B=1 n=1000 L={L} T={T}", ms=s_ms, call_ms=s_call, cpu_call_ms=s_cpu, native_ms=s_native,
-                        bound=host_rans_bound([1000], L, T, 0, H, W))
+                        bound=host_rans_bound([1000], L, T, 0, H, W), seq_n=int(seq.size), seq_call_ms=seq_call,
+                        seq_cpu_call_ms=seq_cpu, decode_call_ms=d_call, decode_cpu_call_ms=d_cpu,
+                        t16_shape=f"residual {short[0].words.shape} + contour {short[1].words.shape}",
+                        t16_call_ms=t16_call, t16_native_ms=t16_cpu)
     print(f"[phase 3g] [{card}] 1,000-symbol field (L={L}, T={T}): kernel {s_ms:.4f} ms (median of {TIMED_RUNS}); "
-          f"compress_delta_batch default {s_call:.3f} ms, cpu {s_cpu:.3f} ms; native delta_encode_frames "
-          f"{s_native:.4f} ms (median of {HOST_RUNS}; host calls include their 'Z' comparison)")
+          f"in turns (median of {HOST_RUNS} each): compress_delta_batch card {s_call:.4f} ms, host coder "
+          f"(device=None) {s_cpu:.4f} ms; native delta_encode_frames {s_native:.4f} ms (host calls include their "
+          f"'Z' comparison); its 'C' container's decode_lanes card {d_call:.4f} ms, host coder {d_cpu:.4f} ms")
+    print(f"[phase 3g] [{card}] frame 0's sequence field ({seq.size} symbols): rans_codec.compress card "
+          f"{seq_call:.4f} ms, host coder {seq_cpu:.4f} ms (in turns, median of {HOST_RUNS})")
+    print(f"[phase 3g] [{card}] T = 16 decode call ({out['small']['t16_shape']}): decode_fields_host (one staged "
+          f"upload, one launch, one download) {t16_call:.4f} ms, the native decode of both groups {t16_cpu:.4f} ms "
+          f"(in turns, median of {HOST_RUNS})")
     return out
+
+
+def codec_in_turns(codec, pc, dev, passes: int):
+    """The single-frame codec's encode and decode of ``pc`` with its coder
+    on the host (asked for with None) and on ``dev``, in turns: medians (ms)
+    of the whole call and of its ``entropy`` stage (the codec's own timer)."""
+    blob = codec.compress(pc)[0]
+    rows = {k: {"host": [], "card": []} for k in ("encode", "encode_entropy", "decode", "decode_entropy")}
+    for i in range(passes + 1):
+        for side in (("host", "card") if i % 2 == 0 else ("card", "host")):
+            with coder_on(codec, None if side == "host" else dev):
+                t = time.perf_counter()
+                got, _, enc_t = codec.compress(pc)
+                t1 = time.perf_counter()
+                _, _, dec_t = codec.decompress(blob)
+                t2 = time.perf_counter()
+            check(got == blob, f"the codec's {side} encode gave other bytes")
+            if i:  # the first pass warms both up
+                rows["encode"][side].append((t1 - t) * 1e3)
+                rows["encode_entropy"][side].append(enc_t["entropy"] * 1e3)
+                rows["decode"][side].append((t2 - t1) * 1e3)
+                rows["decode_entropy"][side].append(dec_t["entropy"] * 1e3)
+    return {k: {side: statistics.median(v) for side, v in row.items()} for k, row in rows.items()}
 
 
 def drive_mode(torch, np, dev, card, lidar, tag, cfg, frames, phase):
@@ -1544,16 +1735,22 @@ def drive_mode(torch, np, dev, card, lidar, tag, cfg, frames, phase):
     codec = RPCCCodec(lidar, cfg, dev)
     codec.decompress(codec.compress(next(iter(frames.values())))[0])  # warm-up
     torch.cuda.synchronize()
-    fps.LAUNCHES = dbscan.LAUNCHES = rans_device.LAUNCHES = 0
+    fps.LAUNCHES = dbscan.LAUNCHES = rans_device.LAUNCHES = rans_device.DECODE_LAUNCHES = 0
     results = encode_frames(codec, frames)
-    counts = {"fps": fps.LAUNCHES, "dbscan": dbscan.LAUNCHES, "rans": rans_device.LAUNCHES}
+    counts = {"fps": fps.LAUNCHES, "dbscan": dbscan.LAUNCHES, "rans": rans_device.LAUNCHES,
+              "rans_decode": rans_device.DECODE_LAUNCHES}
     want = {"fps": 0, "dbscan": n_enc} if cfg.segment_method == "DBSCAN" else {"fps": n_enc, "dbscan": 0}
-    want["rans"] = 0  # the single-frame codec entropy-codes on the host
-    check(counts == want, f"{tag}: kernel launches {counts} over {n_enc} encodes, expected {want}")
+    # the containers are coded on the card: one launch a coded field, both big fields decoded in one
+    want["rans"] = sum(2 * rans_encode_calls(np, r[3]) for r in results.values())
+    want["rans_decode"] = sum(big_rans_decodes([r[1]], cfg.uniform) + small_rans_fields(r[1], cfg.uniform)
+                              for r in results.values())
+    check(counts == want and counts["rans"] > 0 and counts["rans_decode"] > 0,
+          f"{tag}: kernel launches {counts} over {n_enc} encodes, expected {want}")
     print(f"[phase {phase}] {tag} ({lidar.height}x{lidar.width}): launches {counts} for {n_enc} encodes")
     bpps = check_frames(np, codec, results, bound, card, tag, phase)
 
     cpu_codec = RPCCCodec(lidar, cfg, "cpu")
+    rans_device.LAUNCHES = rans_device.DECODE_LAUNCHES = 0
     for s, pc in frames.items():
         blob_cpu, fields_cpu, _ = cpu_codec.compress(pc)
         bpp_cpu = len(blob_cpu) * 8 / fields_cpu["residual_quantized"].size
@@ -1566,6 +1763,8 @@ def drive_mode(torch, np, dev, card, lidar, tag, cfg, frames, phase):
               f"blobs identical {blob_cpu == results[s][1]}")
         check(rel <= BPP_TOL, f"{tag} seed {s}: cuda vs cpu bpp differ by {rel:.4%}")
         check(x_err <= bound, f"{tag} seed {s}: cpu decode of the cuda blob: max_err {x_err} > {bound}")
+    check(rans_device.LAUNCHES == rans_device.DECODE_LAUNCHES == 0, f"{tag}: the codec on device='cpu' launched "
+          f"the rANS kernels ({rans_device.LAUNCHES}, {rans_device.DECODE_LAUNCHES})")
     return counts, results
 
 
@@ -1954,6 +2153,7 @@ def phase_cli(np, codec, frames):
               "decompress --decode_backend host wrote other floats than the card's decode")
         print(f"[phase 5] CLI roundtrip ok: max_err {err:.6f}, {cli_pts.shape[0]} points; "
               f"--decode_backend host wrote the same floats as device")
+        counted = counted_cli_runs(src, out, rec, common, work)
 
         # A self-describing stream: decompress takes no codec flag and no --lidar.
         sd, sd_rec = os.path.join(work, "sd.rpcc"), os.path.join(work, "sd.bin")
@@ -1997,6 +2197,46 @@ def phase_cli(np, codec, frames):
         print(f"[phase 5] 32E channel table, f32, cpu_fps through both CLIs: blob == RPCCCodec, max_err {err32:.6f}")
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    return counted
+
+
+def counted_cli_runs(src, blob_path, rec_path, common, work):
+    """5, in this process: ``cli.compress`` and ``cli.decompress`` (both
+    backends) with ``--device cuda``, every launch count set to 0 just
+    before each run and read just after: the compress codes its containers
+    on the card, the device backend decodes them there, the host backend
+    launches neither kernel.  Each writes what its subprocess run wrote.
+    -> {run: (encode launches, decode launches)}."""
+    import numpy as np
+
+    from rpcc_tpu_torch.cli import compress, decompress
+    from rpcc_tpu_torch.ops import rans_device as rd
+
+    out, rec = os.path.join(work, "counted.rpcc"), os.path.join(work, "counted.bin")
+    counted = {}
+    for tag, mod, args in (
+        ("compress", compress, ["--input", src, "--output", out, *common]),
+        ("decompress device", decompress, ["--input", blob_path, "--output", rec, *common, "--decode_backend", "device"]),
+        ("decompress host", decompress, ["--input", blob_path, "--output", rec, *common, "--decode_backend", "host"]),
+    ):
+        rd.LAUNCHES = rd.DECODE_LAUNCHES = 0
+        with contextlib.redirect_stdout(io.StringIO()):
+            mod.main(args)
+        counted[tag] = (rd.LAUNCHES, rd.DECODE_LAUNCHES)
+        if tag == "compress":
+            with open(out, "rb") as f, open(blob_path, "rb") as g:
+                check(f.read() == g.read(), "the in-process compress wrote other bytes than the subprocess")
+        else:
+            check(np.array_equal(np.fromfile(rec, np.float32), np.fromfile(rec_path, np.float32)),
+                  f"the in-process {tag} wrote other floats than the subprocess")
+    check(counted["compress"][0] > 0 and counted["compress"][1] == 0, f"cli.compress --device cuda: launches "
+          f"{counted['compress']} (encode, decode); its containers are coded on the card")
+    check(counted["decompress device"][1] > 0 and counted["decompress device"][0] == 0,
+          f"cli.decompress --decode_backend device: launches {counted['decompress device']}")
+    check(counted["decompress host"] == (0, 0), f"cli.decompress --decode_backend host: launches "
+          f"{counted['decompress host']}; the host backend must launch neither rANS kernel")
+    print(f"[phase 5] in-process CLI runs, rANS launches (encode, decode): " + json.dumps(counted))
+    return counted
 
 
 def street_active(np, segment, torch, tm, r):
@@ -2087,6 +2327,7 @@ def _device_profile(torch, fn):
 
 def phase_engine(torch, np, dev, card, lidar, codec):
     """6: the batch engine on the main path at full width."""
+    from rpcc_tpu_torch.codec.rans_codec import _geometry
     from rpcc_tpu_torch.config import CodecConfig
     from rpcc_tpu_torch.data.synth import synth_cloud_for
     from rpcc_tpu_torch.models.host_decoder import HostDecoder
@@ -2100,6 +2341,7 @@ def phase_engine(torch, np, dev, card, lidar, codec):
     B = 8
     frames = [synth_cloud_for(lidar, s) for s in BATCH_SEEDS]
     singles = [codec.compress(pc, seed=s)[0] for pc, s in zip(frames, BATCH_SEEDS)]
+    lens = [int(codec.encode_device(pc).stream_len.item()) for pc in frames]
 
     # The FPS kernel at the engine's shape, against its plain version.
     rng = np.random.default_rng(1)
@@ -2135,6 +2377,25 @@ def phase_engine(torch, np, dev, card, lidar, codec):
         launches = {"fps": fps.LAUNCHES, "dbscan": dbscan.LAUNCHES, "rans": rans_device.LAUNCHES}
         return blobs, stats, launches, engine.stream_downloads
 
+    def counted_decode(engine, eblobs, b):
+        """The engine's decode pipeline of ``eblobs`` in batches of ``b``
+        with the decode launches set to 0 just before it and read just
+        after, checked: one a batch for both big fields, one per small rANS
+        field, no encode launch."""
+        rans_device.LAUNCHES = rans_device.DECODE_LAUNCHES = 0
+        points = [p for pts in engine.decode_pipeline(_batches(eblobs, b)) for p in pts]
+        want = sum(big_rans_decodes(x) for x in _batches(eblobs, b)) + sum(map(small_rans_fields, eblobs))
+        check(rans_device.DECODE_LAUNCHES == want > 0 and rans_device.LAUNCHES == 0,
+              f"engine decode of {len(eblobs)} blobs at B = {b}: {rans_device.DECODE_LAUNCHES} decode launches "
+              f"(expected {want}) and {rans_device.LAUNCHES} encode launches")
+        return points, want
+
+    def host_entropy_launches(idx_batches, lengths):
+        """The encode launches of a --no-device_entropy engine on the card:
+        per batch one for each residual lane geometry, one for the contours,
+        one for each frame's sequence field."""
+        return sum(len({_geometry(lengths[i]) for i in ix}) + 1 + len(ix) for ix in idx_batches)
+
     def decode_err(decoded_points):
         err_max = 0.0
         for pc, pts in zip(frames, decoded_points):
@@ -2154,21 +2415,27 @@ def phase_engine(torch, np, dev, card, lidar, codec):
     engine = BatchEngine(lidar, cfg, dev, batch_size=B)
     engine1 = BatchEngine(lidar, cfg, dev, batch_size=1)
     blobs, stats, launches, downloads = counted_run(engine, work)
-    check(launches == {"fps": len(work), "dbscan": 0, "rans": len(work)},
-          f"device-entropy engine launches {launches} for {len(work)} batches, expected one FPS and one rANS launch each")
+    check(launches == {"fps": len(work), "dbscan": 0, "rans": len(work) + downloads},
+          f"device-entropy engine launches {launches} for {len(work)} batches, expected one FPS and one rANS launch "
+          f"each, and one rANS launch for each of the {downloads} frames the host re-encodes")
     again = [b for res in engine.encode_pipeline(work) for b, _ in res]
     check(again == blobs, "a repeat device-entropy engine run gave different bytes")
-    blobs1, _, launches1, _ = counted_run(engine1, work1)
-    check(launches1 == {"fps": len(frames), "dbscan": 0, "rans": len(frames)}, f"B = 1 engine launches {launches1}")
+    blobs1, _, launches1, downloads1 = counted_run(engine1, work1)
+    check(launches1 == {"fps": len(frames), "dbscan": 0, "rans": len(frames) + downloads1},
+          f"B = 1 engine launches {launches1}")
     mism = [s for s, a, b in zip(BATCH_SEEDS, blobs, blobs1) if a != b]
     check(not mism, f"B = {B} device-entropy blobs differ from B = 1 blobs for seeds {mism}")
-    dev_err = decode_err([p for pts in engine.decode_pipeline(_batches(blobs, B)) for p in pts])
+    dec_points, dec_launches = counted_decode(engine, blobs, B)
+    dev_err = decode_err(dec_points)
     host_err = decode_err(HostDecoder(lidar, cfg).decode_blobs_points(blobs))
+    check(rans_device.LAUNCHES == 0 and rans_device.DECODE_LAUNCHES == dec_launches,
+          "the host decoder launched a rANS kernel")
     bpp_dev = sum(len(b) for b in blobs) * 8 / sum(codec.encode_device(pc).stream_len.item() for pc in frames)
     print(f"[phase 6] device-entropy engine (B={B}) encoded {len(blobs)} frames in batches "
           f"{[len(b) for b, _ in work]}: launches {launches}, blobs == B = 1 engine blobs, repeat run byte-identical, "
           f"{downloads} of {len(blobs)} frames downloaded their i16 stream; decode max_err device decoder "
-          f"{dev_err:.6f}, host decoder {host_err:.6f} (bound {bound:.5f}); bpp {bpp_dev:.5f}")
+          f"{dev_err:.6f} ({dec_launches} rANS decode launches), host decoder {host_err:.6f} (none) (bound "
+          f"{bound:.5f}); bpp {bpp_dev:.5f}")
     print(f"[phase 6] [{card}] device-entropy stage stats (B={B}, {len(blobs)} frames): "
           + json.dumps({k: round(v, 6) if isinstance(v, float) else v for k, v in stats.items()}))
 
@@ -2176,16 +2443,20 @@ def phase_engine(torch, np, dev, card, lidar, codec):
     hcfg = CodecConfig(device_entropy=False)
     hengine = BatchEngine(lidar, hcfg, dev, batch_size=B)
     hblobs, hstats, hlaunches, _ = counted_run(hengine, work)
-    check(hlaunches == {"fps": len(work), "dbscan": 0, "rans": 0},
-          f"host-entropy engine launches {hlaunches} for {len(work)} batches, expected one FPS launch each")
+    h_rans = host_entropy_launches([ix for _, ix in work], lens)
+    check(hlaunches == {"fps": len(work), "dbscan": 0, "rans": h_rans},
+          f"host-entropy engine launches {hlaunches} for {len(work)} batches, expected one FPS launch each and "
+          f"{h_rans} rANS launches (its containers coded on the card)")
     mism = [s for s, a, b in zip(BATCH_SEEDS, hblobs, singles) if a != b]
     check(not mism, f"host-entropy engine blobs differ from single-frame RPCCCodec blobs for seeds {mism}")
     again = [b for res in hengine.encode_pipeline(work) for b, _ in res]
     check(again == hblobs, "a repeat host-entropy engine run gave different bytes")
-    herr = decode_err([p for pts in hengine.decode_pipeline(_batches(hblobs, B)) for p in pts])
+    hdec_points, hdec_launches = counted_decode(hengine, hblobs, B)
+    herr = decode_err(hdec_points)
     bpp_host = sum(len(b) for b in hblobs) * 8 / sum(codec.encode_device(pc).stream_len.item() for pc in frames)
     print(f"[phase 6] host-entropy engine (B={B}): launches {hlaunches}, blobs == single-frame RPCCCodec, "
-          f"repeat run byte-identical, decode max_err {herr:.6f}; bpp {bpp_host:.5f} (device entropy "
+          f"repeat run byte-identical, decode max_err {herr:.6f} ({hdec_launches} rANS decode launches); bpp "
+          f"{bpp_host:.5f} (device entropy "
           f"{bpp_dev:.5f}, rel diff {abs(bpp_dev - bpp_host) / bpp_host:.5f})")
     print(f"[phase 6] [{card}] host-entropy stage stats (B={B}, {len(hblobs)} frames): "
           + json.dumps({k: round(v, 6) if isinstance(v, float) else v for k, v in hstats.items()}))
@@ -2223,14 +2494,17 @@ def phase_engine(torch, np, dev, card, lidar, codec):
     dcfg = CodecConfig(segment_method="DBSCAN", device_entropy=False)
     street = [scene_cloud(np, tm, s) for s in STREET_SEEDS]
     dcodec = RPCCCodec(lidar, dcfg, dev)
-    dsingles = [dcodec.compress(pc, seed=s)[0] for pc, s in zip(street, STREET_SEEDS)]
+    dres = [dcodec.compress(pc, seed=s) for pc, s in zip(street, STREET_SEEDS)]
+    dsingles = [b for b, _, _ in dres]
     deng = BatchEngine(lidar, dcfg, dev, batch_size=len(street))
     deng.encode_frames(street, STREET_SEEDS)  # warm-up
     torch.cuda.synchronize()
     fps.LAUNCHES = dbscan.LAUNCHES = rans_device.LAUNCHES = 0
     dblobs = [b for b, _ in deng.encode_frames(street, STREET_SEEDS)]
     db_launches = {"fps": fps.LAUNCHES, "dbscan": dbscan.LAUNCHES, "rans": rans_device.LAUNCHES}
-    check(db_launches == {"fps": 0, "dbscan": 1, "rans": 0}, f"DBSCAN engine launches {db_launches} for one batch")
+    d_rans = host_entropy_launches([range(len(street))], [f["residual_quantized"].size for _, f, _ in dres])
+    check(db_launches == {"fps": 0, "dbscan": 1, "rans": d_rans},
+          f"DBSCAN engine launches {db_launches} for one batch, expected {d_rans} rANS launches")
     check(dblobs == dsingles, "DBSCAN engine blobs differ from single-frame blobs")
     deng.close()
     print(f"[phase 6] DBSCAN engine (B={len(street)}): launches {db_launches}, blobs == single-frame RPCCCodec; "
@@ -2248,7 +2522,9 @@ def phase_engine(torch, np, dev, card, lidar, codec):
         ("f32", lidar, CodecConfig(transfer_precision="f32", device_entropy=False), frames[:B]),
     ):
         ecodec = RPCCCodec(lid, ecfg, dev)
-        esingles = [ecodec.compress(pc, seed=s)[0] for pc, s in zip(clouds, seeds)]
+        eres = [ecodec.compress(pc, seed=s) for pc, s in zip(clouds, seeds)]
+        esingles = [b for b, _, _ in eres]
+        e_rans = host_entropy_launches([range(B)], [f["residual_quantized"].size for _, f, _ in eres])
         eng = BatchEngine(lid, ecfg, dev, batch_size=B)
         try:
             eng.encode_frames(clouds, seeds)  # warm-up
@@ -2256,7 +2532,8 @@ def phase_engine(torch, np, dev, card, lidar, codec):
             fps.LAUNCHES = dbscan.LAUNCHES = rans_device.LAUNCHES = 0
             eblobs = [b for b, _ in eng.encode_frames(clouds, seeds)]
             e_launches = {"fps": fps.LAUNCHES, "dbscan": dbscan.LAUNCHES, "rans": rans_device.LAUNCHES}
-            check(e_launches == {"fps": 1, "dbscan": 0, "rans": 0}, f"{tag} engine launches {e_launches} for one batch")
+            check(e_launches == {"fps": 1, "dbscan": 0, "rans": e_rans},
+                  f"{tag} engine launches {e_launches} for one batch, expected {e_rans} rANS launches")
             check(eblobs == esingles, f"{tag} engine blobs differ from single-frame blobs")
             recs = eng.decode_range_images(eblobs)
             e_err = max(float(np.abs(r - q * d).max()) for r, (q, d) in zip(recs, map(ecodec.project, clouds)))
@@ -2271,7 +2548,9 @@ def phase_engine(torch, np, dev, card, lidar, codec):
                 fps_bound=(fps_bound_ms, fps_bound_by),
                 fps_shape=f"B={B} N={lidar.height * lidar.width} K={cfg.cluster_num}",
                 fps_launches=launches["fps"], db_launches=db_launches["dbscan"], rans_launches=launches["rans"],
-                batches=len(work), blobs=blobs, encode_rate=rates["device entropy", B])
+                batches=len(work), blobs=blobs, encode_rate=rates["device entropy", B],
+                host_entropy_rans_launches=hlaunches["rans"], decode_launches=dec_launches,
+                host_entropy_decode_launches=hdec_launches)
 
 
 def engine_dropped_returns(torch, np, dev, lidar, street):
@@ -2318,7 +2597,8 @@ def engine_dropped_returns(torch, np, dev, lidar, street):
             downloads = eng.stream_downloads
             e_launches = {"fps": fps.LAUNCHES, "dbscan": dbscan.LAUNCHES, "rans": rans_device.LAUNCHES}
             seg = "dbscan" if ecfg.segment_method == "DBSCAN" else "fps"
-            want = {"fps": 0, "dbscan": 0, "rans": 1, seg: 1}
+            # one rANS launch in the graph, one for each frame the host re-encodes on the card
+            want = {"fps": 0, "dbscan": 0, "rans": 1 + downloads, seg: 1}
             check(e_launches == want, f"{tag} device-entropy engine launches {e_launches} for one batch, expected {want}")
             n, n_esc = st.stream_len[:nb], st.de_lens[2]
             small = (n <= BZD_TRY_MAX_SYMBOLS) & (n_esc <= ESC_CAP_DEV)
@@ -2355,7 +2635,9 @@ def engine_dropped_returns(torch, np, dev, lidar, street):
 
 
 def phase_datalist(np, codec, lidar):
-    """7: the datalist CLIs in subprocesses, on the card."""
+    """7: the datalist CLIs on the card: on the 64E in this process (their
+    ranks' launch counts read), on the 32E channel table in subprocesses.
+    -> the launches of each 64E run."""
     from rpcc_tpu_torch.config import CodecConfig
     from rpcc_tpu_torch.data.synth import synth_cloud_for
     from rpcc_tpu_torch.models.host_decoder import HostDecoder
@@ -2375,15 +2657,27 @@ def phase_datalist(np, codec, lidar):
         with open(lst, "w") as f:
             f.write("\n".join(srcs) + "\n")
         common = ["--lidar", LIDAR, "--device", "cuda", "--batch", "4"]
-
-        def run(mod, *args):
-            run_cli(mod, [*args, *common], 7)
-
+        from rpcc_tpu_torch.cli import compress_datalist, decompress_datalist
         from rpcc_tpu_torch.cli.compress_datalist import _mirror_path
+
+        launches = {}
+
+        def run(tag, mod, *args):
+            """``mod.main`` in this process -> its one rank's kernel launches."""
+            t = time.perf_counter()
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                res = mod.main([*args, *common])
+            check(len(res) == 1, f"{mod.__name__} ran {len(res)} ranks on one card")
+            launches[tag] = res[0]["launches"]
+            print(f"[phase 7] {mod.__name__.rsplit('.', 1)[-1]} {tag} ({time.perf_counter() - t:.1f} s): "
+                  + " | ".join(ln.strip() for ln in buf.getvalue().strip().splitlines()[-2:])
+                  + f"; launches {json.dumps(launches[tag])}")
+            return res[0]
 
         # The default: device entropy.
         dev_dir = os.path.join(work, "rpcc_dev")
-        run("compress_datalist", "--datalist", lst, "--output_dir", dev_dir)
+        run("device entropy", compress_datalist, "--datalist", lst, "--output_dir", dev_dir)
         dev_outs = [_mirror_path(p, dev_dir, "rpcc") for p in srcs]
         dev_blobs = []
         for path in dev_outs:
@@ -2391,7 +2685,10 @@ def phase_datalist(np, codec, lidar):
                 dev_blobs.append(f.read())
 
         out_dir = os.path.join(work, "rpcc")
-        run("compress_datalist", "--datalist", lst, "--output_dir", out_dir, "--no-device_entropy")
+        run("host entropy", compress_datalist, "--datalist", lst, "--output_dir", out_dir, "--no-device_entropy")
+        for tag in ("device entropy", "host entropy"):
+            check(launches[tag]["rans"] > 0 and launches[tag]["rans_decode"] == 0,
+                  f"compress_datalist ({tag}) launches {launches[tag]}: its rANS containers are coded on the card")
         outs = [_mirror_path(p, out_dir, "rpcc") for p in srcs]
         blobs = []
         for i, (pc, path) in enumerate(zip(frames, outs)):
@@ -2413,7 +2710,11 @@ def phase_datalist(np, codec, lidar):
             pts = {}
             for backend in ("host", "device"):
                 rec_dir = os.path.join(work, f"rec_{backend}_{tag[:4]}")
-                run("decompress_datalist", "--datalist", lst2, "--output_dir", rec_dir, "--decode_backend", backend)
+                run(f"{tag}, {backend} backend", decompress_datalist, "--datalist", lst2, "--output_dir", rec_dir,
+                    "--decode_backend", backend)
+                got = launches[f"{tag}, {backend} backend"]
+                check(got["rans"] == 0 and (got["rans_decode"] > 0) == (backend == "device"),
+                      f"decompress_datalist --decode_backend {backend} ({tag}) launches {got}")
                 pts[backend] = [np.fromfile(_mirror_path(p, rec_dir, "bin"), np.float32).reshape(-1, 4)
                                 for p in these_outs]
             ref = HostDecoder(lidar, cfg).decode_blobs(these_blobs)
@@ -2478,6 +2779,7 @@ def phase_datalist(np, codec, lidar):
               f"{len(evals)} eval lines OK, decode max_err {err32:.6f}")
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    return launches
 
 
 @contextlib.contextmanager
@@ -2603,9 +2905,15 @@ def phase_data_parallel(torch, np, card, lidar, codec, eng):
             diff = max(diff, float(np.abs(got - w).max()))
         check(diff <= 1e-5, f"2-rank device decode differs from the host decoder by {diff}")
         check(res[0]["report"]["frames"] == len(frames), f"2-rank decode report {res[0]['report']}")
+        dec_launches = [rr["launches"] for rr in res]
+        for r, rr in enumerate(res):
+            n_batches = -(-len(rank_frames(len(outs), B, r, 2)[1]) // rank_frames(len(outs), B, r, 2)[0])
+            check(rr["launches"]["rans_decode"] >= n_batches > 0 and rr["launches"]["rans"] == 0,
+                  f"2-rank decode rank {r}: launches {rr['launches']}, expected a rANS decode launch for each of its "
+                  f"{n_batches} batches")
         print(f"[phase 8] [{card}] 2-rank device decode of {len(outs)} blobs: host decoder's points "
               f"(max |diff| {diff:.3g}), {res[0]['report']['frames'] / res[0]['seconds']:.3f} frames/s, first calls "
-              f"included")
+              f"included; rANS decode launches per rank {[d['rans_decode'] for d in dec_launches]}")
 
         # The CLI at its default --num_devices (every visible card).
         lst = os.path.join(work, "list.txt")
@@ -2621,7 +2929,7 @@ def phase_data_parallel(torch, np, card, lidar, codec, eng):
         print(f"[phase 8] compress_datalist at the default --num_devices ({n_cards} card(s)): blobs == phase 6's")
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    return runs[2][2]
+    return runs[2][2], dec_launches
 
 
 def decode_device_us(torch, fn, runs: int = TIMED_RUNS):
@@ -2684,6 +2992,68 @@ def against_decode(torch, np, rd, dev, card, root: str, blobs) -> None:
                  f"{TIMED_RUNS}): " + json.dumps({k: None if v is None else round(v, 3) for k, v in device.items()}))
         print(f"[against] [{card}] rans decode (B={B}, residual {tuple(rl.words.shape)} + contour "
               f"{tuple(cl.words.shape)}) of {root} median of {TIMED_RUNS}: {line}")
+
+
+def against_calls(np, dev, card, root: str, codec, lidar, frames) -> None:
+    """``--against``: the rANS coder's calls on the card for ``root``'s
+    package, wrapper host time included (host clock, median of HOST_RUNS,
+    the calls in turns): a 1,000-symbol field's encode call and its 'C'
+    container's decode call, a T = 16 decode call of frame 0's two big
+    fields, and the big fields' encode and decode calls of phase 6's first
+    batch at B = 1 and 8.  A checkout whose coder takes no ``device=``
+    codes its encodes on the card only when its process was started with
+    the reference's device variable set to ``default``; the launch count
+    checks that it was."""
+    import inspect
+
+    from rpcc_tpu_torch.codec import rans_codec, rans_native
+    from rpcc_tpu_torch.codec.bitstream import unpack_bitstream
+    from rpcc_tpu_torch.ops import rans_device as rd
+
+    kw = {"device": dev} if "device" in inspect.signature(rans_codec.compress_delta_batch).parameters else {}
+    fields = [codec.compress(pc, seed=s)[1] for pc, s in zip(frames[:8], BATCH_SEEDS[:8])]
+    small = [fields[0]["residual_quantized"][:1000]]
+    L, T = rans_codec._geometry(1000)
+    before = rd.LAUNCHES
+    rans_codec.compress_delta_batch(small, **kw)
+    check(rd.LAUNCHES == before + 1, f"{root}: the encode call did not launch the kernel (a checkout without "
+          "device= codes on the card only under the reference's device variable set to default)")
+    w, nw, cts, sts, fqs, esc, n_esc, q0 = rans_native.delta_encode_frames(small, L, T, rd.ALPHABET, rd.NUM_CTX)
+    lanes_small = rans_codec.delta_lanes([rans_codec.build_ctx_container(
+        L, T, 1000, q0[0], esc[0, :n_esc[0]], fqs[0], sts[0], cts[0], w[0, :nw[0]], small[0].dtype)])
+    blobs = [codec.compress(pc, seed=s)[0] for pc, s in zip(frames[:1], BATCH_SEEDS[:1])]
+    main1 = unpack_bitstream(blobs[0], uniform=True)
+    rl = rans_codec.delta_lanes([main1["residual_quantized"]])
+    cl = rans_codec.contour_lanes([main1["contour_map"]])[0]
+    short = [g._replace(words=np.ascontiguousarray(g.words[:, :, :16]), lives=np.minimum(g.lives, 16))[:5]
+             for g in (rl, cl)]
+    if hasattr(rd, "decode_fields_host"):
+        t16 = lambda: rd.decode_fields_host(*short, rl.mode, dev)  # noqa: E731
+    else:
+        t16 = lambda: rd.fields_to_host(*rd.decode_fields_device(*short, rl.mode, dev))  # noqa: E731
+    calls = {
+        "small_encode": lambda: rans_codec.compress_delta_batch(small, **kw),
+        "small_decode": lambda: rans_codec.decode_lanes(lanes_small, dev),
+        "t16_decode": t16,
+    }
+    H, W = lidar.height, lidar.width
+    for B in (1, 8):
+        sb, pb = [f["residual_quantized"] for f in fields[:B]], [f["contour_map"] for f in fields[:B]]
+        packed = [{"residual_quantized": r, "contour_map": c}
+                  for r, c in zip(rans_codec.compress_batch(sb), rans_codec.compress_contour_batch(pb, H, W))]
+        calls[f"big_encode_B{B}"] = lambda sb=sb, pb=pb: (rans_codec.compress_delta_batch(sb, **kw),
+                                                          rans_codec.compress_contour_batch(pb, H, W, **kw))
+        calls[f"big_decode_B{B}"] = lambda packed=packed: rans_codec.batch_decode_big_fields(packed, dev)
+    times = {k: [] for k in calls}
+    for fn in calls.values():
+        fn()
+    for i in range(HOST_RUNS):
+        for k in (list(calls) if i % 2 == 0 else list(calls)[::-1]):
+            t = time.perf_counter()
+            calls[k]()
+            times[k].append((time.perf_counter() - t) * 1e3)
+    print(f"[against] [{card}] rans coder calls on the card of {root} (ms, host clock, median of {HOST_RUNS} in "
+          "turns): " + json.dumps({k: round(statistics.median(v), 4) for k, v in times.items()}))
 
 
 def phase_against(torch, np, dev, card, lidar, root: str) -> None:
@@ -2755,6 +3125,7 @@ def phase_against(torch, np, dev, card, lidar, root: str) -> None:
         print(f"[phase 6] device-entropy engine (B=8) sha256 {[hashlib.sha256(b).hexdigest() for b in blobs]}")
         if hasattr(rd, "decode_streams_cuda"):  # a checkout with the rANS decode kernel: phase 3f's shapes
             against_decode(torch, np, rd, dev, card, root, blobs[:8])
+            against_calls(np, dev, card, root, codec, lidar, frames)
     cfg = CodecConfig(segment_method="DBSCAN", device_entropy=False)
     codec = RPCCCodec(lidar, cfg, dev)
     for s in MODE_SEEDS:
@@ -2818,17 +3189,18 @@ def main() -> int:
     db_err, db_ms, db_b2b, db_plain_ms, db_bound, db_split = phase_dbscan(torch, np, dev, card, lidar)  # 3b
     db4 = phase_dbscan_batch(torch, np, dev, card, lidar, STREET_SEEDS)  # 3c
     db8 = phase_dbscan_batch(torch, np, dev, card, lidar, STREET_SEEDS_8)
-    codec, frames, fps_per_encode = phase_main(torch, np, dev, card, lidar)  # 4
+    codec, frames, codec_launches = phase_main(torch, np, dev, card, lidar)  # 4
+    fps_per_encode = codec_launches["fps"]
     rans = phase_rans(torch, np, dev, card, lidar, codec, frames)  # 3e
     db_per_encode = phase_modes(torch, np, dev, card, lidar)  # 4b
     new_modes = phase_new_modes(torch, np, dev, card, lidar)  # 4c
     points_launches = phase_points(torch, np, dev, card, lidar, frames)  # 4d
-    phase_cli(np, codec, frames)  # 5
+    cli_launches = phase_cli(np, codec, frames)  # 5
     eng = phase_engine(torch, np, dev, card, lidar, codec)  # 6
     dec = phase_rans_decode(torch, np, dev, card, lidar, codec, frames, eng)  # 3f
-    host = phase_rans_host(torch, np, dev, card, lidar, codec, frames)  # 3g
-    phase_datalist(np, codec, lidar)  # 7
-    rank_launches = phase_data_parallel(torch, np, card, lidar, codec, eng)  # 8
+    host = phase_rans_host(torch, np, dev, card, lidar, codec, frames, eng["blobs"])  # 3g
+    datalist_launches = phase_datalist(np, codec, lidar)  # 7
+    rank_launches, rank_decode_launches = phase_data_parallel(torch, np, card, lidar, codec, eng)  # 8
     check_isolated()
     print(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s")
 
@@ -2850,14 +3222,18 @@ def main() -> int:
     # decode kernel's ``ms`` are one launch of both field groups of phase
     # 6's first batch at B = 8 (phase 3f; ``fields_alone`` each group in a
     # launch of its own), its ``launches`` the engine's decode of phase 6's
-    # blobs with ``RPCC_RANS_DEVICE=default`` (one per batch); no PyTorch
-    # call decodes rANS.  The rANS entry's ``host_path`` is the same
-    # kernel at the host containers' geometry under RPCC_RANS_DEVICE=default
-    # (phase 3g, on phase 6's first batch at B = 1 and 8, and a 1,000-symbol
-    # field): kernel times, the encode calls on both backends and the native
-    # host encode; it is off the main path, whose ``launches`` stay the
-    # engine's.  ``launches_per_rank_two_ranks`` is each rank's count in
-    # phase 8's 2-rank encode (its own process, counted by itself).
+    # blobs on the card, the default (one per batch and one per small rANS
+    # field); no PyTorch call decodes rANS.  The rANS entry's ``host_path``
+    # is the same kernel at the host containers' geometry, which every card
+    # encode's containers take (phase 3g, on phase 6's first batch at B = 1
+    # and 8, and a 1,000-symbol field): kernel times, the encode calls on
+    # the card and on the host coder and the native host encode.  The
+    # ``launches_*`` keys count each default path's launches: the
+    # single-frame codec's encode and decode (phase 4), the host-entropy
+    # engine (phase 6), the CLIs (phase 5) and the datalist CLIs (phase 7),
+    # in this process; ``launches_per_rank_two_ranks`` is each rank's count
+    # in phase 8's 2-rank encode or decode (its own process, counted by
+    # itself).
     print(json.dumps({"kernels": [
         {
             "name": "fps",
@@ -2929,6 +3305,10 @@ def main() -> int:
             "launches": eng["rans_launches"],
             "launches_per_batch": eng["rans_launches"] / eng["batches"],
             "launches_per_points_encode": points_launches["rans"],
+            "launches_per_codec_encode": codec_launches["rans"],
+            "launches_host_entropy_engine_20_frames": eng["host_entropy_rans_launches"],
+            "launches_cli_compress": cli_launches["compress"][0],
+            "launches_datalist_10_frames": {k: v["rans"] for k, v in datalist_launches.items() if "backend" not in k},
             "launches_per_rank_two_ranks": [r["rans"] for r in rank_launches],
             "max_abs_err": rans["err"],
             "shape": rans[8]["shape"],
@@ -2963,19 +3343,22 @@ def main() -> int:
                     "plain_ms": host[B]["plain_ms"],
                     "bound_ms": host[B]["bound"][0],
                     "bound_by": host[B]["bound"][1],
-                    "call_ms_default_backend": host[B]["call_ms"],
-                    "call_residual_upload_ms": host[B]["upload_ms"],
-                    "call_residual_upload_launch_download_ms": host[B]["pieces_ms"],
-                    "call_ms_cpu_backend": host[B]["cpu_call_ms"],
+                    "call_ms_card": host[B]["call_ms"],
+                    "call_residual_staged_upload_launch_download_ms": host[B]["pieces_ms"],
+                    "call_ms_host_coder": host[B]["cpu_call_ms"],
                     "native_host_encode_ms": host[B]["native_ms"],
                 } for B in (1, 8)},
+                "codec_single_frame_ms": host["codec"],
                 "small_field": {
                     "shape": host["small"]["shape"],
                     "ms": host["small"]["ms"],
                     "bound_ms": host["small"]["bound"][0],
-                    "call_ms_default_backend": host["small"]["call_ms"],
-                    "call_ms_cpu_backend": host["small"]["cpu_call_ms"],
+                    "call_ms_card": host["small"]["call_ms"],
+                    "call_ms_host_coder": host["small"]["cpu_call_ms"],
                     "native_host_encode_ms": host["small"]["native_ms"],
+                    "sequence_field_symbols": host["small"]["seq_n"],
+                    "sequence_compress_ms_card": host["small"]["seq_call_ms"],
+                    "sequence_compress_ms_host_coder": host["small"]["seq_cpu_call_ms"],
                 },
             },
         },
@@ -2988,6 +3371,13 @@ def main() -> int:
             "launches": dec["launches"],
             "launches_per_batch": dec["launches"] / dec["batches"],
             "launches_per_points_encode": points_launches["rans_decode"],
+            "launches_per_codec_decode": codec_launches["rans_decode"],
+            "launches_engine_decode_20_blobs": eng["decode_launches"],
+            "launches_host_entropy_engine_decode_20_blobs": eng["host_entropy_decode_launches"],
+            "launches_cli_decompress": {"device": cli_launches["decompress device"][1],
+                                        "host": cli_launches["decompress host"][1]},
+            "launches_datalist_10_blobs": {k: v["rans_decode"] for k, v in datalist_launches.items() if "backend" in k},
+            "launches_per_rank_two_ranks": [r["rans_decode"] for r in rank_decode_launches],
             "max_abs_err": dec["err"],
             "shape": dec[8]["shape"],
             "ms": dec[8]["ms"],
@@ -3017,7 +3407,14 @@ def main() -> int:
             "renormalizations_per_step": dec["renorm"],
             "chain_probe_cycles": {k: round(v, 3) for k, v in dec["probe"]["cycles"].items()},
             "chain_probe_mhz": dec["probe"]["mhz"],
-            "engine_decode_ms": {"cpu": dec["engine_cpu_ms"], "default": dec["engine_default_ms"]},
+            "engine_decode_ms": {"host_coder": dec["engine_cpu_ms"], "card": dec["engine_default_ms"]},
+            "engine_decode_split_ms": dec["engine_split"],
+            "codec_decode_big_fields_ms": {f"batch{B}": {"host_coder": dec[B]["codec_cpu_ms"],
+                                                         "card": dec[B]["codec_default_ms"]} for B in (1, 8)},
+            "small_field_decode_call_ms": {"card": host["small"]["decode_call_ms"],
+                                           "host_coder": host["small"]["decode_cpu_call_ms"]},
+            "t16_decode_call_ms": {"shape": host["small"]["t16_shape"], "card": host["small"]["t16_call_ms"],
+                                   "native": host["small"]["t16_native_ms"]},
         },
     ]}))
     print(json.dumps({"ok": True, "device": {

@@ -46,7 +46,8 @@ def add_codec_args(parser: argparse.ArgumentParser, datalist: bool = False) -> N
                         "f32 exact depths.")
     parser.add_argument("--device_entropy", action=argparse.BooleanOptionalAction, default=None,
                         help="rANS-code the residual and contour fields on the device in the batch engine "
-                        "(rans coder only; default: the YAML's, on; --no-device_entropy codes them on the host).")
+                        "(rans coder only; default: the YAML's, on; --no-device_entropy codes their containers "
+                        "outside the encoder graph, on --device).")
     parser.add_argument("--accuracy", type=float, default=None,
                         help="max reconstruction error (default 0.02; step = 2 * accuracy).")
     parser.add_argument("--basic_compressor", type=str, default=None,

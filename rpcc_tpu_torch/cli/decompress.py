@@ -10,8 +10,9 @@ or of ``rpcc_tpu``) configures the decoder from its header, LiDAR included;
 otherwise the configuration flags must match the ones the frame was
 compressed with.  ``rec.bin`` holds float32 (x, y, z, 0) rows; decoded
 empty pixels (the origin) are dropped.  ``--decode_backend device`` (the
-default) runs the decoder graph of ``RPCCCodec`` on ``--device``; ``host``
-reconstructs on the host with the native decoder
+default) runs ``RPCCCodec`` on ``--device``: its rANS containers decode
+there too (on a card, the decode kernel); ``host`` decodes and
+reconstructs on the host with the native coder and decoder
 (``models/host_decoder.py``).  Both write the same floats.
 """
 

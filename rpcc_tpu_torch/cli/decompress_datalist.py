@@ -9,12 +9,14 @@ Reads each bitstream, decodes it in batches and writes the reconstructed
 cloud as .bin (float32 x, y, z, 0 rows; points at the origin dropped),
 mirroring the input paths under ``--output_dir``.  ``--decode_backend
 device`` (the default) runs the batched decoder graph on ``--device``,
-the card unless the CPU is asked for; ``host`` reconstructs on the host
-with the native decoder, in one process.  Both write the same floats.
-With more than one device (``--num_devices``; by default every visible
-card) the device backend runs one engine process per device, each on its
-share of every global batch (``parallel/mesh.py::rank_frames``), and sums
-the totals with one ``all_reduce``.  The configuration flags must match
+the card unless the CPU is asked for, and decodes the rANS containers
+there (on a card, the decode kernel); ``host`` decodes and reconstructs on
+the host with the native coder and decoder, in one process.  Both write
+the same floats.  With more than one device (``--num_devices``; by
+default every visible card) the device backend runs one engine process
+per device, each on its share of every global batch
+(``parallel/mesh.py::rank_frames``), and sums the totals with one
+``all_reduce``.  The configuration flags must match
 the ones the frames were compressed with.
 """
 
@@ -34,7 +36,7 @@ from rpcc_tpu_torch.cli.common import (
     lidar_from_args,
     run_ranks,
 )
-from rpcc_tpu_torch.cli.compress_datalist import _mirror_path, output_path_for
+from rpcc_tpu_torch.cli.compress_datalist import _kernel_launches, _mirror_path, output_path_for
 
 
 def _read_bytes(path: str) -> bytes:
@@ -104,8 +106,8 @@ def decompress_rank(rank: int, world: int, device, args: argparse.Namespace, fil
     the host backend; ``t_launch`` is unused).  With a process group the totals (frames written,
     their points and input bits, errors) are summed over the ranks by the
     engine's ``sharded_stats``, and rank 0 prints the summary line.  -> the
-    summed report and the wall seconds from the start (the group's
-    barrier) to the totals."""
+    summed report, the wall seconds from the start (the group's barrier) to
+    the totals, and the kernel launches this rank made."""
     import torch.distributed as dist
 
     from rpcc_tpu_torch.parallel.aggregate import batch_report, batch_totals
@@ -115,6 +117,7 @@ def decompress_rank(rank: int, world: int, device, args: argparse.Namespace, fil
     lidar = lidar_from_args(args)
     group = dist.group.WORLD if dist.is_initialized() else None
     b, indices = rank_frames(len(file_list), args.batch, rank, world)
+    launches0 = _kernel_launches()
     name_batches = [[file_list[i] for i in indices[s : s + b]] for s in range(0, len(indices), b)]
     if args.decode_backend == "host":
         from rpcc_tpu_torch.models.host_decoder import HostDecoder
@@ -178,7 +181,8 @@ def decompress_rank(rank: int, world: int, device, args: argparse.Namespace, fil
         done = rep["frames"]
         print(f"\nDecompressed {done} frames in {dt:.2f}s ({done / dt:.2f} frames/s)"
               + (f", {rep['errors']} errors" if rep["errors"] else ""))
-    return dict(report=rep, seconds=dt)
+    launches = {k: v - launches0[k] for k, v in _kernel_launches().items()}
+    return dict(report=rep, seconds=dt, launches=launches)
 
 
 if __name__ == "__main__":

@@ -13,11 +13,14 @@ gzip | deflate | rans``, selected by name, on bytes-like numpy buffers.
   * ``rans``: the port's JAX-free containers
     (:mod:`rpcc_tpu_torch.codec.rans_codec`).
 
-The ``*_dict_batch`` methods code a batch of frames' fields with the big
-fields (residual stream, contour plane) batched through the native coder,
-or under ``RPCC_RANS_DEVICE=default`` the card's kernels; each frame's
-bytes equal :meth:`compress_dict` / :meth:`decompress_dict` of that frame
-alone.
+``rans`` codes on the coder's ``device``: the native host coder for None
+or a CPU device, the card's kernels for a CUDA device (its owner's: the
+codec's and the engine's).  The ``*_dict_batch`` methods code a batch of
+frames' fields with the big fields (residual stream, contour plane)
+batched, one native call or kernel launch each (a decode: one launch for
+both); each frame's bytes equal :meth:`compress_dict` /
+:meth:`decompress_dict` of that frame alone, which decodes its big fields
+the same way.
 """
 
 from __future__ import annotations
@@ -35,25 +38,29 @@ METHODS = ("lz4", "bzip2", "gzip", "deflate", "rans")
 
 
 class BasicCompressor:
-    def __init__(self, method_name: str, contour_shape: Optional[tuple] = None):
+    def __init__(self, method_name: str, contour_shape: Optional[tuple] = None, device=None):
         if method_name not in METHODS:
             raise ValueError(f"unknown compression method {method_name!r}; choose from {METHODS}")
         self.method_name = method_name
         # (H, W) of the range image: lets ``rans`` context-code the contour
         # bit plane instead of bzip2ing packed row-major bytes.
         self.contour_shape = contour_shape
+        # Where ``rans`` codes: None or a CPU device the native host coder, a CUDA device its kernels.
+        self.device = device
 
     # -- dict-of-fields helpers ---------------------------------------------
     def compress_dict(self, data_dict: Dict[str, object]) -> Dict[str, bytes]:
         out = {}
         for k, v in data_dict.items():
             if k == "contour_map" and self.method_name == "rans" and self.contour_shape is not None:
-                out[k] = rans_codec.compress_contour(v, *self.contour_shape)
+                out[k] = rans_codec.compress_contour(v, *self.contour_shape, device=self.device)
             else:
                 out[k] = self.compress(v)
         return out
 
     def decompress_dict(self, data_dict: Dict[str, bytes]) -> Dict[str, bytes]:
+        if self.method_name == "rans":
+            return self.decompress_dict_batch([data_dict])[0]
         return {k: self.decompress(v) for k, v in data_dict.items()}
 
     def compress_dict_batch(
@@ -65,13 +72,13 @@ class BasicCompressor:
         pool_map = pool_map or (lambda fn, n: [fn(i) for i in range(n)])
         if self.method_name != "rans" or not dicts:
             return pool_map(lambda i: self.compress_dict(dicts[i]), len(dicts))
-        big = {"residual_quantized": rans_codec.compress_batch([d["residual_quantized"] for d in dicts])}
+        big = {"residual_quantized": rans_codec.compress_batch([d["residual_quantized"] for d in dicts], self.device)}
         if self.contour_shape is not None:
             big["contour_map"] = rans_codec.compress_contour_batch(
-                [d["contour_map"] for d in dicts], *self.contour_shape
+                [d["contour_map"] for d in dicts], *self.contour_shape, device=self.device
             )
         return pool_map(
-            lambda i: {k: big[k][i] if k in big else rans_codec.compress(v) for k, v in dicts[i].items()},
+            lambda i: {k: big[k][i] if k in big else self.compress(v) for k, v in dicts[i].items()},
             len(dicts),
         )
 
@@ -79,11 +86,12 @@ class BasicCompressor:
         self, dicts: Sequence[Dict[str, bytes]], pool_map: Optional[Callable] = None
     ) -> List[Dict[str, bytes]]:
         """:meth:`decompress_dict` of each frame's fields, the big rans
-        fields of the whole batch decoded in one native call each."""
+        fields of the whole batch decoded in one native call each, or on a
+        CUDA device in one kernel launch together."""
         pool_map = pool_map or (lambda fn, n: [fn(i) for i in range(n)])
         if self.method_name != "rans" or not dicts:
-            return pool_map(lambda i: self.decompress_dict(dicts[i]), len(dicts))
-        resid, contour = rans_codec.batch_decode_big_fields(dicts)
+            return pool_map(lambda i: {k: self.decompress(v) for k, v in dicts[i].items()}, len(dicts))
+        resid, contour = rans_codec.batch_decode_big_fields(dicts, self.device)
         big = {k: v for k, v in (("residual_quantized", resid), ("contour_map", contour)) if v is not None}
         return pool_map(
             lambda i: {k: big[k][i] if k in big else self.decompress(v) for k, v in dicts[i].items()},
@@ -93,7 +101,7 @@ class BasicCompressor:
     # -- single buffer -------------------------------------------------------
     def compress(self, np_array) -> bytes:
         if self.method_name == "rans":
-            return rans_codec.compress(np_array)
+            return rans_codec.compress(np_array, device=self.device)
         data = _as_bytes(np_array)
         if self.method_name == "lz4":
             return lz4_compress(data)
@@ -105,7 +113,7 @@ class BasicCompressor:
 
     def decompress(self, bitstream: bytes) -> bytes:
         if self.method_name == "rans":
-            return rans_codec.decompress(bitstream)
+            return rans_codec.decompress(bitstream, self.device)
         if self.method_name == "lz4":
             return lz4_decompress(bitstream)
         if self.method_name == "bzip2":

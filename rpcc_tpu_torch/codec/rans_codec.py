@@ -1,33 +1,35 @@
 """The ``rans`` entropy containers, JAX-free.
 
 A copy of ``rpcc_tpu/codec/rans_codec.py``'s single-frame and batch entry
-points; for the same inputs and the same ``RPCC_RANS_DEVICE`` and
-``RPCC_RANS_ADAPTIVE`` every container and every decoded field is
-byte-identical to that module's.  Both variables are read at import, as
-the reference reads them.
+points.  Every encode and decode entry takes ``device=``, the device of its
+caller, and codes there:
 
-``RPCC_RANS_DEVICE=cpu`` (the default) codes on the port's native host
-library (``csrc/host/rans.cpp``, a copy of the reference's), which raises
-if it cannot be built.  Any other value (``default``) codes on the CUDA
-device and raises without one: a batch encode's residual streams are one
-launch of the encode kernel (``csrc/rans.cu``) at the batch's lane
-geometry, its contours another; a decode is one launch of the decode
-kernel (``csrc/rans_decode.cu``) per field group (the residual containers
-of one kind and lane count, or a batch's contours; a batch's contours and
-its largest residual group share one launch in
-:func:`batch_decode_big_fields`), both through ``ops/rans_device.py``.  The batch decoders' ``device=`` names a device
-instead (``"cpu"``: the decode kernel's plain version, through the same
-container path).  The host symbolizes what the bzip2 comparisons need, assembles the
-containers and the lanes, and the native tails finalize decoded symbols.
+* ``None`` or a CPU device: the port's native host library
+  (``csrc/host/rans.cpp``, a copy of the reference's), which raises if it
+  cannot be built.  Every container and every decoded field is
+  byte-identical to the reference's under its default
+  ``RPCC_RANS_DEVICE=cpu``.
+* A CUDA device: the hand-written kernels, which raise without a card
+  (nothing falls back to the host).  A batch encode's residual streams are
+  one launch of the encode kernel (``csrc/rans.cu``) at the batch's lane
+  geometry, its contours another; a decode is one launch of the decode
+  kernel (``csrc/rans_decode.cu``) per field group (the residual
+  containers of one kind and lane count, or a batch's contours; a batch's
+  contours and its largest residual group share one launch in
+  :func:`batch_decode_big_fields`), both through ``ops/rans_device.py``.
+  The host symbolizes what the bzip2 comparisons need, assembles the
+  containers and the lanes, and the native tails finalize decoded
+  symbols.  Every container is byte-identical to the reference's under
+  ``RPCC_RANS_DEVICE=default``.
 
-As in the reference, the device path encodes a batch the way the
-reference's own ``default`` path does: every frame through the numpy
-pre-pass's geometry (lanes and T from the longest frame, 'Z' tried up to
-32,768 symbols), where the native path codes frames above 32,768 symbols
-apart from the rest; so a batch that mixes small and big frames gets other
-(equally valid) containers on the two backends.  ``RPCC_RANS_ADAPTIVE=full``
-takes that path on the host too, and compares bzip2 with every container
-of any size.
+The card encodes a batch the way the reference's ``default`` path does:
+every frame through the numpy pre-pass's geometry (lanes and T from the
+longest frame, 'Z' tried up to 32,768 symbols), where the native path
+codes frames above 32,768 symbols apart from the rest; so a batch that
+mixes small and big frames gets other (equally valid) containers on the
+two devices, each decoded by either.  ``RPCC_RANS_ADAPTIVE=full`` (read at
+import, as the reference reads it) takes that path on the host too, and
+compares bzip2 with every container of any size.
 
 The batch coders size a batch's lanes from its longest frame, as the
 reference's do, so a frame's container can depend on its neighbours;
@@ -76,26 +78,26 @@ CONTOUR_BZ_TRY_MAX_PIXELS = 65536
 
 _CODE_DTYPE = {0: np.int16, 1: np.uint16, 2: np.int32}
 
-# Where the rANS coding runs: "cpu" (default) the native host coder; any
-# other value ("default") the card, as the reference reads it.
-_RANS_DEVICE = os.environ.get("RPCC_RANS_DEVICE", "cpu")
 # "full": compare bzip2 with the rANS containers at any size.
 _ADAPTIVE_FULL = os.environ.get("RPCC_RANS_ADAPTIVE", "") == "full"
 
 
-def _coding_device(device, verb: str):
-    """The device a batch encodes or decodes (``verb``) on: ``device`` when
-    given, else None (the native coder) under ``RPCC_RANS_DEVICE=cpu`` and
-    the CUDA device under any other value, which raises without one."""
-    if device is not None:
-        return device
-    if _RANS_DEVICE == "cpu":
+def _coding_device(device):
+    """The device a call codes on: None (the native host coder) for
+    ``device`` None or a CPU device, a CUDA device as a ``torch.device``
+    (raises without a card), ValueError for any other."""
+    if device is None:
         return None
     import torch
 
+    dev = torch.device(device)
+    if dev.type == "cpu":
+        return None
+    if dev.type != "cuda":
+        raise ValueError(f"the rANS coder runs on the CPU or a CUDA device, not {dev}")
     if not torch.cuda.is_available():
-        raise RuntimeError(f"RPCC_RANS_DEVICE={_RANS_DEVICE} {verb} on the CUDA device, and there is none")
-    return "cuda"
+        raise RuntimeError(f"the rANS coder was asked for {dev}, and no CUDA device is available")
+    return dev
 
 
 def _lanes_for(n: int) -> int:
@@ -150,42 +152,43 @@ def _pick(data: np.ndarray, delta: bytes) -> bytes:
     return min(candidates, key=len)
 
 
-def compress(data, lanes=None) -> bytes:
+def compress(data, lanes=None, device=None) -> bytes:
     """int16/uint16/int32 arrays: the smallest of the delta container, plain
     bzip2 and (u16) the sequence coder — only the delta container above
-    64 KB.  Anything else: plain bzip2.  ``lanes`` as in
+    64 KB.  Anything else: plain bzip2.  ``lanes`` and ``device`` as in
     :func:`compress_delta_batch`."""
     if isinstance(data, np.ndarray) and data.dtype in (np.int16, np.uint16, np.int32):
-        return _pick(data, compress_delta_batch([data], lanes)[0])
+        return _pick(data, compress_delta_batch([data], lanes, device)[0])
     raw = data.tobytes() if isinstance(data, np.ndarray) else bytes(data)
     return bytes([MAGIC_BZ]) + bz2.compress(raw)
 
 
-def compress_batch(arrays: Sequence[np.ndarray]) -> List[bytes]:
-    """:func:`compress` of each int16/uint16/int32 array, byte for byte,
-    with the delta containers coded by one native call or kernel launch per
-    group of frames that share a lane geometry (one group for a batch of
-    similar frames)."""
+def compress_batch(arrays: Sequence[np.ndarray], device=None) -> List[bytes]:
+    """:func:`compress` of each int16/uint16/int32 array on ``device``,
+    byte for byte, with the delta containers coded by one native call or
+    kernel launch per group of frames that share a lane geometry (one group
+    for a batch of similar frames)."""
     arrays = [np.ascontiguousarray(a) for a in arrays]
     groups: dict = {}
     for i, a in enumerate(arrays):
         groups.setdefault(_geometry(a.size), []).append(i)
     deltas: List[bytes] = [b""] * len(arrays)
     for ix in groups.values():
-        for i, blob in zip(ix, compress_delta_batch([arrays[i] for i in ix])):
+        for i, blob in zip(ix, compress_delta_batch([arrays[i] for i in ix], device=device)):
             deltas[i] = blob
     return [_pick(a, d) for a, d in zip(arrays, deltas)]
 
 
-def decompress(blob: bytes) -> bytes:
+def decompress(blob: bytes, device=None) -> bytes:
+    """Any container's bytes, its rANS decoded on ``device`` (see :func:`_coding_device`)."""
     if blob[0] == MAGIC_BZ:
         return bz2.decompress(blob[1:])
     if blob[0] == MAGIC_ZL8:
         return np.frombuffer(zlib.decompress(blob[1:]), np.uint8).astype(np.uint16).tobytes()
     if blob[0] == MAGIC_BITS:
-        return decompress_contour(blob)
+        return decompress_contour(blob, device)
     if blob[0] in (MAGIC_DELTA, MAGIC_CTX, MAGIC_BZD):
-        return decompress_delta(blob)
+        return decompress_delta(blob, device)
     raise ValueError("unknown rans container magic")
 
 
@@ -245,30 +248,29 @@ def _lane_words(words: np.ndarray, counts: np.ndarray) -> np.ndarray:
 
 
 # --------------------------------------------- contour bit-plane container
-def compress_contour(packed: np.ndarray, H: int, W: int) -> bytes:
+def compress_contour(packed: np.ndarray, H: int, W: int, device=None) -> bytes:
     """'N' container of the packed contour bits; small planes (<= 64K
     pixels, or any under ``RPCC_RANS_ADAPTIVE=full``) keep plain bzip2 when
     that is smaller."""
-    return compress_contour_batch([packed], H, W)[0]
+    return compress_contour_batch([packed], H, W, device)[0]
 
 
-def compress_contour_batch(packed_list: Sequence[np.ndarray], H: int, W: int) -> List[bytes]:
-    """Every frame's contour plane in one native call or, under
-    ``RPCC_RANS_DEVICE=default``, one kernel launch (which codes at most 512
-    rows and raises past them); each container is the frame's own (the lane
-    length depends on H and W only)."""
+def compress_contour_batch(packed_list: Sequence[np.ndarray], H: int, W: int, device=None) -> List[bytes]:
+    """Every frame's contour plane in one native call or, on a CUDA
+    ``device``, one kernel launch (which codes at most 512 rows and raises
+    past them); each container is the frame's own (the lane length depends
+    on H and W only)."""
     if not len(packed_list):
         return []
     T = -(-(W + H - 1) // T_BUCKET) * T_BUCKET
     pb = np.stack([np.asarray(p, np.uint8) for p in packed_list])
-    dev = _coding_device(None, "encodes")
+    dev = _coding_device(device)
     if dev is None:
         words, n_words, counts, states, freqs = rans_native.contour_encode_frames(pb, H, W, T)
     else:
         from rpcc_tpu_torch.ops import rans_device
 
-        cnt = rans_device.encode_contour_field_device(rans_device.upload_contours(pb, H, W, dev))
-        words, n_words, counts, states, freqs = (t.cpu().numpy() for t in cnt)
+        words, n_words, counts, states, freqs = rans_device.encode_contours_host(pb, H, W, dev)
         words = words.view(np.uint16)
     out = []
     for i, p in enumerate(pb):
@@ -296,15 +298,15 @@ def build_bits_container(T: int, H: int, W: int, freqs: np.ndarray, states: np.n
     )
 
 
-def decompress_contour(blob: bytes) -> bytes:
-    return decompress_contour_batch([blob])[0]
+def decompress_contour(blob: bytes, device=None) -> bytes:
+    return decompress_contour_batch([blob], device)[0]
 
 
 def decompress_contour_batch(blobs: Sequence[bytes], device=None) -> List[bytes]:
     """Decode a batch of 'N' contour containers of one geometry in one
     native call or kernel launch (``device``: see :func:`_coding_device`)."""
     lanes, H, W = contour_lanes(blobs)
-    return _finalize_contours(decode_lanes(lanes, _coding_device(device, "decodes")), lanes, H, W)
+    return _finalize_contours(decode_lanes(lanes, device), lanes, H, W)
 
 
 def _finalize_contours(sym: np.ndarray, lanes, H: int, W: int) -> List[bytes]:
@@ -379,7 +381,7 @@ def batch_decode_big_fields(packed: Sequence[dict], device=None):
     do_res = all(b[0] in (MAGIC_DELTA, MAGIC_CTX, MAGIC_BZD) for b in res_blobs)
     do_cnt = bool(cms) and all(len(c) > 0 and c[0] == MAGIC_BITS for c in cms)
     out, groups = _parse_delta_batch(res_blobs) if do_res else (None, {})
-    dev = _coding_device(device, "decodes") if groups or do_cnt else None
+    dev = _coding_device(device) if groups or do_cnt else None
     if dev is None:  # the native decoder, or nothing coded with rANS
         return (_decode_delta_groups(out, groups, None) if do_res else None,
                 decompress_contour_batch(cms) if do_cnt else None)
@@ -391,9 +393,9 @@ def batch_decode_big_fields(packed: Sequence[dict], device=None):
         _check_tables(g)
     first = max(lanes, key=lambda k: len(groups[k]), default=None)
     pair = lanes.get(first)
-    sym_r, sym_c = rans_device.fields_to_host(*rans_device.decode_fields_device(
+    sym_r, sym_c = rans_device.decode_fields_host(
         None if pair is None else pair[:5], None if cnt is None else cnt[0][:5],
-        rans_native.MODE_ZIGZAG if pair is None else pair.mode, dev))
+        rans_native.MODE_ZIGZAG if pair is None else pair.mode, dev)
     for k, items in groups.items():
         _finalize_delta_group(out, items, lanes[k], sym_r if k == first else decode_lanes(lanes[k], dev))
     return out, (_finalize_contours(sym_c, *cnt) if do_cnt else None)
@@ -406,16 +408,17 @@ def _check_tables(lanes: Lanes) -> None:
 
 
 def decode_lanes(lanes: Lanes, device=None) -> np.ndarray:
-    """(B, L*T) int32 symbols of one field group: the native decoder
-    (``device`` None) or one launch on ``device``; raises unless every
-    table sums to M (:func:`_check_tables`)."""
+    """(B, L*T) int32 symbols of one field group: the native decoder, or
+    one launch on a CUDA ``device`` (see :func:`_coding_device`); raises
+    unless every table sums to M (:func:`_check_tables`)."""
     _check_tables(lanes)
-    if device is None:
+    dev = _coding_device(device)
+    if dev is None:
         return rans_native.decode_ctx_batch(lanes.words, lanes.counts, lanes.states, lanes.freqs,
                                             lanes.words.shape[2], lanes.mode, lives=lanes.lives)
     from rpcc_tpu_torch.ops import rans_device
 
-    return rans_device.decode_streams_device(*lanes[:5], lanes.mode, device).cpu().numpy()
+    return rans_device.decode_group_host(lanes[:5], lanes.mode, dev)
 
 
 # --------------------------------------------------------- delta containers
@@ -523,13 +526,12 @@ def _route_wide_escape_frames(arrays, encode_rest):
 
 def _device_pieces(arrays: Sequence[np.ndarray], L: int, T: int, device):
     """Per frame (escapes, freqs, states, counts, words) of its 'C'
-    container from one launch of the encode kernel on ``device`` (its plain
-    version on the CPU).  A frame past the kernel's escape list gets the
-    host's (the words do not depend on the list)."""
+    container from one launch of the encode kernel on the CUDA ``device``.
+    A frame past the kernel's escape list gets the host's (the words do not
+    depend on the list)."""
     from rpcc_tpu_torch.ops import rans_device
 
-    res = rans_device.encode_fields_device(*rans_device.upload_streams(arrays, device), None, L, T)[0]
-    words, n_words, counts, states, freqs, escapes, n_esc = (t.cpu().numpy() for t in res[:7])
+    words, n_words, counts, states, freqs, escapes, n_esc, _ = rans_device.encode_streams_host(arrays, L, T, device)
     return [
         (escapes[i, : n_esc[i]] if n_esc[i] <= rans_device.ESC_CAP_DEV else _symbolize(a)[1], freqs[i], states[i],
          counts[i], words[i, : n_words[i]].view(np.uint16))
@@ -537,19 +539,18 @@ def _device_pieces(arrays: Sequence[np.ndarray], L: int, T: int, device):
     ]
 
 
-def _compress_delta_batch_np(arrays: Sequence[np.ndarray], lanes=None) -> List[bytes]:
+def _compress_delta_batch_np(arrays: Sequence[np.ndarray], lanes=None, device=None) -> List[bytes]:
     """The numpy pre-pass's path for a batch (lanes and T from its longest
-    frame, or ``lanes``): the native coder, or under
-    ``RPCC_RANS_DEVICE=default`` the encode kernel, and per frame the
-    smaller of 'C' and, up to 32768 symbols (any under
-    ``RPCC_RANS_ADAPTIVE=full``), 'Z'."""
-    routed = _route_wide_escape_frames(arrays, lambda rest: _compress_delta_batch_np(rest, lanes))
+    frame, or ``lanes``): the native coder, or on a CUDA ``device`` the
+    encode kernel, and per frame the smaller of 'C' and, up to 32768
+    symbols (any under ``RPCC_RANS_ADAPTIVE=full``), 'Z'."""
+    routed = _route_wide_escape_frames(arrays, lambda rest: _compress_delta_batch_np(rest, lanes, device))
     if routed is not None:
         return routed
     if not arrays:
         return []
     L, T = _geometry(max(a.size for a in arrays), lanes)
-    dev = _coding_device(None, "encodes")
+    dev = _coding_device(device)
     per = [None] * len(arrays)  # (symbols, escapes, q0, n) of each frame, where the host needs them
     if dev is None:
         per = [_symbolize(a) for a in arrays]
@@ -576,25 +577,29 @@ def _compress_delta_batch_np(arrays: Sequence[np.ndarray], lanes=None) -> List[b
     return out
 
 
-def compress_delta(arr: np.ndarray) -> bytes:
+def compress_delta(arr: np.ndarray, device=None) -> bytes:
     """'C' (or, for small fields, 'Z') container of an int16/uint16/int32 stream."""
-    return compress_delta_batch([arr])[0]
+    return compress_delta_batch([arr], device=device)[0]
 
 
-def compress_delta_batch(arrays: Sequence[np.ndarray], lanes=None) -> List[bytes]:
+def compress_delta_batch(arrays: Sequence[np.ndarray], lanes=None, device=None) -> List[bytes]:
     """Delta containers of a batch of int16/uint16/int32 streams,
     byte-identical to ``rpcc_tpu.codec.rans_codec.compress_delta_batch``
-    under the same variables: int32 frames whose deltas overflow int32 as
-    plain bzip2; on the host (``RPCC_RANS_DEVICE=cpu``) frames above 32768
-    symbols take the fused native encoder in one call (lanes and T from the
-    longest of them, or ``lanes``), the rest the numpy pre-pass (likewise);
-    on the card (any other ``RPCC_RANS_DEVICE``), and under
+    (under ``RPCC_RANS_DEVICE=cpu`` for the host, ``default`` for a CUDA
+    ``device``, and the same ``RPCC_RANS_ADAPTIVE``): int32 frames whose
+    deltas overflow int32 as plain bzip2; on the host (``device`` None or a
+    CPU) frames above 32768 symbols take the fused native encoder in one
+    call (lanes and T from the longest of them, or ``lanes``), the rest the
+    numpy pre-pass (likewise); on a CUDA device, and under
     ``RPCC_RANS_ADAPTIVE=full``, the whole batch takes the pre-pass's path,
     on the card one kernel launch.  ``lanes`` must be a power of two in
     1..32."""
     arrays = [np.ascontiguousarray(a) for a in arrays]
-    if _RANS_DEVICE != "cpu" or _ADAPTIVE_FULL:
-        return _compress_delta_batch_np(arrays, lanes)
+    if not arrays:
+        return []
+    dev = _coding_device(device)
+    if dev is not None or _ADAPTIVE_FULL:
+        return _compress_delta_batch_np(arrays, lanes, dev)
     routed = _route_wide_escape_frames(arrays, lambda rest: compress_delta_batch(rest, lanes))
     if routed is not None:
         return routed
@@ -648,9 +653,9 @@ def _parse_delta(blob: bytes):
     return magic, lanes, T, n, q0, escapes, freqs, states, counts, words, dt_code
 
 
-def decompress_delta(blob: bytes) -> bytes:
+def decompress_delta(blob: bytes, device=None) -> bytes:
     """Decode one delta container ('C', 'D' or 'Z')."""
-    return decompress_delta_batch([blob])[0]
+    return decompress_delta_batch([blob], device)[0]
 
 
 def decompress_delta_batch(blobs: Sequence[bytes], device=None) -> List[bytes]:
@@ -660,7 +665,7 @@ def decompress_delta_batch(blobs: Sequence[bytes], device=None) -> List[bytes]:
     :func:`_coding_device`; mixed T decode at the largest, each frame's
     symbols its own)."""
     out, groups = _parse_delta_batch(blobs)
-    return _decode_delta_groups(out, groups, _coding_device(device, "decodes") if groups else None)
+    return _decode_delta_groups(out, groups, _coding_device(device) if groups else None)
 
 
 def _decode_delta_groups(out: List[bytes], groups: dict, device) -> List[bytes]:

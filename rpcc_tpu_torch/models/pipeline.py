@@ -49,11 +49,13 @@ class RPCCCodec:
         self.hw = self.H * self.W
         self.num_models = num_model_rows(cfg)
         self.transform_map = build_transform_map(lidar)  # (H, W, 3) np.float32
-        # Device entropy is the batch engine's path: this codec entropy-codes
-        # on the host, so its encoder leaves the flag off (as the reference's).
+        # Device entropy is the batch engine's path: this codec codes the
+        # downloaded fields' containers (on its device), so its encoder leaves
+        # the flag off (as the reference's).
         self.encoder = Encoder.for_lidar(lidar, cfg.replace(device_entropy=False)).to(self.device)
         self.decoder = Decoder(lidar, cfg).to(self.device)
-        self.entropy = BasicCompressor(method_name=cfg.basic_compressor, contour_shape=(self.H, self.W))
+        self.entropy = BasicCompressor(method_name=cfg.basic_compressor, contour_shape=(self.H, self.W),
+                                       device=self.device)
 
     @property
     def _step_arg(self):

@@ -19,15 +19,16 @@ the host coders' containers, so the host decoders read them unchanged:
   delayed r steps), H lanes of ``contour_T(H, W)`` steps, ctx = 2 * above
   + left.
 
-The host containers' encode under ``RPCC_RANS_DEVICE=default`` (the
-reference's ``rpcc_tpu/ops/rans.py::encode_streams_batch_ctx`` and
-``encode_streams_batch_ctx_explicit``) is the same kernel: residual streams
-at the batch's own lane geometry (:func:`encode_streams_cuda`, L a power of
-two up to 32 and T a multiple of 16 from its longest frame, zero-padded
-(B, n_max) streams with per-frame lengths; :func:`upload_streams`), the
-contour exactly as above (:func:`upload_contours`).  A residual's zigzag
-value is computed in u32, so an int32 stream whose deltas fit int32 escapes
-with the reference's u32 values.
+The host containers' encode on a CUDA device (the reference's
+``rpcc_tpu/ops/rans.py::encode_streams_batch_ctx`` and
+``encode_streams_batch_ctx_explicit``, which it runs under
+``RPCC_RANS_DEVICE=default``) is the same kernel: residual streams at the
+batch's own lane geometry (:func:`encode_streams_host`, L a power of two
+up to 32 and T a multiple of 16 from its longest frame, zero-padded
+(B, n_max) streams with per-frame lengths), the contour exactly as above
+(:func:`encode_contours_host`).  A residual's zigzag value is computed in
+u32, so an int32 stream whose deltas fit int32 escapes with the
+reference's u32 values.
 
 Each lane's symbols are walked in reverse (16-bit renormalization, at most
 one word per symbol; the walk is :func:`rpcc_tpu_torch.ops.rans.encode_walk`);
@@ -44,18 +45,26 @@ versions for CPU tensors, one launch of the hand-written kernel
 (``csrc/rans.cu``) for CUDA tensors.  A CUDA tensor never falls back to the
 plain version: if the kernel cannot build or launch, the call raises.
 
-:func:`decode_streams_device` decodes host-assembled containers' lanes
-(one field group: residual lanes with zigzag or order-0 contexts, or
-wavefront contour lanes) on a device, and :func:`decode_fields_device` a
-batch's residual group and its contours together: one launch of
+:func:`decode_fields_device` decodes host-assembled containers' lanes (a
+residual group with zigzag or order-0 contexts and a group of wavefront
+contour lanes, either absent) on a device: one launch of
 ``csrc/rans_decode.cu`` for CUDA, the plain decoders of
 :mod:`rpcc_tpu_torch.ops.rans` for the CPU, with the same rule.
+
+The host-facing wrappers (:func:`encode_streams_host`,
+:func:`encode_contours_host`, :func:`decode_fields_host`) take numpy
+arrays and give numpy arrays back.  Each call packs its host arrays into
+one staging buffer (pinned for a CUDA device) that goes up in one copy into
+one device workspace holding its inputs, outputs and scratch as views
+(:class:`_Workspace`); the outputs come back in one copy.  On the CPU the
+same buffers run the plain versions.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 import threading
 from typing import NamedTuple, Optional, Tuple
 
@@ -285,13 +294,19 @@ def _check_residual(q: torch.Tensor, stream_len: torch.Tensor, lanes: int, T: Op
         raise ValueError(f"expected (B, width) q and (B,) stream_len, got {tuple(q.shape)} and {tuple(stream_len.shape)}")
     if stream_len.device != q.device:
         raise ValueError("q and stream_len must share a device")
+    return _check_geometry(q.shape[0], q.shape[1], lanes, T)
+
+
+def _check_geometry(B: int, width: int, lanes: int, T: Optional[int]) -> Tuple[int, int]:
+    """Raises unless ``lanes`` lanes of ``T`` steps code B streams of
+    ``width`` symbols; -> (lanes, T) as ints (T None: :func:`stream_T`)."""
     if not (_is_int(lanes) and 1 <= lanes <= RESID_LANES and lanes & (lanes - 1) == 0):
         raise ValueError(f"lanes must be a power of two in 1..{RESID_LANES}, got {lanes!r}")
     if T is None:
-        T = stream_T(q.shape[1], lanes)
-    if not (_is_int(T) and T > 0 and T % _T_BUCKET == 0 and lanes * T >= q.shape[1]):
-        raise ValueError(f"T must be a positive multiple of {_T_BUCKET} with lanes * T >= {q.shape[1]}, got {T!r}")
-    if lanes * T * max(q.shape[0], 1) >= 2**31:
+        T = stream_T(width, lanes)
+    if not (_is_int(T) and T > 0 and T % _T_BUCKET == 0 and lanes * T >= width):
+        raise ValueError(f"T must be a positive multiple of {_T_BUCKET} with lanes * T >= {width}, got {T!r}")
+    if lanes * T * max(B, 1) >= 2**31:
         raise ValueError("residual batch exceeds 2^31 lane steps")
     return int(lanes), int(T)
 
@@ -315,6 +330,179 @@ def check_contour_fits_kernel(H: int, W: int) -> None:
         raise ValueError(f"a contour of {H} x {W} has more than {MAX_CONTOUR_STEPS} lane steps")
 
 
+# ------------------------------------------------------------------ one call's buffers
+_ALIGN = 256  # bytes: every view of a workspace or staging buffer starts at a multiple
+_NUMPY = {torch.uint8: np.uint8, torch.int16: np.int16, torch.int32: np.int32, torch.int64: np.int64}
+
+
+def _nbytes(shape, dtype: torch.dtype) -> int:
+    return math.prod(shape) * dtype.itemsize
+
+
+def _as_device(device) -> torch.device:
+    """``device`` as a torch.device with its index (a CUDA device without
+    one is the current device), raising unless it is the CPU or CUDA."""
+    dev = torch.device(device)
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+class _Workspace:
+    """One call's memory on ``device``: a single allocation holding the
+    ``outputs``, then the ``inputs``, then the ``scratch`` (each a list of
+    (name, shape, torch dtype)), every one at an _ALIGN-byte offset: its
+    address :meth:`ptr`, its tensor :meth:`view`.  The inputs are written
+    on the host into one staging buffer (pinned for a CUDA device;
+    :meth:`host`) and go up in one copy (:meth:`upload`); the outputs, laid
+    out first, come back in one copy (:meth:`download`).  Both buffers come
+    from PyTorch's caching allocators, which reuse blocks by size and are
+    safe across threads."""
+
+    def __init__(self, device: torch.device, outputs, inputs=(), scratch=()):
+        self.device = device
+        self._cuda = device.type == "cuda"
+        self._spans, self._bounds, at = {}, {}, 0  # name -> (offset, bytes, shape, torch dtype)
+        for kind, items in (("out", outputs), ("in", inputs), ("scratch", scratch)):
+            lo = at
+            for name, shape, dt in items:
+                n = _nbytes(shape, dt)
+                self._spans[name] = (at, n, tuple(shape), dt)
+                at += -(-n // _ALIGN) * _ALIGN
+            self._bounds[kind] = (lo, at)
+        self.buf = torch.empty(max(at, _ALIGN), dtype=torch.uint8, device=device)
+        self._base = self.buf.data_ptr()
+        lo, hi = self._bounds["in"]
+        self._staging = torch.empty(hi - lo, dtype=torch.uint8, pin_memory=self._cuda) if hi > lo else None
+        self._staged = None if self._staging is None else self._staging.numpy()
+
+    def ptr(self, name: str) -> int:
+        """The device address of ``name``."""
+        return self._base + self._spans[name][0]
+
+    def view(self, name: str) -> torch.Tensor:
+        """``name`` as a tensor on the device, a view of the workspace."""
+        off, n, shape, dt = self._spans[name]
+        return self.buf[off:off + n].view(dt).reshape(shape)
+
+    def host(self, name: str) -> np.ndarray:
+        """The staging buffer's numpy view of input ``name``, to be filled before :meth:`upload`."""
+        off, n, shape, dt = self._spans[name]
+        at = off - self._bounds["in"][0]
+        return self._staged[at:at + n].view(_NUMPY[dt]).reshape(shape)
+
+    def upload(self) -> None:
+        """The staged inputs into the workspace: one copy on the current stream."""
+        if self._staging is not None:
+            lo, hi = self._bounds["in"]
+            self.buf[lo:hi].copy_(self._staging, non_blocking=self._cuda)
+
+    def download(self) -> dict:
+        """The outputs as numpy arrays, from one copy of their span (on a
+        CUDA device into pinned memory, then the current stream waited on;
+        on the CPU the workspace's own memory)."""
+        end = self._bounds["out"][1]
+        host = self.buf[:end]
+        if self._cuda:
+            host = torch.empty(end, dtype=torch.uint8, pin_memory=True)
+            host.copy_(self.buf[:end], non_blocking=True)
+            torch.cuda.current_stream(self.device).synchronize()
+        flat = host.numpy()
+        return {name: flat[off:off + n].view(_NUMPY[dt]).reshape(shape)
+                for name, (off, n, shape, dt) in self._spans.items() if off < end}
+
+
+def _encode_outputs(br: Optional[int], lanes: int, t_res: int, bc: Optional[int], H: int, t_cnt: int):
+    """The (name, shape, dtype) outputs of one encode launch: the residual
+    pieces ("r_" + field, when ``br`` is not None) and the contour pieces
+    ("c_" + field, when ``bc`` is not None), in the pieces' field order."""
+    out = []
+    if br is not None:
+        out += list(zip(("r_" + f for f in ResidualPieces._fields), (
+            (br, lanes * t_res), (br,), (br, lanes), (br, lanes), (br, NUM_CTX, ALPHABET), (br, ESC_CAP_DEV), (br,), (br,),
+        ), (torch.int16, torch.int32, torch.int32, torch.int64, torch.int32, torch.int64, torch.int32, torch.int32)))
+    if bc is not None:
+        out += list(zip(("c_" + f for f in ContourPieces._fields), (
+            (bc, H * t_cnt), (bc,), (bc, H), (bc, H), (bc, 4, 2),
+        ), (torch.int16, torch.int32, torch.int32, torch.int64, torch.int32)))
+    return out
+
+
+def _encode_scratch(br: int, lanes: int, t_res: int, bc: int, H: int, t_cnt: int):
+    n = max(br * lanes * t_res + bc * H * t_cnt, 1)
+    return [("key_scratch", (n,), torch.int16), ("word_scratch", (n,), torch.int16)]
+
+
+def _encode_pieces(ws: _Workspace, residual: bool, contour: bool):
+    res = ResidualPieces(*(ws.view("r_" + f) for f in ResidualPieces._fields)) if residual else None
+    cnt = ContourPieces(*(ws.view("c_" + f) for f in ContourPieces._fields)) if contour else None
+    return res, cnt
+
+
+def _check_encode(q, stream_len, contour, lanes, T, phase_stamps):
+    """Raises unless the inputs are the kernel's: contiguous CUDA tensors
+    on one device, within its limits -> (dev, (br | None, width, lanes,
+    t_res), (bc | None, H, W, t_cnt))."""
+    if q is None and contour is None:
+        raise ValueError("nothing to encode")
+    tensors = [t for t in (q, stream_len, contour) if t is not None]
+    dev = tensors[0].device
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+        raise ValueError(f"encode_fields_cuda needs CUDA tensors on one device, got {[str(t.device) for t in tensors]}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("q, stream_len and contour must be contiguous")
+    _check_stamps(phase_stamps, dev, len(STAMP_BLOCKS) * (len(PHASES) + 1))
+    br = None
+    width = t_res = 0
+    if q is not None:
+        lanes, t_res = _check_residual(q, stream_len, lanes, T)
+        br, width = q.shape
+    bc = None
+    H = W = t_cnt = 0
+    if contour is not None:
+        _check_contour(contour)
+        bc, H, W = contour.shape
+        check_contour_fits_kernel(H, W)
+        t_cnt = contour_T(H, W)
+    return dev, (br, width, lanes, t_res), (bc, H, W, t_cnt)
+
+
+def _check_stamps(phase_stamps, dev, n_stamps: int) -> None:
+    if phase_stamps is not None and (
+        phase_stamps.device != dev or phase_stamps.dtype != torch.int64
+        or phase_stamps.numel() != n_stamps or not phase_stamps.is_contiguous()
+    ):
+        raise ValueError(f"phase_stamps must be a contiguous int64 tensor of {n_stamps} on {dev}")
+
+
+def _encode_launch(dev, ptr, res_shape, cnt_shape, phase_stamps) -> None:
+    """One launch of the encode kernel on the current stream of ``dev``:
+    the residual field of ``res_shape`` ((B, width, lanes, T), B None for
+    none) and the contour field of ``cnt_shape`` ((B, H, W, T), B None for
+    none), its inputs, pieces and scratch at the addresses ``ptr(name)``
+    gives ("q", "stream_len", "contour", :func:`_encode_outputs`' and
+    :func:`_encode_scratch`'s names).  Counts the launch."""
+    global LAUNCHES
+    (br, width, lanes, t_res), (bc, H, W, t_cnt) = res_shape, cnt_shape
+    res, cnt = br is not None, bc is not None
+    fn = _kernel()
+    with torch.cuda.device(dev):
+        err = fn(
+            ptr("q") if res else None, ptr("stream_len") if res else None, br or 0, width, lanes if res else 0, t_res,
+            ptr("contour") if cnt else None, bc or 0, H, W, t_cnt,
+            *([ptr("r_" + f) for f in ResidualPieces._fields] if res else [None] * 8),
+            *([ptr("c_" + f) for f in ContourPieces._fields] if cnt else [None] * 5),
+            ptr("key_scratch"), ptr("word_scratch"), None if phase_stamps is None else phase_stamps.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"rANS kernel launch failed: cudaError_t {err}")
+    with _LAUNCHES_LOCK:
+        LAUNCHES += 1
+
+
 def encode_fields_cuda(
     q: Optional[torch.Tensor], stream_len: Optional[torch.Tensor], contour: Optional[torch.Tensor],
     phase_stamps: Optional[torch.Tensor] = None, lanes: int = RESID_LANES, T: Optional[int] = None,
@@ -325,71 +513,19 @@ def encode_fields_cuda(
     width; None: :func:`stream_T`, which is ``resid_T(width)`` at the
     engine's 32 lanes), and the contour pieces of a (B', H, W) int32
     ``contour``, either field None, in one launch on the current stream (no
-    synchronize); raises on any other input.  ``phase_stamps``, an int64
+    synchronize); raises on any other input.  The pieces and the kernel's
+    scratch are views of one workspace.  ``phase_stamps``, an int64
     CUDA tensor of ``len(STAMP_BLOCKS) * (len(PHASES) + 1)`` elements,
     receives the ``%globaltimer`` (ns) at the bounds of the phases of frame
     0's residual block, then of its contour block (a field not coded leaves
     its stamps as they were)."""
-    global LAUNCHES
-    if q is None and contour is None:
-        raise ValueError("nothing to encode")
-    tensors = [t for t in (q, stream_len, contour) if t is not None]
-    dev = tensors[0].device
-    if dev.type != "cuda" or any(t.device != dev for t in tensors):
-        raise ValueError(f"encode_fields_cuda needs CUDA tensors on one device, got {[str(t.device) for t in tensors]}")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("q, stream_len and contour must be contiguous")
-    n_stamps = len(STAMP_BLOCKS) * (len(PHASES) + 1)
-    if phase_stamps is not None and (
-        phase_stamps.device != dev or phase_stamps.dtype != torch.int64
-        or phase_stamps.numel() != n_stamps or not phase_stamps.is_contiguous()
-    ):
-        raise ValueError(f"phase_stamps must be a contiguous int64 tensor of {n_stamps} on {dev}")
-    br = width = t_res = 0
-    if q is not None:
-        lanes, t_res = _check_residual(q, stream_len, lanes, T)
-        br, width = q.shape
-    bc = H = W = t_cnt = 0
-    if contour is not None:
-        _check_contour(contour)
-        bc, H, W = contour.shape
-        check_contour_fits_kernel(H, W)
-        t_cnt = contour_T(H, W)
-    fn = _kernel()
-    n_scratch = br * lanes * t_res + bc * H * t_cnt
-    with torch.cuda.device(dev):
-        def empty(shape, dtype):
-            return torch.empty(shape, dtype=dtype, device=dev)
-
-        res = cnt = None
-        if q is not None:
-            res = ResidualPieces(
-                empty((br, lanes * t_res), torch.int16), empty((br,), torch.int32),
-                empty((br, lanes), torch.int32), empty((br, lanes), torch.int64),
-                empty((br, NUM_CTX, ALPHABET), torch.int32), empty((br, ESC_CAP_DEV), torch.int64),
-                empty((br,), torch.int32), empty((br,), torch.int32),
-            )
-        if contour is not None:
-            cnt = ContourPieces(
-                empty((bc, H * t_cnt), torch.int16), empty((bc,), torch.int32), empty((bc, H), torch.int32),
-                empty((bc, H), torch.int64), empty((bc, 4, 2), torch.int32),
-            )
-        key_scratch = empty((max(n_scratch, 1),), torch.int16)
-        word_scratch = empty((max(n_scratch, 1),), torch.int16)
-        ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-        err = fn(
-            ptr(q), ptr(stream_len), br, width, lanes if q is not None else 0, t_res,
-            ptr(contour), bc, H, W, t_cnt,
-            *([p.data_ptr() for p in res] if res is not None else [None] * 8),
-            *([p.data_ptr() for p in cnt] if cnt is not None else [None] * 5),
-            key_scratch.data_ptr(), word_scratch.data_ptr(), ptr(phase_stamps),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"rANS kernel launch failed: cudaError_t {err}")
-    with _LAUNCHES_LOCK:
-        LAUNCHES += 1
-    return res, cnt
+    dev, rs, cs = _check_encode(q, stream_len, contour, lanes, T, phase_stamps)
+    (br, _, lanes, t_res), (bc, H, _, t_cnt) = rs, cs
+    ws = _Workspace(dev, _encode_outputs(br, lanes, t_res, bc, H, t_cnt),
+                    scratch=_encode_scratch(br or 0, lanes, t_res, bc or 0, H, t_cnt))
+    given = {"q": q, "stream_len": stream_len, "contour": contour}
+    _encode_launch(dev, lambda n: given[n].data_ptr() if n in given else ws.ptr(n), rs, cs, phase_stamps)
+    return _encode_pieces(ws, q is not None, contour is not None)
 
 
 def encode_streams_cuda(q: torch.Tensor, stream_len: torch.Tensor, lanes: int, T: int) -> ResidualPieces:
@@ -431,16 +567,26 @@ def encode_contour_field_device(contour: torch.Tensor) -> ContourPieces:
     return encode_fields_device(None, None, contour)[1]
 
 
+def _fill_streams(q: np.ndarray, lens: np.ndarray, arrays) -> None:
+    """Row b of the (B, width) ``q``: stream b, zero past it; ``lens[b]`` its length."""
+    for b, a in enumerate(arrays):
+        a = np.asarray(a).reshape(-1)
+        q[b, : a.size] = a
+        q[b, a.size:] = 0
+        lens[b] = a.size
+
+
+def _stream_width(arrays) -> int:
+    return max([int(np.asarray(a).size) for a in arrays] + [1])
+
+
 def upload_streams(arrays, device) -> Tuple[torch.Tensor, torch.Tensor]:
     """Integer streams (int16, uint16 or int32 arrays of any lengths) ->
     (q (B, max(n_max, 1)) int32, zero past each stream, and (B,) int32
     lengths) on ``device``, as the kernel takes them."""
-    width = max([int(np.asarray(a).size) for a in arrays] + [1])
-    q = np.zeros((len(arrays), width), np.int32)
-    for b, a in enumerate(arrays):
-        a = np.asarray(a).reshape(-1)
-        q[b, : a.size] = a
-    lens = np.asarray([np.asarray(a).size for a in arrays], np.int32)
+    q = np.empty((len(arrays), _stream_width(arrays)), np.int32)
+    lens = np.empty(len(arrays), np.int32)
+    _fill_streams(q, lens, arrays)
     return torch.from_numpy(q).to(device), torch.from_numpy(lens).to(device)
 
 
@@ -449,6 +595,63 @@ def upload_contours(packed: np.ndarray, H: int, W: int, device) -> torch.Tensor:
     kernel's (B, H, W) int32 planes on ``device``."""
     bits = np.unpackbits(np.asarray(packed, np.uint8).reshape(len(packed), -1), axis=1)[:, : H * W]
     return torch.from_numpy(bits.reshape(-1, H, W)).to(device).to(torch.int32)
+
+
+def _copy_pieces(ws: _Workspace, prefix: str, pieces) -> None:
+    """The plain version's pieces into a workspace's outputs."""
+    for f, t in zip(pieces._fields, pieces):
+        ws.view(prefix + f).copy_(t)
+
+
+def encode_streams_host(arrays, lanes: int, T: Optional[int], device) -> ResidualPieces:
+    """The residual pieces (numpy arrays, as :func:`encode_streams_plain`
+    gives them) of integer streams (int16, uint16 or int32 arrays of any
+    lengths) coded in ``lanes`` lanes of ``T`` steps on ``device``: the
+    streams staged and uploaded in one copy, one launch of the kernel for a
+    CUDA device (the plain version for the CPU), the pieces downloaded in
+    one copy."""
+    dev = _as_device(device)
+    B, width = len(arrays), _stream_width(arrays)
+    lanes, T = _check_geometry(B, width, lanes, T)
+    cuda = dev.type == "cuda"
+    ws = _Workspace(dev, _encode_outputs(B, lanes, T, None, 0, 0),
+                    [("q", (B, width), torch.int32), ("stream_len", (B,), torch.int32)],
+                    _encode_scratch(B, lanes, T, 0, 0, 0) if cuda else ())
+    _fill_streams(ws.host("q"), ws.host("stream_len"), arrays)
+    ws.upload()
+    if cuda:
+        _encode_launch(dev, ws.ptr, (B, width, lanes, T), (None, 0, 0, 0), None)
+    else:
+        _copy_pieces(ws, "r_", encode_streams_plain(ws.view("q"), ws.view("stream_len"), lanes, T))
+    host = ws.download()
+    return ResidualPieces(*(host["r_" + f] for f in ResidualPieces._fields))
+
+
+def encode_contours_host(packed: np.ndarray, H: int, W: int, device) -> ContourPieces:
+    """The contour pieces (numpy arrays) of (B, ceil(H * W / 8)) u8 packed
+    contour bits (MSB first) on ``device``: the bits staged as bytes and
+    uploaded in one copy, one launch of the kernel for a CUDA device (which
+    codes at most 512 rows and raises past them; the plain version for the
+    CPU), the pieces downloaded in one copy."""
+    dev = _as_device(device)
+    packed = np.asarray(packed, np.uint8).reshape(len(packed), -1)
+    B, t_cnt = packed.shape[0], contour_T(H, W)
+    cuda = dev.type == "cuda"
+    if cuda:
+        check_contour_fits_kernel(H, W)
+    ws = _Workspace(dev, _encode_outputs(None, 0, 0, B, H, t_cnt), [("bits", (B, H, W), torch.uint8)],
+                    [("contour", (B, H, W), torch.int32)] + (_encode_scratch(0, 0, 0, B, H, t_cnt) if cuda else []))
+    ws.host("bits")[...] = np.unpackbits(packed, axis=1)[:, : H * W].reshape(B, H, W)
+    ws.upload()
+    contour = ws.view("contour")
+    contour.copy_(ws.view("bits"))
+    _check_contour(contour)
+    if cuda:
+        _encode_launch(dev, ws.ptr, (None, 0, 0, 0), (B, H, W, t_cnt), None)
+    else:
+        _copy_pieces(ws, "c_", encode_contour_field_plain(contour))
+    host = ws.download()
+    return ContourPieces(*(host["c_" + f] for f in ContourPieces._fields))
 
 
 # ------------------------------------------------------------------ decode
@@ -486,6 +689,23 @@ def _decode_kernel():
     return _decode_library().rpcc_rans_decode_fields_launch
 
 
+def _check_decode_shapes(words, counts, states, lives, freqs, mode: int) -> None:
+    """Raises unless one field group's shapes are (B, L, T) words, (B, L)
+    counts, states and lives and (B, C, A) freqs with ``mode``'s C (and
+    A = 2 for the wavefront), B, L, T >= 1."""
+    if mode not in _DECODE_CTX:
+        raise ValueError(f"unknown decode mode {mode}")
+    if len(words) != 3 or min(words) < 1:
+        raise ValueError(f"expected (B, L, T) words with B, L, T >= 1, got {words}")
+    B, L, _ = words
+    if any(s != (B, L) for s in (counts, states, lives)):
+        raise ValueError(f"counts, states and lives must be ({B}, {L}), got {[counts, states, lives]}")
+    C = _DECODE_TABLES[mode]
+    if len(freqs) != 3 or freqs[:2] != (B, C) or freqs[2] < 1 or (mode == MODE_WAVEFRONT and freqs[2] != 2):
+        raise ValueError(f"mode {mode} needs ({B}, {C}, A) freqs{' with A = 2' if mode == MODE_WAVEFRONT else ''}, "
+                         f"got {freqs}")
+
+
 def _check_decode(words, counts, states, lives, freqs, mode: int) -> None:
     if mode not in _DECODE_CTX:
         raise ValueError(f"unknown decode mode {mode}")
@@ -493,16 +713,7 @@ def _check_decode(words, counts, states, lives, freqs, mode: int) -> None:
                         ("lives", lives, torch.int32), ("freqs", freqs, torch.int32)):
         if t.dtype != dt:
             raise TypeError(f"{name} must be {dt}, got {t.dtype}")
-    if words.ndim != 3 or min(words.shape) < 1:
-        raise ValueError(f"expected (B, L, T) words with B, L, T >= 1, got {tuple(words.shape)}")
-    B, L, _ = words.shape
-    if any(t.shape != (B, L) for t in (counts, states, lives)):
-        raise ValueError(f"counts, states and lives must be ({B}, {L}), got "
-                         f"{[tuple(t.shape) for t in (counts, states, lives)]}")
-    C = _DECODE_TABLES[mode]
-    if freqs.ndim != 3 or freqs.shape[:2] != (B, C) or freqs.shape[2] < 1 or (mode == MODE_WAVEFRONT and freqs.shape[2] != 2):
-        raise ValueError(f"mode {mode} needs ({B}, {C}, A) freqs{' with A = 2' if mode == MODE_WAVEFRONT else ''}, "
-                         f"got {tuple(freqs.shape)}")
+    _check_decode_shapes(*(tuple(t.shape) for t in (words, counts, states, lives, freqs)), mode)
     if any(t.device != words.device for t in (counts, states, lives, freqs)):
         raise ValueError("words, counts, states, lives and freqs must share a device")
 
@@ -542,6 +753,45 @@ def _cuda_group(tensors, mode: int, dev) -> Tuple[int, int, int, int, int]:
     return B, L, T, C, A
 
 
+def _check_fields(residual, contour, mode: int):
+    if residual is None and contour is None:
+        raise ValueError("nothing to decode")
+    if mode not in (MODE_ZIGZAG, MODE_ORDER0):
+        raise ValueError(f"the residual group's mode must be {MODE_ZIGZAG} or {MODE_ORDER0}, got {mode}")
+
+
+_LANE_FIELDS = (("words", torch.int16), ("counts", torch.int32), ("states", torch.int64), ("lives", torch.int32),
+                ("freqs", torch.int32))
+
+
+def _decode_launch(dev, ptr, shape_r, shape_c, mode: int, phase_stamps) -> None:
+    """One launch of the decode kernel on the current stream of ``dev``:
+    the residual group of ``shape_r`` ((B, L, T, C, A), or None) decoded
+    with ``mode``'s contexts and the contour group of ``shape_c`` ((B, H,
+    T), or None), each group's five inputs and its symbols at the addresses
+    ``ptr(name)`` gives ("r_words" .. "r_freqs", "r_out"; "c_" the same).
+    Counts the launch."""
+    global DECODE_LAUNCHES
+    br, L, tr, C, A = shape_r or (0, 1, 1, 1, 1)
+    bc, H, tc = shape_c or (0, 1, 1)
+    names = [n for n, _ in _LANE_FIELDS] + ["out"]
+    ptrs = lambda p, shape: [ptr(p + n) for n in names] if shape is not None else [None] * 6  # noqa: E731
+    fn = _decode_kernel()
+    with torch.cuda.device(dev):
+        err = fn(*ptrs("r_", shape_r), br, L, tr, C, A, mode, *ptrs("c_", shape_c), bc, H, tc,
+                 None if phase_stamps is None else phase_stamps.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"rANS decode kernel launch failed: cudaError_t {err}")
+    with _LAUNCHES_LOCK:
+        DECODE_LAUNCHES += 1
+
+
+def _decode_outputs(shape_r, shape_c):
+    """The (name, shape, dtype) outputs of a decode: "r_out" and "c_out"."""
+    return [(p + "out", (shape[0], shape[1] * shape[2]), torch.int32)
+            for p, shape in (("r_", shape_r), ("c_", shape_c)) if shape is not None]
+
+
 def decode_fields_cuda(residual, contour, mode: int = MODE_ZIGZAG,
                        phase_stamps: Optional[torch.Tensor] = None) -> Tuple[Optional[torch.Tensor], ...]:
     """Both big fields of a batch in one launch of the CUDA decode kernel:
@@ -549,39 +799,26 @@ def decode_fields_cuda(residual, contour, mode: int = MODE_ZIGZAG,
     states, lives, freqs) decoded with ``mode``'s contexts (zigzag or
     order-0) and ``contour`` (the same five, wavefront contexts), either
     None, all contiguous on one CUDA device -> ((B_r, L * T_r) int32 or
-    None, (B_c, H * T_c) int32 or None) on the current stream (no
-    synchronize); raises on any other input.  ``phase_stamps``, an int64 CUDA tensor of
+    None, (B_c, H * T_c) int32 or None), views of one workspace, on the
+    current stream (no synchronize); raises on any other input.
+    ``phase_stamps``, an int64 CUDA tensor of
     ``len(DECODE_STAMP_BLOCKS) * (len(DECODE_PHASES) + 1)`` elements,
     receives the ``%globaltimer`` (ns) at the bounds of the phases of the
     residual group's frame 0, then of the contour group's (a group not
     decoded leaves its stamps as they were)."""
-    global DECODE_LAUNCHES
-    if residual is None and contour is None:
-        raise ValueError("nothing to decode")
-    if mode not in (MODE_ZIGZAG, MODE_ORDER0):
-        raise ValueError(f"the residual group's mode must be {MODE_ZIGZAG} or {MODE_ORDER0}, got {mode}")
+    _check_fields(residual, contour, mode)
     dev = (residual if residual is not None else contour)[0].device
-    shape_r = _cuda_group(residual, mode, dev) if residual is not None else (0, 1, 1, 1, 1)
-    shape_c = _cuda_group(contour, MODE_WAVEFRONT, dev) if contour is not None else (0, 1, 1, 4, 2)
-    n_stamps = len(DECODE_STAMP_BLOCKS) * (len(DECODE_PHASES) + 1)
-    if phase_stamps is not None and (
-        phase_stamps.device != dev or phase_stamps.dtype != torch.int64
-        or phase_stamps.numel() != n_stamps or not phase_stamps.is_contiguous()
-    ):
-        raise ValueError(f"phase_stamps must be a contiguous int64 tensor of {n_stamps} on {dev}")
-    (br, L, tr, C, A), (bc, H, tc) = shape_r, shape_c[:3]
-    fn = _decode_kernel()
-    with torch.cuda.device(dev):
-        res_out = torch.empty((br, L * tr), dtype=torch.int32, device=dev)
-        cnt_out = torch.empty((bc, H * tc), dtype=torch.int32, device=dev)
-        ptrs = lambda g, out: [t.data_ptr() for t in g] + [out.data_ptr()] if g is not None else [None] * 6  # noqa: E731
-        err = fn(*ptrs(residual, res_out), br, L, tr, C, A, mode, *ptrs(contour, cnt_out), bc, H, tc,
-                 None if phase_stamps is None else phase_stamps.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"rANS decode kernel launch failed: cudaError_t {err}")
-    with _LAUNCHES_LOCK:
-        DECODE_LAUNCHES += 1
-    return (res_out if residual is not None else None), (cnt_out if contour is not None else None)
+    if dev.type != "cuda":
+        raise ValueError(f"the decode kernel needs CUDA tensors, got {dev}")
+    shape_r = _cuda_group(residual, mode, dev) if residual is not None else None
+    shape_c = _cuda_group(contour, MODE_WAVEFRONT, dev)[:3] if contour is not None else None
+    _check_stamps(phase_stamps, dev, len(DECODE_STAMP_BLOCKS) * (len(DECODE_PHASES) + 1))
+    ws = _Workspace(dev, _decode_outputs(shape_r, shape_c))
+    given = {p + n: t for p, g in (("r_", residual), ("c_", contour)) if g is not None
+             for (n, _), t in zip(_LANE_FIELDS, g)}
+    _decode_launch(dev, lambda n: given[n].data_ptr() if n in given else ws.ptr(n), shape_r, shape_c, mode,
+                   phase_stamps)
+    return (ws.view("r_out") if residual is not None else None), (ws.view("c_out") if contour is not None else None)
 
 
 def decode_streams_cuda(words, counts, states, lives, freqs, mode: int,
@@ -611,49 +848,74 @@ def upload_decode_lanes(words: np.ndarray, counts: np.ndarray, states: np.ndarra
             up(states, np.int64), up(lives, np.int32), up(freqs, np.int32))
 
 
-def decode_streams_device(words: np.ndarray, counts: np.ndarray, states: np.ndarray, lives: np.ndarray,
-                          freqs: np.ndarray, mode: int, device) -> torch.Tensor:
-    """Host-assembled lanes of one field group (:func:`upload_decode_lanes`)
-    uploaded to ``device`` and decoded there: one kernel launch for a CUDA
-    device, the plain version for the CPU -> (B, L*T) int32 symbols on
-    ``device``."""
-    device = torch.device(device)
-    if device.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {device}")
-    args = upload_decode_lanes(words, counts, states, lives, freqs, device)
-    if device.type == "cuda":
-        return decode_streams_cuda(*args, mode)
-    return decode_streams_plain(*args, mode)
+def _decode_staged(residual, contour, mode: int, device) -> _Workspace:
+    """Both groups' host-assembled lanes (numpy (words, counts, states,
+    lives, freqs) each, as :func:`upload_decode_lanes` takes them; either
+    None) staged and uploaded in one copy, and decoded on ``device``: one
+    kernel launch for a CUDA device, each group's plain version for the
+    CPU -> the workspace, whose "r_out" and "c_out" hold the symbols."""
+    _check_fields(residual, contour, mode)
+    dev = _as_device(device)
+    cuda = dev.type == "cuda"
+    groups, shapes = [], {}
+    for p, g, m in (("r_", residual, mode), ("c_", contour, MODE_WAVEFRONT)):
+        if g is None:
+            continue
+        dims = [tuple(np.shape(a)) for a in g]
+        _check_decode_shapes(*dims, m)
+        (B, L, T), (_, C, A) = dims[0], dims[4]
+        if cuda:
+            check_decode_fits_kernel(L, A, m)
+        shapes[p] = (B, L, T, C, A) if p == "r_" else (B, L, T)
+        groups.append((p, g, dims))
+    ws = _Workspace(dev, _decode_outputs(shapes.get("r_"), shapes.get("c_")),
+                    [(p + name, shape, dt) for p, _, dims in groups for (name, dt), shape in zip(_LANE_FIELDS, dims)])
+    for p, g, _ in groups:
+        for (name, _), a in zip(_LANE_FIELDS, g):
+            host = ws.host(p + name)
+            (host.view(np.uint16) if name == "words" else host)[...] = a
+    ws.upload()
+    if cuda:
+        _decode_launch(dev, ws.ptr, shapes.get("r_"), shapes.get("c_"), mode, None)
+    else:
+        for p, _, _ in groups:
+            sym = decode_streams_plain(*(ws.view(p + name) for name, _ in _LANE_FIELDS),
+                                       mode if p == "r_" else MODE_WAVEFRONT)
+            ws.view(p + "out").copy_(sym)
+    return ws
 
 
 def decode_fields_device(residual, contour, mode: int, device) -> Tuple[Optional[torch.Tensor], ...]:
     """Host-assembled lanes of a residual group (decoded with ``mode``'s
     contexts) and of a contour group (numpy (words, counts, states, lives,
     freqs) each, as :func:`upload_decode_lanes` takes them; either None)
-    uploaded to ``device`` and decoded there: one kernel launch for both on
-    a CUDA device (:func:`decode_fields_cuda`), the plain version of each on
-    the CPU -> ((B_r, L * T_r) int32 or None, (B_c, H * T_c) int32 or None)
-    on ``device``."""
-    device = torch.device(device)
-    if device.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {device}")
-    res = None if residual is None else upload_decode_lanes(*residual, device)
-    cnt = None if contour is None else upload_decode_lanes(*contour, device)
-    if device.type == "cuda":
-        return decode_fields_cuda(res, cnt, mode)
-    if res is None and cnt is None:
-        raise ValueError("nothing to decode")
-    return (None if res is None else decode_streams_plain(*res, mode),
-            None if cnt is None else decode_streams_plain(*cnt, MODE_WAVEFRONT))
+    uploaded to ``device`` in one copy and decoded there: one kernel launch
+    for both on a CUDA device, the plain version of each on the CPU ->
+    ((B_r, L * T_r) int32 or None, (B_c, H * T_c) int32 or None) on
+    ``device``."""
+    ws = _decode_staged(residual, contour, mode, device)
+    return (ws.view("r_out") if residual is not None else None), (ws.view("c_out") if contour is not None else None)
 
 
-def fields_to_host(residual: Optional[torch.Tensor], contour: Optional[torch.Tensor]):
-    """numpy copies of :func:`decode_fields_device`'s outputs (None stays
-    None), joined on their device and downloaded in one copy."""
-    outs = [t for t in (residual, contour) if t is not None]
-    flat = torch.cat([t.reshape(-1) for t in outs]).cpu().numpy()
-    host, at = [], 0
-    for t in (residual, contour):
-        host.append(None if t is None else flat[at:at + t.numel()].reshape(t.shape))
-        at += 0 if t is None else t.numel()
-    return tuple(host)
+def decode_fields_host(residual, contour, mode: int, device) -> Tuple[Optional[np.ndarray], ...]:
+    """:func:`decode_fields_device`'s symbols as numpy arrays, downloaded in one copy."""
+    host = _decode_staged(residual, contour, mode, device).download()
+    return host.get("r_out"), host.get("c_out")
+
+
+def decode_streams_device(words: np.ndarray, counts: np.ndarray, states: np.ndarray, lives: np.ndarray,
+                          freqs: np.ndarray, mode: int, device) -> torch.Tensor:
+    """Host-assembled lanes of one field group decoded with ``mode``'s
+    contexts on ``device`` (:func:`decode_fields_device`) -> (B, L*T)
+    int32 symbols on ``device``."""
+    group = (words, counts, states, lives, freqs)
+    if mode == MODE_WAVEFRONT:
+        return decode_fields_device(None, group, MODE_ZIGZAG, device)[1]
+    return decode_fields_device(group, None, mode, device)[0]
+
+
+def decode_group_host(group, mode: int, device) -> np.ndarray:
+    """One field group's lanes decoded on ``device`` (:func:`decode_fields_host`) -> (B, L*T) int32."""
+    if mode == MODE_WAVEFRONT:
+        return decode_fields_host(None, group, MODE_ZIGZAG, device)[1]
+    return decode_fields_host(group, None, mode, device)[0]

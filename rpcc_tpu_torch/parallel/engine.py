@@ -7,7 +7,9 @@ Frames are host-projected onto the u16 snap grid (or, with
 ``transfer_precision="f32"``, to exact f32 range images) into a ring of
 pinned (B, H, W) buffers, uploaded as 2-byte (4-byte) words on a copy
 stream, widened and encoded on a compute stream, and their live prefixes come back on the copy
-stream while the host entropy-codes the batch before.  With
+stream while the host entropy-codes the batch before (its rANS
+containers through the engine's device: on a card, the kernels of
+``ops/rans_device.py``, one launch per batch call).  With
 ``cfg.device_entropy`` (the default) and the ``rans`` coder, the encoder
 graph also codes the residual and contour containers in one kernel launch
 (``ops/rans_device.py``), and what comes back is their compressed words
@@ -177,7 +179,8 @@ class BatchEngine:
         self.num_models = num_model_rows(cfg)
         self.encoder = Encoder.for_lidar(lidar, cfg).to(self.device)
         self.decoder = Decoder(lidar, cfg).to(self.device)
-        self.entropy = BasicCompressor(method_name=cfg.basic_compressor, contour_shape=(self.H, self.W))
+        self.entropy = BasicCompressor(method_name=cfg.basic_compressor, contour_shape=(self.H, self.W),
+                                       device=self.device)
         self.stream_downloads = 0  # frames whose i16 stream came back beside their device containers
         self._cuda = self.device.type == "cuda"
         if self._cuda:
@@ -399,7 +402,7 @@ class BatchEngine:
         if i in st.stream_rows:
             q16 = h["stream"][int(np.searchsorted(st.stream_rows, i)), :n].copy()
         if n_esc > ESC_CAP_DEV:
-            resid = rans_codec.compress_delta_batch([q16])[0]
+            resid = rans_codec.compress_delta_batch([q16], device=self.device)[0]
         else:
             resid = rans_codec.build_ctx_container(
                 RESID_LANES, resid_T(self.hw), n, int(h["res_q0"][i]), h["res_escapes"][i, :n_esc],
@@ -407,7 +410,7 @@ class BatchEngine:
                 h["res_words"][i, :res_nw].view(np.uint16), np.int16,
             )
             if n <= rans_codec.BZD_TRY_MAX_SYMBOLS:
-                resid = min(resid, rans_codec.compress_delta_batch([q16])[0], key=len)
+                resid = min(resid, rans_codec.compress_delta_batch([q16], device=self.device)[0], key=len)
         contour = rans_codec.build_bits_container(
             contour_T(self.H, self.W), self.H, self.W, h["cnt_freqs"][i], h["cnt_states"][i],
             h["cnt_counts"][i], h["cnt_words"][i, :cnt_nw].view(np.uint16),

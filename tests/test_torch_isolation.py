@@ -64,6 +64,26 @@ def test_source_imports_neither_rpcc_tpu_nor_jax(path):
     assert not bad, f"{path} imports {bad}"
 
 
+def _reads_rans_device(tree) -> list:
+    """The nodes of a module that could read the reference's device switch:
+    the variable's name as a string of its own (an environment key) or a
+    ``_RANS_DEVICE`` name or attribute."""
+    return [ast.dump(node) for node in ast.walk(tree)
+            if (isinstance(node, ast.Constant) and node.value == "RPCC_RANS_DEVICE")
+            or (isinstance(node, ast.Name) and node.id == "_RANS_DEVICE")
+            or (isinstance(node, ast.Attribute) and node.attr == "_RANS_DEVICE")]
+
+
+@pytest.mark.parametrize("path", _port_sources())
+def test_source_does_not_read_rpcc_rans_device(path):
+    """The coder follows its caller's device: no module of the port (nor
+    chip_smoke.py) reads RPCC_RANS_DEVICE."""
+    with open(os.path.join(ROOT, path)) as f:
+        tree = ast.parse(f.read(), path)
+    assert not _reads_rans_device(tree), f"{path} reads RPCC_RANS_DEVICE"
+    assert _reads_rans_device(ast.parse('os.environ.get("RPCC_RANS_DEVICE", "cpu")\nm._RANS_DEVICE'))
+
+
 _BLOCKED_RUN = r"""
 import importlib.abc, pkgutil, sys
 

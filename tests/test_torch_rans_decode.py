@@ -1,7 +1,8 @@
 """The rANS decode in the port (``rpcc_tpu_torch/ops/rans.py``'s decoders,
-``ops/rans_device.py``'s decode wrapper and the ``RPCC_RANS_DEVICE`` backend
-of ``codec/rans_codec.py``) against ``rpcc_tpu``'s on the CPU, and the CUDA
-decode kernel (``csrc/rans_decode.cu``) against the plain version on the card.
+``ops/rans_device.py``'s decode wrapper and the CUDA path of
+``codec/rans_codec.py``, run on a faked card) against ``rpcc_tpu``'s on the
+CPU, and the CUDA decode kernel (``csrc/rans_decode.cu``) against the plain
+version on the card.
 
 Tolerances and why: none.  Decoding is integer arithmetic, so the plain
 decoders equal ``rpcc_tpu.ops.rans``'s element for element (also on
@@ -32,6 +33,26 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device; on the card run: python -m pytest -m cuda tests/test_torch_rans_decode.py")
     return torch.device("cuda:0")
+
+
+def _fake_card(monkeypatch):
+    """A faked card: ``torch.cuda.is_available()`` says yes, and the
+    codec's decode wrapper checks that it was handed a CUDA device and runs
+    the plain version on the CPU through the same staging buffers.  -> the
+    list of calls made: (mode, device, residual frames or None, contour
+    frames or None)."""
+    calls = []
+    fields = rans_device.decode_fields_host
+
+    def decode_fields_host(residual, contour, mode, device):
+        assert torch.device(device).type == "cuda"
+        calls.append((mode, str(device), None if residual is None else residual[0].shape[0],
+                      None if contour is None else contour[0].shape[0]))
+        return fields(residual, contour, mode, "cpu")
+
+    monkeypatch.setattr(rans_device, "decode_fields_host", decode_fields_host)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    return calls
 
 
 # ------------------------------------------------------------------ inputs
@@ -310,9 +331,9 @@ def _bits_pieces(packed, H: int, W: int):
 
 @pytest.mark.parametrize("kind", ["host_residual", "device_residual", "host_contour", "device_contour",
                                   "contour_32E_32x2250"])
-def test_codec_device_path_equals_native_and_reference(kind):
-    """decompress_*_batch(..., device="cpu") gives the native backend's and
-    rpcc_tpu's bytes."""
+def test_codec_device_path_equals_native_and_reference(monkeypatch, kind):
+    """decompress_*_batch(..., device="cuda") on a faked card (the plain
+    version) gives the host's and rpcc_tpu's bytes."""
     blobs, want = {
         "host_residual": _host_residual_blobs,
         "device_residual": _device_residual_blobs,
@@ -324,8 +345,10 @@ def test_codec_device_path_equals_native_and_reference(kind):
         ours, ref = rans_codec.decompress_delta_batch, ref_codec.decompress_delta_batch
     else:
         ours, ref = rans_codec.decompress_contour_batch, ref_codec.decompress_contour_batch
-    got = ours(blobs, device="cpu")
-    assert got == ours(blobs) == ref(blobs) == want
+    want_host = ours(blobs)
+    _fake_card(monkeypatch)
+    got = ours(blobs, device="cuda")
+    assert got == want_host == ref(blobs) == want
 
 
 def _order0_blob(arr: np.ndarray) -> bytes:
@@ -348,7 +371,7 @@ def _order0_blob(arr: np.ndarray) -> bytes:
     ])
 
 
-def test_order0_container_decodes_in_both_backends():
+def test_order0_container_decodes_in_both_backends(monkeypatch):
     """The port decodes the reference's order-0 'D' container (it raised
     "unknown delta container magic" before) to rpcc_tpu's bytes, alone,
     batched with 'C' containers and through batch_decode_big_fields."""
@@ -362,11 +385,13 @@ def test_order0_container_decodes_in_both_backends():
     want = ref_codec.decompress_delta_batch(blobs)
     assert want[0] == arrays[0].tobytes() and want[2] == arrays[1].tobytes()
     assert rans_codec.decompress_delta_batch(blobs) == want
-    assert rans_codec.decompress_delta_batch(blobs, device="cpu") == want
+    _fake_card(monkeypatch)
+    assert rans_codec.decompress_delta_batch(blobs, device="cuda") == want
     assert [rans_codec.decompress(b) for b in d_blobs] == [ref_codec.decompress(b) for b in d_blobs]
+    assert [rans_codec.decompress(b, "cuda") for b in d_blobs] == [ref_codec.decompress(b) for b in d_blobs]
     c_blobs, c_want = _host_contour_blobs(8, 64)
     packed = [{"residual_quantized": r, "contour_map": c} for r, c in zip(blobs, c_blobs)]
-    for device in (None, "cpu"):
+    for device in (None, "cpu", "cuda"):
         resid, contour = rans_codec.batch_decode_big_fields(packed, device=device)
         assert resid == want and contour == c_want
 
@@ -398,10 +423,11 @@ def _corrupt(kind: str):
 
 
 @pytest.mark.parametrize("kind", ["escape_list", "lane_count", "short_T", "contour_short_T", "freq_table"])
-def test_corrupt_containers_raise_on_both_backends(kind):
+def test_corrupt_containers_raise_on_both_backends(monkeypatch, kind):
     fn, blobs = _corrupt(kind)
+    _fake_card(monkeypatch)
     messages = []
-    for device in (None, "cpu"):
+    for device in (None, "cuda"):
         with pytest.raises(ValueError) as info:
             fn(blobs, device=device)
         messages.append(str(info.value))
@@ -409,46 +435,33 @@ def test_corrupt_containers_raise_on_both_backends(kind):
 
 
 def test_default_backend_needs_a_card(monkeypatch):
-    """RPCC_RANS_DEVICE=default decodes on the card or raises; it never
-    decodes on the host, and neither does any other value than cpu."""
+    """A CUDA device decodes on the card or raises; it never decodes on the
+    host.  The CPU decodes natively, and a device of another kind raises."""
     blobs, _ = _device_residual_blobs()
     c_blobs, _ = _device_contour_blobs(8, 64)
     z = rans_codec.compress_delta_batch([np.arange(100, dtype=np.int16)])[0]  # encoded on the host
-    monkeypatch.setattr(rans_codec, "_RANS_DEVICE", "default")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
-        rans_codec.decompress_delta_batch(blobs)
+        rans_codec.decompress_delta_batch(blobs, device="cuda")
     with pytest.raises(RuntimeError, match="CUDA"):
-        rans_codec.decompress_contour_batch(c_blobs)
+        rans_codec.decompress_contour_batch(c_blobs, device="cuda:0")
     with pytest.raises(RuntimeError, match="CUDA"):
-        rans_codec.decompress(blobs[0])
-    # An explicit device still decodes, and a batch with no rANS container needs none.
+        rans_codec.decompress(blobs[0], torch.device("cuda"))
+    # The CPU decodes natively, and a batch with no rANS container needs no card.
     assert rans_codec.decompress_delta_batch(blobs[:1], device="cpu") == ref_codec.decompress_delta_batch(blobs[:1])
-    assert z[0] == rans_codec.MAGIC_BZD and rans_codec.decompress_delta_batch([z]) == [np.arange(100, dtype=np.int16).tobytes()]
-    # As in the reference, any value other than cpu names the card.
-    monkeypatch.setattr(rans_codec, "_RANS_DEVICE", "gpu")
-    with pytest.raises(RuntimeError, match="RPCC_RANS_DEVICE=gpu .*CUDA"):
-        rans_codec.decompress_delta_batch(blobs)
+    assert z[0] == rans_codec.MAGIC_BZD
+    assert rans_codec.decompress_delta_batch([z], device="cuda") == [np.arange(100, dtype=np.int16).tobytes()]
+    # A device the coder does not run on.
+    with pytest.raises(ValueError, match="CPU or a CUDA device"):
+        rans_codec.decompress_delta_batch(blobs, device="meta")
 
 
 def test_default_backend_makes_one_call_per_field_group(monkeypatch):
-    """Under RPCC_RANS_DEVICE=default batch_decode_big_fields decodes the
-    batch's contours and its largest residual group (here the 'C'
-    containers of one lane count) in one call of decode_fields_device, and
-    every other group (the 'D' ones) in one call of decode_streams_device,
-    all on the CUDA device; here the calls run the plain version on the CPU,
-    and the bytes are the native backend's."""
-    calls = []
-    plain_streams, plain_fields = rans_device.decode_streams_device, rans_device.decode_fields_device
-
-    def record_streams(words, counts, states, lives, freqs, mode, device):
-        calls.append(("streams", mode, str(device), words.shape[0]))
-        return plain_streams(words, counts, states, lives, freqs, mode, "cpu")
-
-    def record_fields(residual, contour, mode, device):
-        calls.append(("fields", mode, str(device), residual[0].shape[0], contour[0].shape[0]))
-        return plain_fields(residual, contour, mode, "cpu")
-
+    """On a CUDA device batch_decode_big_fields decodes the batch's contours
+    and its largest residual group (here the 'C' containers of one lane
+    count) in one call of decode_fields_host, and every other group (the
+    'D' ones) in one call of its own; here the calls run the plain version
+    on the CPU, and the bytes are the host's."""
     h_blobs, h_want = _host_residual_blobs()
     d_blob = _order0_blob(np.arange(500, dtype=np.int16) % 7)
     blobs = h_blobs + [d_blob]
@@ -456,19 +469,16 @@ def test_default_backend_makes_one_call_per_field_group(monkeypatch):
     c_blobs = c_blobs + c_blobs[:2] + c_blobs[:1]
     packed = [{"residual_quantized": r, "contour_map": c} for r, c in zip(blobs, c_blobs)]
     want = rans_codec.batch_decode_big_fields(packed)
-    monkeypatch.setattr(rans_codec, "_RANS_DEVICE", "default")
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    monkeypatch.setattr(rans_device, "decode_streams_device", record_streams)
-    monkeypatch.setattr(rans_device, "decode_fields_device", record_fields)
-    assert rans_codec.batch_decode_big_fields(packed) == want
+    calls = _fake_card(monkeypatch)
+    assert rans_codec.batch_decode_big_fields(packed, "cuda") == want
     assert want[0][:5] == h_want and want[1][:3] == c_want
     c_groups = {}
     for b in h_blobs:
         if b[0] == rans_codec.MAGIC_CTX:
             c_groups[b[1]] = c_groups.get(b[1], 0) + 1
     assert len(c_groups) == 1  # one lane count: the largest group, paired with the contours
-    assert sorted(calls) == sorted([("fields", rans_device.MODE_ZIGZAG, "cuda", max(c_groups.values()), len(c_blobs)),
-                                    ("streams", rans_device.MODE_ORDER0, "cuda", 1)])
+    assert calls == [(rans_device.MODE_ZIGZAG, "cuda", max(c_groups.values()), len(c_blobs)),
+                     (rans_device.MODE_ORDER0, "cuda", 1, None)]
 
 
 def _fields_lanes(kind: str, B: int, seed: int, mode: int, H: int = 64, T: int = 160):
@@ -505,7 +515,7 @@ def test_decode_fields_device_on_the_cpu_is_the_plain_version(case):
         assert torch.equal(got, _plain_of(lanes, m))
         assert np.array_equal(got.numpy(), rans_native.decode_ctx_batch(*lanes[:3], lanes[4], lanes[0].shape[2], m,
                                                                           lives=lanes[3]))
-    host_r, host_c = rans_device.fields_to_host(got_r, got_c)
+    host_r, host_c = rans_device.decode_fields_host(res, cnt, mode, "cpu")
     assert all(h is None if g is None else np.array_equal(h, g.numpy()) for h, g in ((host_r, got_r), (host_c, got_c)))
 
 
@@ -596,17 +606,15 @@ def test_cuda_decode_wrapper_rejects_bad_input(cuda_device):
 
 
 @pytest.mark.cuda
-def test_cuda_default_backend_decodes_the_containers(cuda_device, monkeypatch):
-    """RPCC_RANS_DEVICE=default: one kernel launch per field group, the
-    native backend's bytes."""
+def test_cuda_default_backend_decodes_the_containers(cuda_device):
+    """On the card: one kernel launch per field group, the host's bytes."""
     h_blobs, h_want = _host_residual_blobs()
     d_blobs, d_want = _device_residual_blobs()
     c_blobs, c_want = _host_contour_blobs(32, 2250)
-    monkeypatch.setattr(rans_codec, "_RANS_DEVICE", "default")
     before = rans_device.DECODE_LAUNCHES
-    assert rans_codec.decompress_delta_batch(h_blobs + d_blobs + [_order0_blob(np.arange(900, dtype=np.int16) % 5)])[:8] \
-        == h_want + d_want
-    assert rans_codec.decompress_contour_batch(c_blobs) == c_want
+    blobs = h_blobs + d_blobs + [_order0_blob(np.arange(900, dtype=np.int16) % 5)]
+    assert rans_codec.decompress_delta_batch(blobs, cuda_device)[:8] == h_want + d_want
+    assert rans_codec.decompress_contour_batch(c_blobs, cuda_device) == c_want
     lanes = {b[1] for b in h_blobs + d_blobs if b[0] == rans_codec.MAGIC_CTX}
     assert rans_device.DECODE_LAUNCHES == before + len(lanes) + 2
 
@@ -666,10 +674,8 @@ def test_cuda_fields_launch_equals_plain(cuda_device, case):
     and 512."""
     res, cnt, mode, coded = _fields_case(case)
     before = rans_device.DECODE_LAUNCHES
-    got = rans_device.decode_fields_device(res, cnt, mode, cuda_device)
-    torch.cuda.synchronize(cuda_device)
+    host = rans_device.decode_fields_host(res, cnt, mode, cuda_device)
     assert rans_device.DECODE_LAUNCHES == before + 1
-    host = rans_device.fields_to_host(*got)
     for g, lanes, m in ((host[0], res, mode), (host[1], cnt, rans_device.MODE_WAVEFRONT)):
         if lanes is None:
             assert g is None

@@ -1,9 +1,11 @@
 """The host containers' rANS encode in the port: the encode spec
 (``rpcc_tpu_torch/ops/rans.py``) against ``rpcc_tpu.ops.rans``, the
-codec's encode paths (``codec/rans_codec.py``) against ``rpcc_tpu``'s bytes
-under each ``RPCC_RANS_DEVICE`` / ``RPCC_RANS_ADAPTIVE`` setting, the
-device path's plain version on the CPU, and the CUDA kernel
-(``csrc/rans.cu``) at the host geometry on the card.
+codec's encode paths (``codec/rans_codec.py``) on the host (``device``
+None) and on a CUDA device against ``rpcc_tpu``'s bytes under its
+``RPCC_RANS_DEVICE`` ``cpu`` and ``default`` (and each
+``RPCC_RANS_ADAPTIVE``), the card path's plain version on a faked card on
+the CPU, and the CUDA kernel (``csrc/rans.cu``) at the host geometry on the
+card.
 
 Tolerances: none.  Integer coding has no rounding, so the spec's words,
 counts, states and tables equal the reference's element for element, and
@@ -40,11 +42,14 @@ def _walk(n: int, seed: int = 0, dtype=np.int16, step: int = 3) -> np.ndarray:
     return np.cumsum(np.random.default_rng(seed).integers(-step, step + 1, n)).astype(dtype)
 
 
-def _both(monkeypatch, device: str = "cpu", full: bool = False) -> None:
-    """Both codecs under the same RPCC_RANS_DEVICE and RPCC_RANS_ADAPTIVE."""
+def _both(monkeypatch, device: str = "cpu", full: bool = False):
+    """The reference under RPCC_RANS_DEVICE=``device`` and both codecs under
+    the same RPCC_RANS_ADAPTIVE -> the port's device for the same bytes
+    (None for cpu, the CUDA device for default)."""
+    monkeypatch.setattr(ref_codec, "_RANS_DEVICE", device)
     for mod in (rans_codec, ref_codec):
-        monkeypatch.setattr(mod, "_RANS_DEVICE", device)
         monkeypatch.setattr(mod, "_ADAPTIVE_FULL", full)
+    return None if device == "cpu" else "cuda"
 
 
 def _code_equal(ref_code, code) -> None:
@@ -132,41 +137,36 @@ def test_plain_encode_walk_is_the_spec_walk():
         assert np.array_equal(words, res.words[0, : int(res.n_words[0])].numpy().view(np.uint16))
 
 
-# ------------------------------------------------------------------ the default backend on a faked card
+# ------------------------------------------------------------------ the card's path on a faked card
 def _fake_card(monkeypatch):
-    """RPCC_RANS_DEVICE=default on a faked card: the codec's uploads are
-    checked to name the CUDA device and kept on the CPU, where the encode
-    wrapper runs the kernel's plain version through the container path.
-    Call it once a test; ``_port_backend`` then switches the port between
-    the native coder and the faked card.  -> the list of encode calls made."""
+    """A faked card: ``torch.cuda.is_available()`` says yes, and the
+    codec's encode wrappers (and its decode wrapper) check that they were
+    handed a CUDA device and run their plain versions on the CPU through
+    the same staging buffers.  -> the list of calls made."""
     calls = []
-    up_s, up_c, enc = rans_device.upload_streams, rans_device.upload_contours, rans_device.encode_fields_device
+    streams, contours, fields = (rans_device.encode_streams_host, rans_device.encode_contours_host,
+                                 rans_device.decode_fields_host)
 
-    def upload_streams(arrays, dev):
-        assert dev == "cuda"
-        return up_s(arrays, "cpu")
+    def encode_streams_host(arrays, lanes, T, device):
+        assert torch.device(device).type == "cuda"
+        calls.append(("residual", lanes, T))
+        return streams(arrays, lanes, T, "cpu")
 
-    def upload_contours(packed, H, W, dev):
-        assert dev == "cuda"
-        return up_c(packed, H, W, "cpu")
+    def encode_contours_host(packed, H, W, device):
+        assert torch.device(device).type == "cuda"
+        calls.append(("contour", len(packed), H, W))
+        return contours(packed, H, W, "cpu")
 
-    def encode_fields(q, stream_len, contour, lanes=rans_device.RESID_LANES, T=None):
-        if q is not None:
-            calls.append(("residual", lanes, T))
-        if contour is not None:
-            calls.append(("contour",) + tuple(contour.shape))
-        return enc(q, stream_len, contour, lanes, T)
+    def decode_fields_host(residual, contour, mode, device):
+        assert torch.device(device).type == "cuda"
+        calls.append(("decode", mode))
+        return fields(residual, contour, mode, "cpu")
 
-    for name, fn in (("upload_streams", upload_streams), ("upload_contours", upload_contours),
-                     ("encode_fields_device", encode_fields)):
-        monkeypatch.setattr(rans_device, name, fn)
+    monkeypatch.setattr(rans_device, "encode_streams_host", encode_streams_host)
+    monkeypatch.setattr(rans_device, "encode_contours_host", encode_contours_host)
+    monkeypatch.setattr(rans_device, "decode_fields_host", decode_fields_host)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    _port_backend(monkeypatch, "default")
     return calls
-
-
-def _port_backend(monkeypatch, device: str) -> None:
-    monkeypatch.setattr(rans_codec, "_RANS_DEVICE", device)
 
 
 # ------------------------------------------------------------------ faults 3.23-3.25
@@ -174,15 +174,15 @@ def _port_backend(monkeypatch, device: str) -> None:
 @pytest.mark.parametrize("n, magic", [(2000, "Z"), (70000, "C")])
 def test_compress_delta_codes_int32(monkeypatch, device, n, magic):
     """Fault 3.23: ``compress`` delta-codes int32 as the reference does
-    (the port sent it to plain bzip2), on both backends."""
+    (the port sent it to plain bzip2), on the host and the card."""
     a = _walk(n, 23, np.int32, step=40)
     _both(monkeypatch)
     want = ref_codec.compress(a)
-    if device == "default":
-        _both(monkeypatch, "default")
+    dev = _both(monkeypatch, device)
+    if dev is not None:
         _fake_card(monkeypatch)
         assert ref_codec.compress(a) == want
-    got = rans_codec.compress(a)
+    got = rans_codec.compress(a, device=dev)
     assert got == want and chr(got[0]) == magic
     assert len(got) < len(b"B" + bz2.compress(a.tobytes()))
     _both(monkeypatch)
@@ -195,19 +195,19 @@ def test_wide_int32_deltas_route_to_plain_bzip2(monkeypatch, device):
     'B' containers, alone and in a mixed batch (``tests/test_rans.py``'s
     arrays), with the reference's bytes; deltas of +-(2^31 - 1) stay delta
     containers."""
-    _both(monkeypatch, device)
-    if device == "default":
+    dev = _both(monkeypatch, device)
+    if dev is not None:
         _fake_card(monkeypatch)
     wild = np.asarray([-(2**31), 2**31 - 1, 0, -(2**31), 5], np.int32)
     sane = np.cumsum(np.random.default_rng(0).integers(-3, 4, 40000)).astype(np.int32)
     edge = np.asarray([0, 2**31 - 1, 0, -(2**31 - 1), 0, 7], np.int32)
     for batch in ([wild], [wild, sane], [sane, wild, edge], [edge]):
-        got = rans_codec.compress_delta_batch(batch)
+        got = rans_codec.compress_delta_batch(batch, device=dev)
         assert got == ref_codec.compress_delta_batch(batch)
         assert [b[0] == rans_codec.MAGIC_BZ for b in got] == [a is wild for a in batch]
-        assert rans_codec.decompress_delta_batch(got, device="cpu") == [a.tobytes() for a in batch]
-    assert rans_codec.compress(wild) == ref_codec.compress(wild)
-    assert rans_codec.decompress(rans_codec.compress(wild)) == wild.tobytes()
+        assert rans_codec.decompress_delta_batch(got, device=dev) == [a.tobytes() for a in batch]
+    assert rans_codec.compress(wild, device=dev) == ref_codec.compress(wild)
+    assert rans_codec.decompress(rans_codec.compress(wild, device=dev)) == wild.tobytes()
 
 
 @pytest.mark.parametrize("device", ["cpu", "default"])
@@ -220,38 +220,38 @@ def test_adaptive_full_compares_bzip2_at_any_size(monkeypatch, device):
     plane[::8, :] = 1
     packed = np.packbits(plane.reshape(-1))
     mixed = [_walk(30000, 1), _walk(40000, 2)]
-    _both(monkeypatch, device)
-    if device == "default":
+    dev = _both(monkeypatch, device)
+    if dev is not None:
         _fake_card(monkeypatch)
-    assert rans_codec.compress_delta_batch([periodic])[0][0] == rans_codec.MAGIC_CTX
-    assert rans_codec.compress_contour(packed, 64, 2000)[0] == rans_codec.MAGIC_BITS
+    assert rans_codec.compress_delta_batch([periodic], device=dev)[0][0] == rans_codec.MAGIC_CTX
+    assert rans_codec.compress_contour(packed, 64, 2000, device=dev)[0] == rans_codec.MAGIC_BITS
     _both(monkeypatch, device, full=True)
-    got = rans_codec.compress(periodic)
+    got = rans_codec.compress(periodic, device=dev)
     assert got == ref_codec.compress(periodic) and got[0] == rans_codec.MAGIC_BZD
-    got = rans_codec.compress_contour(packed, 64, 2000)
+    got = rans_codec.compress_contour(packed, 64, 2000, device=dev)
     assert got == ref_codec.compress_contour(packed, 64, 2000) and got[0] == rans_codec.MAGIC_BZ
-    assert rans_codec.compress_contour_batch([packed], 64, 2000) == [got]
-    assert rans_codec.compress_delta_batch(mixed) == ref_codec.compress_delta_batch(mixed)
+    assert rans_codec.compress_contour_batch([packed], 64, 2000, device=dev) == [got]
+    assert rans_codec.compress_delta_batch(mixed, device=dev) == ref_codec.compress_delta_batch(mixed)
     assert rans_codec.decompress(got) == packed.tobytes()
 
 
-# ------------------------------------------------------------------ default, plain version
+# ------------------------------------------------------------------ the card's path, plain version
 _LENGTHS = [0, 1, 64, 65, 1024, 1025, 32768, 32769, 128000]
 
 
 @pytest.mark.parametrize("n", _LENGTHS)
 def test_default_path_bytes(monkeypatch, n):
-    """The device path (its plain version on the CPU, through the container
-    path) gives the port's cpu bytes and rpcc_tpu's under both backends."""
+    """The card's path (its plain version on a faked card, through the
+    container path) gives the port's host bytes and rpcc_tpu's under both
+    of its backends."""
     a = _walk(n, n)
     want = rans_codec.compress(a)
     assert want == ref_codec.compress(a)
     _fake_card(monkeypatch)
-    got = rans_codec.compress(a)
+    got = rans_codec.compress(a, device="cuda")
     assert got == want
     monkeypatch.setattr(ref_codec, "_RANS_DEVICE", "default")
     assert got == ref_codec.compress(a)
-    _port_backend(monkeypatch, "cpu")
     if n:
         assert rans_codec.decompress(got) == a.tobytes()
 
@@ -263,30 +263,30 @@ def test_default_path_explicit_lanes(monkeypatch, lanes):
     want = rans_codec.compress_delta_batch(batch, lanes=lanes)
     assert want == ref_codec.compress_delta_batch(batch, lanes=lanes)
     _fake_card(monkeypatch)
-    got = rans_codec.compress_delta_batch(batch, lanes=lanes)
+    got = rans_codec.compress_delta_batch(batch, lanes=lanes, device="cuda")
     assert got == want
     monkeypatch.setattr(ref_codec, "_RANS_DEVICE", "default")
     assert got == ref_codec.compress_delta_batch(batch, lanes=lanes)
-    _port_backend(monkeypatch, "cpu")
     assert got[0][1] == lanes.bit_length() - 1 and rans_codec.decompress_delta_batch(got) == [a.tobytes(), a[:500].tobytes()]
 
 
 @pytest.mark.parametrize("lanes", [0, 3, 64, 2.0])
 def test_lanes_must_be_a_power_of_two_up_to_32(monkeypatch, lanes):
     """The reference writes log2(lanes) rounded down for such a count, a
-    container no decoder reads back; the port raises on both backends."""
+    container no decoder reads back; the port raises on the host and the card."""
     with pytest.raises(ValueError, match="power of two"):
         rans_codec.compress_delta_batch([_walk(100)], lanes=lanes)
     _fake_card(monkeypatch)
     with pytest.raises(ValueError, match="power of two"):
-        rans_codec.compress(_walk(100), lanes=lanes)
+        rans_codec.compress(_walk(100), lanes=lanes, device="cuda")
 
 
 def test_default_path_mixed_batch_takes_the_references_default_bytes(monkeypatch):
-    """A batch of a small and a big frame: under default one geometry from
-    the longest frame for both, as the reference's default path codes it
-    (the pre-pass's path on the native coder gives the same bytes), which
-    differs from the native path's bytes (the small frame coded apart)."""
+    """Divergence 33 on the card's side: a batch of a small and a big frame
+    takes one geometry from the longest frame for both on a CUDA device, as
+    the reference's default path codes it (the pre-pass's path on the
+    native coder gives the same bytes), which differs from the host's bytes
+    (the small frame coded apart); both packages decode both."""
     mixed = [_walk(20000, 7, step=1), _walk(40000, 8)]
     cpu = ref_codec.compress_delta_batch(mixed)
     monkeypatch.setattr(ref_codec, "_RANS_DEVICE", "default")
@@ -295,8 +295,13 @@ def test_default_path_mixed_batch_takes_the_references_default_bytes(monkeypatch
     assert rans_codec.compress_delta_batch(mixed) == cpu
     assert rans_codec._compress_delta_batch_np(mixed) == default
     calls = _fake_card(monkeypatch)
-    assert rans_codec.compress_delta_batch(mixed) == default
+    assert rans_codec.compress_delta_batch(mixed, device="cuda") == default
     assert calls == [("residual", 32, 1264)]
+    want = [a.tobytes() for a in mixed]
+    for blobs in (cpu, default):
+        assert rans_codec.decompress_delta_batch(blobs) == rans_codec.decompress_delta_batch(blobs, "cuda") == want
+        monkeypatch.setattr(ref_codec, "_RANS_DEVICE", "cpu")
+        assert ref_codec.decompress_delta_batch(blobs) == want
 
 
 @pytest.mark.parametrize("case", ["int32_max_deltas", "escapes_513", "u16_sequence"])
@@ -317,11 +322,10 @@ def test_default_path_edge_fields(monkeypatch, case):
     want = rans_codec.compress(a)
     assert want == ref_codec.compress(a)
     _fake_card(monkeypatch)
-    got = rans_codec.compress(a)
+    got = rans_codec.compress(a, device="cuda")
     assert got == want and (case != "escapes_513" or got[0] == rans_codec.MAGIC_CTX)
     monkeypatch.setattr(ref_codec, "_RANS_DEVICE", "default")
     assert got == ref_codec.compress(a)
-    _port_backend(monkeypatch, "cpu")
     assert rans_codec.decompress(got) == a.tobytes()
 
 
@@ -346,53 +350,51 @@ def test_default_path_contours(monkeypatch):
     _fake_card(monkeypatch)
     for H, W in ((16, 100), (64, 2000)):
         batch = [np.packbits(rng.random(H * W) < p) for p in (0.02, 0.3)]
-        _port_backend(monkeypatch, "cpu")
         monkeypatch.setattr(ref_codec, "_RANS_DEVICE", "cpu")
         want = rans_codec.compress_contour_batch(batch, H, W)
         assert want == ref_codec.compress_contour_batch(batch, H, W)
         assert [rans_codec.decompress(b) for b in want] == [p.tobytes() for p in batch]
-        _port_backend(monkeypatch, "default")
         monkeypatch.setattr(ref_codec, "_RANS_DEVICE", "default")
-        assert rans_codec.compress_contour_batch(batch, H, W) == want == ref_codec.compress_contour_batch(batch, H, W)
+        assert rans_codec.compress_contour_batch(batch, H, W, "cuda") == want == ref_codec.compress_contour_batch(batch, H, W)
 
 
 def test_default_backend_one_launch_per_batch_call(monkeypatch):
-    """Under RPCC_RANS_DEVICE=default each batch call is one encode on the
-    CUDA device (recorded here, run by the plain version on the CPU):
-    compress_delta_batch's residuals, compress_contour_batch's contours,
-    compress_batch's groups of one lane geometry; the bytes are the native
-    backend's."""
+    """On a CUDA device each batch call is one encode there (recorded here,
+    run by the plain version on the CPU): compress_delta_batch's residuals,
+    compress_contour_batch's contours, compress_batch's groups of one lane
+    geometry; the bytes are the host's."""
     arrays = [_walk(n, n) for n in (100, 5000, 5000, 40000)]
     contours = [np.packbits(np.random.default_rng(s).random(16 * 100) < 0.1) for s in range(3)]
     want = (rans_codec.compress_batch(arrays), rans_codec.compress_contour_batch(contours, 16, 100),
             rans_codec.compress_delta_batch(arrays[1:3]), rans_codec.compress(arrays[3]))
     calls = _fake_card(monkeypatch)
-    assert rans_codec.compress_batch(arrays) == want[0]
+    assert rans_codec.compress_batch(arrays, "cuda") == want[0]
     assert calls == [("residual", 2, 64), ("residual", 32, 160), ("residual", 32, 1264)]  # three lane geometries
     calls.clear()
-    assert rans_codec.compress_contour_batch(contours, 16, 100) == want[1]
-    assert rans_codec.compress_delta_batch(arrays[1:3]) == want[2]
-    assert rans_codec.compress(arrays[3]) == want[3]
+    assert rans_codec.compress_contour_batch(contours, 16, 100, "cuda") == want[1]
+    assert rans_codec.compress_delta_batch(arrays[1:3], device="cuda") == want[2]
+    assert rans_codec.compress(arrays[3], device="cuda") == want[3]
     assert calls == [("contour", 3, 16, 100), ("residual", 32, 160), ("residual", 32, 1264)]
     calls.clear()
     wild = np.asarray([-(2**31), 2**31 - 1], np.int32)
-    assert rans_codec.compress_delta_batch([wild]) == ref_codec.compress_delta_batch([wild]) and not calls
+    assert rans_codec.compress_delta_batch([wild], device="cuda") == ref_codec.compress_delta_batch([wild]) and not calls
 
 
 def test_default_backend_needs_a_card_to_encode(monkeypatch):
-    """RPCC_RANS_DEVICE=default encodes on the card or raises; it never
-    falls back to the native coder."""
-    monkeypatch.setattr(rans_codec, "_RANS_DEVICE", "default")
+    """A CUDA device encodes on the card or raises; it never falls back to
+    the native coder."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     packed = np.packbits(np.random.default_rng(0).random(16 * 100) < 0.1)
-    for fn in (lambda: rans_codec.compress(_walk(100)), lambda: rans_codec.compress_delta_batch([_walk(40000)]),
-               lambda: rans_codec.compress_batch([_walk(10)]), lambda: rans_codec.compress_contour(packed, 16, 100),
-               lambda: rans_codec.compress_contour_batch([packed], 16, 100)):
-        with pytest.raises(RuntimeError, match="RPCC_RANS_DEVICE=default encodes on the CUDA device"):
+    for fn in (lambda: rans_codec.compress(_walk(100), device="cuda"),
+               lambda: rans_codec.compress_delta_batch([_walk(40000)], device="cuda"),
+               lambda: rans_codec.compress_batch([_walk(10)], "cuda"),
+               lambda: rans_codec.compress_contour(packed, 16, 100, "cuda"),
+               lambda: rans_codec.compress_contour_batch([packed], 16, 100, "cuda")):
+        with pytest.raises(RuntimeError, match="asked for cuda, and no CUDA device is available"):
             fn()
     # Fields that need no rANS need no card.
-    assert rans_codec.compress(np.zeros(4, np.float32)) == ref_codec.compress(np.zeros(4, np.float32))
-    assert rans_codec.compress_delta_batch([]) == []
+    assert rans_codec.compress(np.zeros(4, np.float32), device="cuda") == ref_codec.compress(np.zeros(4, np.float32))
+    assert rans_codec.compress_delta_batch([], device="cuda") == []
 
 
 def test_version_equals_the_references():
@@ -461,28 +463,27 @@ def test_cuda_wrapper_rejects_bad_geometry(cuda_device):
 
 @pytest.mark.cuda
 def test_cuda_default_backend_bytes_equal_the_native_backends(cuda_device, monkeypatch):
-    """RPCC_RANS_DEVICE=default on the card: every container equals the
-    cpu backend's (the mixed batch: rpcc_tpu's default bytes), one launch
-    per batch call; a contour of more than 512 rows raises."""
+    """On the card every container equals the host's (the mixed batch:
+    rpcc_tpu's default bytes), one launch per batch call; a contour of more
+    than 512 rows raises."""
     arrays = [_walk(n, n) for n in _LENGTHS]
     mixed = [_walk(20000, 7, step=1), _walk(40000, 8)]
     packed = [np.packbits(np.random.default_rng(s).random(64 * 2000) < 0.05) for s in range(4)]
     want = ([rans_codec.compress(a) for a in arrays], rans_codec._compress_delta_batch_np(mixed),
             rans_codec.compress_contour_batch(packed, 64, 2000))
-    monkeypatch.setattr(rans_codec, "_RANS_DEVICE", "default")
     before = rans_device.LAUNCHES
-    assert [rans_codec.compress(a) for a in arrays] == want[0]
-    assert rans_codec.compress_delta_batch(mixed) == want[1]
-    assert rans_codec.compress_contour_batch(packed, 64, 2000) == want[2]
+    assert [rans_codec.compress(a, device=cuda_device) for a in arrays] == want[0]
+    assert rans_codec.compress_delta_batch(mixed, device=cuda_device) == want[1]
+    assert rans_codec.compress_contour_batch(packed, 64, 2000, cuda_device) == want[2]
     assert rans_device.LAUNCHES == before + len(arrays) + 2
     tall = np.packbits(np.zeros(rans_device.MAX_CONTOUR_ROWS + 1, np.uint8))
     with pytest.raises(ValueError, match="contour rows"):
-        rans_codec.compress_contour(tall, rans_device.MAX_CONTOUR_ROWS + 1, 1)
+        rans_codec.compress_contour(tall, rans_device.MAX_CONTOUR_ROWS + 1, 1, cuda_device)
 
 
 @pytest.mark.cuda
 def test_cuda_concurrent_encodes_count_every_launch(cuda_device, monkeypatch):
-    """The engine's pool threads encode concurrently under default: with
+    """The engine's pool threads encode concurrently on the card: with
     more threads than cores and a short switch interval, every call gets
     its own bytes and every launch is counted."""
     import sys
@@ -490,12 +491,11 @@ def test_cuda_concurrent_encodes_count_every_launch(cuda_device, monkeypatch):
 
     arrays = [_walk(n, n) for n in range(3000, 3000 + 64 * 37, 37)]
     want = [rans_codec.compress(a) for a in arrays]
-    monkeypatch.setattr(rans_codec, "_RANS_DEVICE", "default")
     before, interval = rans_device.LAUNCHES, sys.getswitchinterval()
     sys.setswitchinterval(1e-6)
     try:
         with ThreadPoolExecutor(4 * (os.cpu_count() or 1)) as pool:
-            got = list(pool.map(rans_codec.compress, arrays, timeout=300))
+            got = list(pool.map(lambda a: rans_codec.compress(a, device=cuda_device), arrays, timeout=300))
     finally:
         sys.setswitchinterval(interval)
     assert got == want and rans_device.LAUNCHES == before + len(arrays)
