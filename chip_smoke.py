@@ -272,6 +272,7 @@ BACK_TO_BACK = 10  # calls per CUDA-event sample of a kernel's ``ms_10_back_to_b
 # Kernel launches per wrapper call, whatever the batch: DBSCAN's mask pass
 # and cluster kernel are two.
 LAUNCHES_PER_CALL = {"fps": 1, "dbscan": 2}
+KERNELS = ("fps", "dbscan", "rans", "rans_decode")
 # The card's published peaks (H100 SXM, at its full 700 W): f32 outside the
 # tensor cores, and device memory.
 PEAK_F32_OPS = 67e12
@@ -280,6 +281,28 @@ RATE_PASSES = 5  # phase 6: timed pipeline passes per batch size
 PLAIN_RANS_RUNS = 3  # phases 3e, 3f: samples of the plain rANS walks (~10-15 launches per step)
 HOST_RUNS = 21  # phase 3f: samples of a host-clock time (the native host decode)
 BPP_TOL = 0.005  # GPU vs CPU encode of the same frame
+
+
+def launch_counts() -> dict:
+    """This process's kernel launches so far, by kernel: ``fps``,
+    ``dbscan`` (wrapper calls), ``rans`` and ``rans_decode`` (the counters
+    of ``rpcc_tpu_torch/utils/timer.py``)."""
+    from rpcc_tpu_torch.cli.compress_datalist import _kernel_launches
+
+    return _kernel_launches()
+
+
+def launches_since(before: dict, kernels=KERNELS) -> dict:
+    """Each of ``kernels``' launches since ``before`` (a :func:`launch_counts`)."""
+    now = launch_counts()
+    return {k: now[k] - before[k] for k in kernels}
+
+
+def counter(name: str) -> int:
+    """The counter ``name`` of ``rpcc_tpu_torch/utils/timer.py`` so far."""
+    from rpcc_tpu_torch.utils import timer
+
+    return timer.counters().get(name, 0)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -770,7 +793,6 @@ def phase_main(torch, np, dev, card, lidar):
     from rpcc_tpu_torch.config import CodecConfig
     from rpcc_tpu_torch.data.synth import synth_cloud_for
     from rpcc_tpu_torch.models.pipeline import RPCCCodec
-    from rpcc_tpu_torch.ops import dbscan, fps, rans_device
 
     cfg = CodecConfig()
     bound = cfg.step + 1e-5
@@ -779,27 +801,27 @@ def phase_main(torch, np, dev, card, lidar):
     codec.decompress(codec.compress(frames[SEEDS[0]])[0])  # warm-up
     torch.cuda.synchronize()
 
-    fps.LAUNCHES = dbscan.LAUNCHES = rans_device.LAUNCHES = rans_device.DECODE_LAUNCHES = 0
+    c0 = launch_counts()
     results = encode_frames(codec, frames)
-    launches = fps.LAUNCHES
-    rans_enc, rans_dec = rans_device.LAUNCHES, rans_device.DECODE_LAUNCHES
+    n = launches_since(c0)
+    launches, rans_enc, rans_dec = n["fps"], n["rans"], n["rans_decode"]
     want_enc = sum(2 * rans_encode_calls(np, r[3]) for r in results.values())
     want_dec = sum(1 + small_rans_fields(r[1]) for r in results.values())
-    check(launches == 2 * len(SEEDS), f"fps.LAUNCHES rose by {launches} over {2 * len(SEEDS)} encodes")
-    check(dbscan.LAUNCHES == 0, "the FPS path launched the DBSCAN kernel")
+    check(launches == 2 * len(SEEDS), f"launch.fps rose by {launches} over {2 * len(SEEDS)} encodes")
+    check(n["dbscan"] == 0, "the FPS path launched the DBSCAN kernel")
     check(rans_enc == want_enc > 0, f"the single-frame codec's encodes made {rans_enc} rANS launches, expected "
           f"{want_enc} (one per coded field and the contour)")
     check(rans_dec == want_dec > 0, f"the single-frame codec's decodes made {rans_dec} rANS decode launches, "
           f"expected {want_dec} (both big fields in one, one per small rANS field)")
-    print(f"[phase 4] fps.LAUNCHES = {launches} for {2 * len(SEEDS)} encodes; rans_device.LAUNCHES = {rans_enc}, "
-          f"DECODE_LAUNCHES = {rans_dec} for {2 * len(SEEDS)} encodes and {len(SEEDS)} decodes on the card")
+    print(f"[phase 4] launch.fps = {launches} for {2 * len(SEEDS)} encodes; launch.rans_encode = {rans_enc}, "
+          f"launch.rans_decode = {rans_dec} for {2 * len(SEEDS)} encodes and {len(SEEDS)} decodes on the card")
     for s, res in results.items():
         print(f"[phase 4] default seed {s} blob sha256 {hashlib.sha256(res[1]).hexdigest()}")
     bpps = check_frames(np, codec, results, bound, card, "default", 4)
 
     cpu_codec = RPCCCodec(lidar, cfg, "cpu")
     pc0 = frames[SEEDS[0]]
-    rans_device.LAUNCHES = rans_device.DECODE_LAUNCHES = 0
+    c0 = launch_counts()
     seg_gpu = codec.encode_device(pc0).seg_idx.cpu()
     seg_cpu = cpu_codec.encode_device(pc0).seg_idx
     flips = int((seg_gpu != seg_cpu).sum())
@@ -809,8 +831,8 @@ def phase_main(torch, np, dev, card, lidar):
     _, ri_x, _ = cpu_codec.decompress(results[SEEDS[0]][1])  # GPU blob, CPU decoder
     q, d = codec.project(pc0)
     x_err = float(np.abs(ri_x - q.astype(np.float32) * d).max())
-    check(rans_device.LAUNCHES == rans_device.DECODE_LAUNCHES == 0,
-          f"the codec on device='cpu' launched the rANS kernels ({rans_device.LAUNCHES}, {rans_device.DECODE_LAUNCHES})")
+    n = launches_since(c0, ("rans", "rans_decode"))
+    check(n["rans"] == n["rans_decode"] == 0, f"the codec on device='cpu' launched the rANS kernels ({n})")
     print(f"[phase 4] seed {SEEDS[0]} cuda vs cpu: seg flips {flips}, bpp {bpps[SEEDS[0]]:.5f} "
           f"vs {bpp_cpu:.5f} (rel diff {rel:.5f}), cpu decode of the cuda blob max_err {x_err:.6f}, "
           f"blobs identical {blob_cpu == results[SEEDS[0]][1]}")
@@ -1304,9 +1326,9 @@ def phase_rans_decode(torch, np, dev, card, lidar, codec, frames, eng):
             want = [engine.decode_range_images(b) for b in batches]
         engine.decode_range_images(batches[0])  # warm-up
         torch.cuda.synchronize()
-        rd.DECODE_LAUNCHES = 0
+        c0 = launch_counts()
         got = [engine.decode_range_images(b) for b in batches]
-        launches = rd.DECODE_LAUNCHES
+        launches = launches_since(c0)["rans_decode"]
 
         def host_decode():
             with coder_on(engine, None):
@@ -1509,12 +1531,12 @@ def phase_rans_host(torch, np, dev, card, lidar, codec, frames, eng_blobs):
         c = codec if tag == "default" else RPCCCodec(lidar, cfg, dev)
         for s, pc in clouds.items():
             with coder_on(c, None):
-                rd.LAUNCHES = 0
+                c0 = launch_counts()
                 want, fields, _ = c.compress(pc)
-                check(rd.LAUNCHES == 0, f"{tag} seed {s}: the host coder launched the rANS kernel")
-            rd.LAUNCHES = 0
+                check(launches_since(c0)["rans"] == 0, f"{tag} seed {s}: the host coder launched the rANS kernel")
+            c0 = launch_counts()
             got = c.compress(pc)[0]
-            launches = rd.LAUNCHES
+            launches = launches_since(c0)["rans"]
             check(got == want, f"{tag} seed {s}: the card's blob differs from the host coder's")
             check(launches == rans_encode_calls(np, fields), f"{tag} seed {s}: {launches} rANS launches for "
                   f"{rans_encode_calls(np, fields)} coded fields")
@@ -1534,9 +1556,9 @@ def phase_rans_host(torch, np, dev, card, lidar, codec, frames, eng_blobs):
     try:
         with coder_on(engine, None):
             want = engine.encode_frames(clouds8, seeds8)
-        rd.LAUNCHES = 0
+        c0 = launch_counts()
         got = engine.encode_frames(clouds8, seeds8)
-        launches = rd.LAUNCHES
+        launches = launches_since(c0)["rans"]
     finally:
         engine.close()
     check([b for b, _ in got] == [b for b, _ in want], "the engine's host-entropy blobs differ between the coders")
@@ -1551,11 +1573,12 @@ def phase_rans_host(torch, np, dev, card, lidar, codec, frames, eng_blobs):
     for what, arrays, lanes in host_edge_fields(np):
         want = rans_codec.compress_delta_batch(arrays, lanes=lanes, device=None)
         want_c = [rans_codec.compress(a, lanes=lanes, device=None) for a in arrays]
-        rd.LAUNCHES = 0
+        c0 = launch_counts()
         got = rans_codec.compress_delta_batch(arrays, lanes=lanes, device=dev)
         got_c = [rans_codec.compress(a, lanes=lanes, device=dev) for a in arrays]
-        check(rd.LAUNCHES == 1 + len(arrays), f"{what}: {rd.LAUNCHES} launches for {1 + len(arrays)} calls")
-        count(rd.LAUNCHES, 1 + len(arrays))
+        launches = launches_since(c0)["rans"]
+        check(launches == 1 + len(arrays), f"{what}: {launches} launches for {1 + len(arrays)} calls")
+        count(launches, 1 + len(arrays))
         check(got == want and got_c == want_c, f"the card's containers differ from the host coder's on {what}")
         check([rans_codec.decompress(b, dev) for b in got_c] == [a.tobytes() for a in arrays],
               f"the card's decode of the card's containers on {what}")
@@ -1728,17 +1751,15 @@ def drive_mode(torch, np, dev, card, lidar, tag, cfg, frames, phase):
     byte-identical repeats, and the CPU codec's bpp (within BPP_TOL) and
     decode of the card's blob.  -> (launch counts, encode_frames results)"""
     from rpcc_tpu_torch.models.pipeline import RPCCCodec
-    from rpcc_tpu_torch.ops import dbscan, fps, rans_device
 
     n_enc = 2 * len(frames)
     bound = (cfg.step if cfg.uniform else cfg.step + max(cfg.level_delta_acc)) + 1e-5
     codec = RPCCCodec(lidar, cfg, dev)
     codec.decompress(codec.compress(next(iter(frames.values())))[0])  # warm-up
     torch.cuda.synchronize()
-    fps.LAUNCHES = dbscan.LAUNCHES = rans_device.LAUNCHES = rans_device.DECODE_LAUNCHES = 0
+    c0 = launch_counts()
     results = encode_frames(codec, frames)
-    counts = {"fps": fps.LAUNCHES, "dbscan": dbscan.LAUNCHES, "rans": rans_device.LAUNCHES,
-              "rans_decode": rans_device.DECODE_LAUNCHES}
+    counts = launches_since(c0)
     want = {"fps": 0, "dbscan": n_enc} if cfg.segment_method == "DBSCAN" else {"fps": n_enc, "dbscan": 0}
     # the containers are coded on the card: one launch a coded field, both big fields decoded in one
     want["rans"] = sum(2 * rans_encode_calls(np, r[3]) for r in results.values())
@@ -1750,7 +1771,7 @@ def drive_mode(torch, np, dev, card, lidar, tag, cfg, frames, phase):
     bpps = check_frames(np, codec, results, bound, card, tag, phase)
 
     cpu_codec = RPCCCodec(lidar, cfg, "cpu")
-    rans_device.LAUNCHES = rans_device.DECODE_LAUNCHES = 0
+    c0 = launch_counts()
     for s, pc in frames.items():
         blob_cpu, fields_cpu, _ = cpu_codec.compress(pc)
         bpp_cpu = len(blob_cpu) * 8 / fields_cpu["residual_quantized"].size
@@ -1763,8 +1784,8 @@ def drive_mode(torch, np, dev, card, lidar, tag, cfg, frames, phase):
               f"blobs identical {blob_cpu == results[s][1]}")
         check(rel <= BPP_TOL, f"{tag} seed {s}: cuda vs cpu bpp differ by {rel:.4%}")
         check(x_err <= bound, f"{tag} seed {s}: cpu decode of the cuda blob: max_err {x_err} > {bound}")
-    check(rans_device.LAUNCHES == rans_device.DECODE_LAUNCHES == 0, f"{tag}: the codec on device='cpu' launched "
-          f"the rANS kernels ({rans_device.LAUNCHES}, {rans_device.DECODE_LAUNCHES})")
+    n = launches_since(c0, ("rans", "rans_decode"))
+    check(n["rans"] == n["rans_decode"] == 0, f"{tag}: the codec on device='cpu' launched the rANS kernels ({n})")
     return counts, results
 
 
@@ -1868,7 +1889,6 @@ def drive_points(torch, np, dev, card, tag, lid, cfg, clouds, seeds):
     encode of the same frame.  -> (device encoder, {name: (outputs, blob)})"""
     from rpcc_tpu_torch.models.encoder import make_encoder
     from rpcc_tpu_torch.models.host_decoder import HostDecoder
-    from rpcc_tpu_torch.ops import dbscan, fps, rans_device
     from rpcc_tpu_torch.ops.projection import project_points
     from rpcc_tpu_torch.ops.projection_host import project_points_host
     from rpcc_tpu_torch.parallel.engine import BatchEngine
@@ -1895,11 +1915,10 @@ def drive_points(torch, np, dev, card, tag, lid, cfg, clouds, seeds):
                 ("host f32", project_points_host(pc, lid)),
                 ("cpu in-graph", project_points(torch.from_numpy(pc), lid, va_cpu).numpy()))}
 
-            fps.LAUNCHES = dbscan.LAUNCHES = rans_device.LAUNCHES = rans_device.DECODE_LAUNCHES = 0
+            c0 = launch_counts()
             out = encode(pc, seed, cfg.step)
             torch.cuda.synchronize()
-            launches = {"fps": fps.LAUNCHES, "dbscan": dbscan.LAUNCHES, "rans": rans_device.LAUNCHES,
-                        "rans_decode": rans_device.DECODE_LAUNCHES}
+            launches = launches_since(c0)
             check(launches == want, f"{tag} {name}: launches {launches} for one encode, expected {want}")
             check(bool((out.range_image.cpu().numpy() == ri).all()), f"{tag} {name}: the encoder's range image "
                   "differs from the projection's")
@@ -1997,7 +2016,6 @@ def phase_points(torch, np, dev, card, lidar, frames):
     from rpcc_tpu_torch.data.dataset import DatasetTemplate, spot_check_datalist
     from rpcc_tpu_torch.data.synth import synth_cloud_for
     from rpcc_tpu_torch.models.encoder import make_batch_encoder, num_model_rows
-    from rpcc_tpu_torch.ops import dbscan, fps, rans_device
     from rpcc_tpu_torch.ops.projection_host import build_transform_map, project_points_host
     from rpcc_tpu_torch.parallel.engine import BatchEngine
 
@@ -2022,10 +2040,10 @@ def phase_points(torch, np, dev, card, lidar, frames):
     for b, c in enumerate(batch_clouds):
         batch[b, : c.shape[0]] = c
     encode_b = make_batch_encoder(lidar, cfg, from_ri=False, device=dev)
-    fps.LAUNCHES = dbscan.LAUNCHES = rans_device.LAUNCHES = 0
+    c0 = launch_counts()
     out_b = encode_b(torch.from_numpy(batch).to(dev), seeds8, cfg.step)
     torch.cuda.synchronize()
-    launches_b = {"fps": fps.LAUNCHES, "dbscan": dbscan.LAUNCHES, "rans": rans_device.LAUNCHES}
+    launches_b = launches_since(c0, ("fps", "dbscan", "rans"))
     check(launches_b == {"fps": 1, "dbscan": 0, "rans": 1}, f"B = 8 from-points batch launches {launches_b}")
     engine = BatchEngine(lidar, cfg, dev, batch_size=8, workers=2)
     try:
@@ -2210,7 +2228,6 @@ def counted_cli_runs(src, blob_path, rec_path, common, work):
     import numpy as np
 
     from rpcc_tpu_torch.cli import compress, decompress
-    from rpcc_tpu_torch.ops import rans_device as rd
 
     out, rec = os.path.join(work, "counted.rpcc"), os.path.join(work, "counted.bin")
     counted = {}
@@ -2219,10 +2236,11 @@ def counted_cli_runs(src, blob_path, rec_path, common, work):
         ("decompress device", decompress, ["--input", blob_path, "--output", rec, *common, "--decode_backend", "device"]),
         ("decompress host", decompress, ["--input", blob_path, "--output", rec, *common, "--decode_backend", "host"]),
     ):
-        rd.LAUNCHES = rd.DECODE_LAUNCHES = 0
+        c0 = launch_counts()
         with contextlib.redirect_stdout(io.StringIO()):
             mod.main(args)
-        counted[tag] = (rd.LAUNCHES, rd.DECODE_LAUNCHES)
+        n = launches_since(c0, ("rans", "rans_decode"))
+        counted[tag] = (n["rans"], n["rans_decode"])
         if tag == "compress":
             with open(out, "rb") as f, open(blob_path, "rb") as g:
                 check(f.read() == g.read(), "the in-process compress wrote other bytes than the subprocess")
@@ -2332,7 +2350,7 @@ def phase_engine(torch, np, dev, card, lidar, codec):
     from rpcc_tpu_torch.data.synth import synth_cloud_for
     from rpcc_tpu_torch.models.host_decoder import HostDecoder
     from rpcc_tpu_torch.models.pipeline import RPCCCodec
-    from rpcc_tpu_torch.ops import dbscan, fps, rans_device
+    from rpcc_tpu_torch.ops import fps
     from rpcc_tpu_torch.ops.projection_host import build_transform_map
     from rpcc_tpu_torch.parallel.engine import BatchEngine
 
@@ -2367,27 +2385,27 @@ def phase_engine(torch, np, dev, card, lidar, codec):
 
     def counted_run(engine, w):
         """A warm-up pipeline run, then one with every launch count (and the
-        i16 stream downloads) set to 0 just before it and read just after."""
+        i16 stream downloads) read just before it and just after."""
         list(engine.encode_pipeline(w))
         torch.cuda.synchronize()
-        fps.LAUNCHES = dbscan.LAUNCHES = rans_device.LAUNCHES = 0
-        engine.stream_downloads = 0
+        c0, d0 = launch_counts(), counter("engine.stream_downloads")
         stats = {}
         blobs = [b for res in engine.encode_pipeline(w, stats=stats) for b, _ in res]
-        launches = {"fps": fps.LAUNCHES, "dbscan": dbscan.LAUNCHES, "rans": rans_device.LAUNCHES}
-        return blobs, stats, launches, engine.stream_downloads
+        launches = launches_since(c0, ("fps", "dbscan", "rans"))
+        return blobs, stats, launches, counter("engine.stream_downloads") - d0
 
     def counted_decode(engine, eblobs, b):
         """The engine's decode pipeline of ``eblobs`` in batches of ``b``
-        with the decode launches set to 0 just before it and read just
-        after, checked: one a batch for both big fields, one per small rANS
-        field, no encode launch."""
-        rans_device.LAUNCHES = rans_device.DECODE_LAUNCHES = 0
+        with the decode launches read just before it and just after,
+        checked: one a batch for both big fields, one per small rANS field,
+        no encode launch."""
+        c0 = launch_counts()
         points = [p for pts in engine.decode_pipeline(_batches(eblobs, b)) for p in pts]
+        n = launches_since(c0, ("rans", "rans_decode"))
         want = sum(big_rans_decodes(x) for x in _batches(eblobs, b)) + sum(map(small_rans_fields, eblobs))
-        check(rans_device.DECODE_LAUNCHES == want > 0 and rans_device.LAUNCHES == 0,
-              f"engine decode of {len(eblobs)} blobs at B = {b}: {rans_device.DECODE_LAUNCHES} decode launches "
-              f"(expected {want}) and {rans_device.LAUNCHES} encode launches")
+        check(n["rans_decode"] == want > 0 and n["rans"] == 0,
+              f"engine decode of {len(eblobs)} blobs at B = {b}: {n['rans_decode']} decode launches "
+              f"(expected {want}) and {n['rans']} encode launches")
         return points, want
 
     def host_entropy_launches(idx_batches, lengths):
@@ -2425,11 +2443,12 @@ def phase_engine(torch, np, dev, card, lidar, codec):
           f"B = 1 engine launches {launches1}")
     mism = [s for s, a, b in zip(BATCH_SEEDS, blobs, blobs1) if a != b]
     check(not mism, f"B = {B} device-entropy blobs differ from B = 1 blobs for seeds {mism}")
+    c0 = launch_counts()
     dec_points, dec_launches = counted_decode(engine, blobs, B)
     dev_err = decode_err(dec_points)
     host_err = decode_err(HostDecoder(lidar, cfg).decode_blobs_points(blobs))
-    check(rans_device.LAUNCHES == 0 and rans_device.DECODE_LAUNCHES == dec_launches,
-          "the host decoder launched a rANS kernel")
+    n = launches_since(c0, ("rans", "rans_decode"))
+    check(n["rans"] == 0 and n["rans_decode"] == dec_launches, "the host decoder launched a rANS kernel")
     bpp_dev = sum(len(b) for b in blobs) * 8 / sum(codec.encode_device(pc).stream_len.item() for pc in frames)
     print(f"[phase 6] device-entropy engine (B={B}) encoded {len(blobs)} frames in batches "
           f"{[len(b) for b, _ in work]}: launches {launches}, blobs == B = 1 engine blobs, repeat run byte-identical, "
@@ -2499,9 +2518,9 @@ def phase_engine(torch, np, dev, card, lidar, codec):
     deng = BatchEngine(lidar, dcfg, dev, batch_size=len(street))
     deng.encode_frames(street, STREET_SEEDS)  # warm-up
     torch.cuda.synchronize()
-    fps.LAUNCHES = dbscan.LAUNCHES = rans_device.LAUNCHES = 0
+    c0 = launch_counts()
     dblobs = [b for b, _ in deng.encode_frames(street, STREET_SEEDS)]
-    db_launches = {"fps": fps.LAUNCHES, "dbscan": dbscan.LAUNCHES, "rans": rans_device.LAUNCHES}
+    db_launches = launches_since(c0, ("fps", "dbscan", "rans"))
     d_rans = host_entropy_launches([range(len(street))], [f["residual_quantized"].size for _, f, _ in dres])
     check(db_launches == {"fps": 0, "dbscan": 1, "rans": d_rans},
           f"DBSCAN engine launches {db_launches} for one batch, expected {d_rans} rANS launches")
@@ -2529,9 +2548,9 @@ def phase_engine(torch, np, dev, card, lidar, codec):
         try:
             eng.encode_frames(clouds, seeds)  # warm-up
             torch.cuda.synchronize()
-            fps.LAUNCHES = dbscan.LAUNCHES = rans_device.LAUNCHES = 0
+            c0 = launch_counts()
             eblobs = [b for b, _ in eng.encode_frames(clouds, seeds)]
-            e_launches = {"fps": fps.LAUNCHES, "dbscan": dbscan.LAUNCHES, "rans": rans_device.LAUNCHES}
+            e_launches = launches_since(c0, ("fps", "dbscan", "rans"))
             check(e_launches == {"fps": 1, "dbscan": 0, "rans": e_rans},
                   f"{tag} engine launches {e_launches} for one batch, expected {e_rans} rANS launches")
             check(eblobs == esingles, f"{tag} engine blobs differ from single-frame blobs")
@@ -2565,7 +2584,6 @@ def engine_dropped_returns(torch, np, dev, lidar, street):
     from rpcc_tpu_torch.data import VELODYNE_32E_CSV, lidar_config
     from rpcc_tpu_torch.models.host_decoder import HostDecoder
     from rpcc_tpu_torch.models.pipeline import RPCCCodec
-    from rpcc_tpu_torch.ops import dbscan, fps, rans_device
     from rpcc_tpu_torch.ops.projection_host import build_transform_map
     from rpcc_tpu_torch.ops.rans_device import ESC_CAP_DEV, resid_T
     from rpcc_tpu_torch.parallel.engine import BatchEngine
@@ -2590,12 +2608,11 @@ def engine_dropped_returns(torch, np, dev, lidar, street):
         try:
             eng.encode_frames(clouds, eseeds)  # warm-up
             torch.cuda.synchronize()
-            fps.LAUNCHES = dbscan.LAUNCHES = rans_device.LAUNCHES = 0
-            eng.stream_downloads = 0
+            c0, d0 = launch_counts(), counter("engine.stream_downloads")
             st = eng.stage_downloads(eng.encode_batch_device(clouds, eseeds))
             eblobs = [b for b, _ in eng.finish_staged(st)]
-            downloads = eng.stream_downloads
-            e_launches = {"fps": fps.LAUNCHES, "dbscan": dbscan.LAUNCHES, "rans": rans_device.LAUNCHES}
+            downloads = counter("engine.stream_downloads") - d0
+            e_launches = launches_since(c0, ("fps", "dbscan", "rans"))
             seg = "dbscan" if ecfg.segment_method == "DBSCAN" else "fps"
             # one rANS launch in the graph, one for each frame the host re-encodes on the card
             want = {"fps": 0, "dbscan": 0, "rans": 1 + downloads, seg: 1}
@@ -3003,7 +3020,8 @@ def against_calls(np, dev, card, root: str, codec, lidar, frames) -> None:
     batch at B = 1 and 8.  A checkout whose coder takes no ``device=``
     codes its encodes on the card only when its process was started with
     the reference's device variable set to ``default``; the launch count
-    checks that it was."""
+    (the ``launch.rans_encode`` counter, which a checkout has from its
+    counters on) checks that it was."""
     import inspect
 
     from rpcc_tpu_torch.codec import rans_codec, rans_native
@@ -3014,9 +3032,9 @@ def against_calls(np, dev, card, root: str, codec, lidar, frames) -> None:
     fields = [codec.compress(pc, seed=s)[1] for pc, s in zip(frames[:8], BATCH_SEEDS[:8])]
     small = [fields[0]["residual_quantized"][:1000]]
     L, T = rans_codec._geometry(1000)
-    before = rd.LAUNCHES
+    before = counter("launch.rans_encode")
     rans_codec.compress_delta_batch(small, **kw)
-    check(rd.LAUNCHES == before + 1, f"{root}: the encode call did not launch the kernel (a checkout without "
+    check(counter("launch.rans_encode") == before + 1, f"{root}: the encode call did not launch the kernel (a checkout without "
           "device= codes on the card only under the reference's device variable set to default)")
     w, nw, cts, sts, fqs, esc, n_esc, q0 = rans_native.delta_encode_frames(small, L, T, rd.ALPHABET, rd.NUM_CTX)
     lanes_small = rans_codec.delta_lanes([rans_codec.build_ctx_container(

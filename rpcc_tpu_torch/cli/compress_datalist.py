@@ -68,12 +68,17 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
-def _kernel_launches() -> dict:
-    """This process's launch counts of the CUDA kernels, by kernel."""
-    from rpcc_tpu_torch.ops import dbscan, fps, rans_device
+LAUNCH_COUNTERS = {"fps": "launch.fps", "dbscan": "launch.dbscan", "rans": "launch.rans_encode",
+                   "rans_decode": "launch.rans_decode"}
 
-    return {"fps": fps.LAUNCHES, "dbscan": dbscan.LAUNCHES, "rans": rans_device.LAUNCHES,
-            "rans_decode": rans_device.DECODE_LAUNCHES}
+
+def _kernel_launches() -> dict:
+    """This process's launch counts of the CUDA kernels, by kernel (the
+    counters of ``utils/timer.py``)."""
+    from rpcc_tpu_torch.utils import timer
+
+    now = timer.counters()
+    return {k: now.get(name, 0) for k, name in LAUNCH_COUNTERS.items()}
 
 
 def main(argv=None) -> list:

@@ -16,7 +16,12 @@ contour containers' pieces, coded on the device by one kernel launch.
 The batch runs as one graph (the JAX package's ``jax.vmap`` of the frame
 graph): no loop over frames and no host sync inside; a frame's outputs do
 not depend on the other frames of its batch.  A single (H, W) frame is the
-B = 1 case, returned without the batch dimension.
+B = 1 case, returned without the batch dimension.  The graph's issue runs
+in the span ``graph`` (``utils/timer.py``), its parts in ``graph.segment``,
+``graph.features`` (non-uniform), ``graph.sort``, ``graph.models``,
+``graph.quantize``, ``graph.contour`` and ``graph.entropy`` (device
+entropy): nothing in it waits for the device, so they time the host's
+issue of its launches.
 
 Raw (N, 3) clouds (the reference's ``from_ri=False`` entry) are projected
 on the module's device (``ops/projection.py``) and run through the same
@@ -35,6 +40,7 @@ from torch import nn
 
 from rpcc_tpu_torch.config import CodecConfig, LidarConfig
 from rpcc_tpu_torch.ops import prng
+from rpcc_tpu_torch.ops.const import device_const
 from rpcc_tpu_torch.ops.contour import extract_contour, pack_bits_msb
 from rpcc_tpu_torch.ops.features import extract_features_with_segment, salience_levels_from_counts
 from rpcc_tpu_torch.ops.modeling import plane_models_stream, point_model_table
@@ -51,6 +57,7 @@ from rpcc_tpu_torch.ops.stream import (
     rays_from_perm,
     stream_sort,
 )
+from rpcc_tpu_torch.utils import timer
 
 
 def num_model_rows(cfg: CodecConfig) -> int:
@@ -126,26 +133,32 @@ class Encoder(nn.Module):
         tensor); ``step``: the quantization step, or in non-uniform mode
         the step of each salience level.  A single (H, W) grid with a 0-d
         delta and an int seed gives unbatched outputs."""
-        if q.ndim == 2:
-            out = self(q[None], delta.reshape(1), [seed], step)
-            return EncoderOutput(*(None if f is None else f[0] for f in out))
+        with timer.span("graph"):
+            if q.ndim == 2:
+                out = self._graph(q[None], delta.reshape(1), [seed], step)
+                return EncoderOutput(*(None if f is None else f[0] for f in out))
+            return self._graph(q, delta, seed, step)
+
+    def _graph(self, q: torch.Tensor, delta: torch.Tensor, seed, step) -> EncoderOutput:
+        """The batched graph of :meth:`forward`."""
         cfg = self.cfg
         dev = self.tm_planes.device
         B, H, W = q.shape
         hw = H * W
-        keys = prng.split(prng.prng_key(seed, dev))  # (B, 2, 2)
-        k_seg, k_model = keys[:, 0], keys[:, 1]
+        with timer.span("graph.segment"):
+            keys = prng.split(prng.prng_key(seed, dev))  # (B, 2, 2)
+            k_seg, k_model = keys[:, 0], keys[:, 1]
 
-        ri = q.to(torch.float32) * delta.to(torch.float32)[:, None, None]
-        pc_planes = ri[:, None] * self.tm_planes  # (B, 3, H, W)
-        if cfg.segment_method == "DBSCAN":
-            seg, ground_model, _ = segment_range_image_dbscan(
-                pc_planes, ri, self.tm_planes, k_seg, cfg.dbscan_eps, cfg.cluster_num
-            )
-        else:
-            seg, ground_model, _ = segment_range_image(
-                pc_planes, ri, self.tm_planes, k_seg, cfg.ground_threshold, cfg.cluster_num, cfg.cpu_fps
-            )
+            ri = q.to(torch.float32) * delta.to(torch.float32)[:, None, None]
+            pc_planes = ri[:, None] * self.tm_planes  # (B, 3, H, W)
+            if cfg.segment_method == "DBSCAN":
+                seg, ground_model, _ = segment_range_image_dbscan(
+                    pc_planes, ri, self.tm_planes, k_seg, cfg.dbscan_eps, cfg.cluster_num
+                )
+            else:
+                seg, ground_model, _ = segment_range_image(
+                    pc_planes, ri, self.tm_planes, k_seg, cfg.ground_threshold, cfg.cluster_num, cfg.cpu_fps
+                )
 
         # Evenly spaced rays are recomputed from the stream order; a
         # channel table's rays ride the sort as payloads.
@@ -153,43 +166,51 @@ class Encoder(nn.Module):
         if not self.lidar.even_dist:
             payloads += [self.tm_planes[i].reshape(1, hw).expand(B, hw) for i in range(3)]
         if not cfg.uniform:
-            _, kp_map = extract_features_with_segment(
-                ri, seg, feature_region=cfg.feature_region, segments=cfg.segments,
-                sharp_num=cfg.sharp_num, less_sharp_num=cfg.less_sharp_num,
-                flat_num=cfg.flat_num, want_feature_map=False,
-            )
-            payloads.append((kp_map.reshape(B, hw) > 0).to(torch.float32))
-        order, carried = stream_sort(seg.reshape(B, hw), payloads, self.num_models)
-        ri_s = carried[0]
-        rays_s = rays_from_perm(order, self.lidar) if self.lidar.even_dist else carried[1:4]
-        if cfg.modeling_method == "point":
-            model_param = point_model_table(point_means_stream(ri_s, order), self.num_models)
-        else:
-            model_param = plane_models_stream(
-                ri_s, order, k_model, self.num_models, cfg.plane_angle_threshold, rays_s
-            ).table
-        model_param[:, 0] = ground_model
+            with timer.span("graph.features"):
+                _, kp_map = extract_features_with_segment(
+                    ri, seg, feature_region=cfg.feature_region, segments=cfg.segments,
+                    sharp_num=cfg.sharp_num, less_sharp_num=cfg.less_sharp_num,
+                    flat_num=cfg.flat_num, want_feature_map=False,
+                )
+                payloads.append((kp_map.reshape(B, hw) > 0).to(torch.float32))
+        with timer.span("graph.sort"):
+            order, carried = stream_sort(seg.reshape(B, hw), payloads, self.num_models)
+            ri_s = carried[0]
+            rays_s = rays_from_perm(order, self.lidar) if self.lidar.even_dist else carried[1:4]
+        with timer.span("graph.models"):
+            if cfg.modeling_method == "point":
+                model_param = point_model_table(point_means_stream(ri_s, order), self.num_models)
+            else:
+                model_param = plane_models_stream(
+                    ri_s, order, k_model, self.num_models, cfg.plane_angle_threshold, rays_s
+                ).table
+            model_param[:, 0] = ground_model
 
-        resid_s = ri_s - predict_stream(model_param, order, rays_s)
-        salience = None
-        if cfg.uniform:
-            step_s = torch.tensor(step, dtype=torch.float32, device=dev)
-        else:
-            kp_cnt = per_cluster_sums(carried[-1], order).to(torch.int32)  # exact: 0/1 sums
-            sal = salience_levels_from_counts(
-                kp_cnt, order.counts, cfg.level_key_point_num, cfg.ground_salience_level
-            )
-            step_table = torch.tensor(step, dtype=torch.float32, device=dev)
-            step_s = expand_per_cluster(step_table[sal.to(torch.int64)], order)
-            salience = sal.to(torch.uint8)
-        qs = round_half_away(resid_s / step_s).to(torch.int32)
-        live = torch.arange(hw, device=dev) < order.stream_len[:, None]
-        qs = torch.where(live, qs, 0)
+        with timer.span("graph.quantize"):
+            resid_s = ri_s - predict_stream(model_param, order, rays_s)
+            salience = None
+            if cfg.uniform:
+                step_s = device_const(step, torch.float32, dev)
+            else:
+                kp_cnt = per_cluster_sums(carried[-1], order).to(torch.int32)  # exact: 0/1 sums
+                sal = salience_levels_from_counts(
+                    kp_cnt, order.counts, cfg.level_key_point_num, cfg.ground_salience_level
+                )
+                step_table = device_const(step, torch.float32, dev)
+                step_s = expand_per_cluster(step_table[sal.to(torch.int64)], order)
+                salience = sal.to(torch.uint8)
+            qs = round_half_away(resid_s / step_s).to(torch.int32)
+            live = torch.arange(hw, device=dev) < order.stream_len[:, None]
+            qs = torch.where(live, qs, 0)
 
-        code = extract_contour(seg)
+        with timer.span("graph.contour"):
+            code = extract_contour(seg)
+            contour_packed = pack_bits_msb(code.contour, start_dim=1)
         de = {}
         if self.device_entropy:
-            res, cnt = encode_fields_device(qs.contiguous(), order.stream_len.to(torch.int32), code.contour.contiguous())
+            with timer.span("graph.entropy"):
+                res, cnt = encode_fields_device(qs.contiguous(), order.stream_len.to(torch.int32),
+                                                code.contour.contiguous())
             de = {f"de_res_{k}": v for k, v in zip(("words", "nw", "counts", "states", "freqs", "escapes", "nesc", "q0"), res)}
             de.update({f"de_cnt_{k}": v for k, v in zip(("words", "nw", "counts", "states", "freqs"), cnt)})
         return EncoderOutput(
@@ -198,7 +219,7 @@ class Encoder(nn.Module):
             model_param=model_param,
             stream=qs.to(torch.int16),  # wraps like the reference's int16 cast
             stream_len=order.stream_len,
-            contour_packed=pack_bits_msb(code.contour, start_dim=1),
+            contour_packed=contour_packed,
             sequence=code.sequence.to(torch.uint16),
             seq_len=code.seq_len,
             salience=salience,

@@ -4,10 +4,18 @@ and back (port of ``rpcc_tpu/models/pipeline.py::RPCCCodec``).
 The ``.rpcc`` byte layout (with the u8 ``salience_level`` field first in
 non-uniform mode), the field dtypes and the timing keys are the
 reference's, so blobs cross-decode between the two packages.
+
+``compress`` runs in the span ``codec.compress`` (``utils/timer.py``), its
+steps in ``codec.project`` (the host projection), ``codec.upload``, the
+encoder's ``graph``, ``codec.device_wait`` (the synchronise after the
+graph), ``codec.gather_fields``, ``codec.entropy`` and ``codec.framing``,
+each with the frame's number in the codec's compresses; its timing dict
+comes from the same stamps.
 """
 
 from __future__ import annotations
 
+import itertools
 import time
 from typing import Dict, Optional, Tuple
 
@@ -20,6 +28,7 @@ from rpcc_tpu_torch.config import CodecConfig, LidarConfig
 from rpcc_tpu_torch.models.decoder import Decoder
 from rpcc_tpu_torch.models.encoder import Encoder, EncoderOutput, num_model_rows
 from rpcc_tpu_torch.ops.projection_host import build_transform_map, project_for_encoder
+from rpcc_tpu_torch.utils import timer
 
 
 def resolve_device(device) -> torch.device:
@@ -56,6 +65,7 @@ class RPCCCodec:
         self.decoder = Decoder(lidar, cfg).to(self.device)
         self.entropy = BasicCompressor(method_name=cfg.basic_compressor, contour_shape=(self.H, self.W),
                                        device=self.device)
+        self._frames = itertools.count()  # the batch number of each compress's spans
 
     @property
     def _step_arg(self):
@@ -72,9 +82,11 @@ class RPCCCodec:
 
     def encode_device(self, points: np.ndarray, seed: Optional[int] = None) -> EncoderOutput:
         """Host-project, upload, run the encoder; returns device tensors."""
-        q, d = self.project(points)
-        q_t = torch.from_numpy(q if q.dtype == np.float32 else q.astype(np.int32)).to(self.device)
-        d_t = torch.tensor(d, dtype=torch.float32, device=self.device)
+        with timer.span("codec.project"):
+            q, d = self.project(points)
+        with timer.span("codec.upload"):
+            q_t = torch.from_numpy(q if q.dtype == np.float32 else q.astype(np.int32)).to(self.device)
+            d_t = torch.tensor(d, dtype=torch.float32, device=self.device)
         seed = self.cfg.seed if seed is None else seed
         return self.encoder(q_t, d_t, seed, self._step_arg)
 
@@ -95,22 +107,24 @@ class RPCCCodec:
     def compress(
         self, points: np.ndarray, seed: Optional[int] = None
     ) -> Tuple[bytes, Dict[str, np.ndarray], Dict[str, float]]:
-        """points -> (.rpcc payload bytes, raw fields, stage timings)."""
-        t0 = time.perf_counter()
-        out = self.encode_device(points, seed)
-        _sync(self.device)
-        t1 = time.perf_counter()
-        fields = self.fields_from_device(out)
-        t2 = time.perf_counter()
-        compressed = self.entropy.compress_dict(fields)
-        t3 = time.perf_counter()
-        blob = pack_bitstream(compressed, uniform=self.cfg.uniform)
-        t4 = time.perf_counter()
+        """points -> (.rpcc payload bytes, raw fields, stage timings in s:
+        ``device_encode`` (projection, upload, the graph to its
+        synchronise), ``gather_fields``, ``entropy``, ``framing``)."""
+        with timer.span("codec.compress", next(self._frames), stamp=True) as whole:
+            out = self.encode_device(points, seed)
+            with timer.span("codec.device_wait", stamp=True) as wait:
+                _sync(self.device)
+            with timer.span("codec.gather_fields", stamp=True) as gather:
+                fields = self.fields_from_device(out)
+            with timer.span("codec.entropy", stamp=True) as entropy:
+                compressed = self.entropy.compress_dict(fields)
+            with timer.span("codec.framing", stamp=True) as framing:
+                blob = pack_bitstream(compressed, uniform=self.cfg.uniform)
         times = {
-            "device_encode": t1 - t0,
-            "gather_fields": t2 - t1,
-            "entropy": t3 - t2,
-            "framing": t4 - t3,
+            "device_encode": (wait.end_ns - whole.start_ns) / 1e9,
+            "gather_fields": gather.wall_ns / 1e9,
+            "entropy": entropy.wall_ns / 1e9,
+            "framing": framing.wall_ns / 1e9,
         }
         return blob, fields, times
 

@@ -13,6 +13,7 @@ from typing import NamedTuple
 
 import torch
 
+from rpcc_tpu_torch.ops.const import device_const
 from rpcc_tpu_torch.ops.stream import compact_flagged_positions, compact_flagged_small
 
 
@@ -44,7 +45,7 @@ def pack_bits_msb(bits: torch.Tensor, start_dim: int = 0) -> torch.Tensor:
     pad = (-flat.shape[-1]) % 8
     if pad:
         flat = torch.nn.functional.pad(flat, (0, pad))
-    w = torch.tensor(_MSB_WEIGHTS, dtype=torch.int32, device=bits.device)
+    w = device_const(_MSB_WEIGHTS, torch.int32, bits.device)
     return (flat.reshape(*flat.shape[:-1], -1, 8) * w).sum(-1).to(torch.uint8)
 
 

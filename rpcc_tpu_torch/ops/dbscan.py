@@ -30,15 +30,12 @@ from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
+from rpcc_tpu_torch.utils import timer
+
 MIN_POINTS = 10  # utils/segment_utils.py:152
 NOISE_ID = 2  # final id of DBSCAN noise
 FIRST_CLUSTER_ID = 3  # final id of the first cluster
 WINDOW = 3  # pixel window for eps-connectivity
-
-# Calls of :func:`dbscan_labels_cuda` that launched the kernels since the
-# count was last reset: one per call, whatever the batch size; each call
-# makes two launches (the mask pass, then the cluster kernel).
-LAUNCHES = 0
 
 # The cluster kernel's layout (csrc/dbscan.cu): a CTA keeps a u64 mask word
 # and an i32 parent per owned pixel (12 B) in shared memory, up to the
@@ -267,8 +264,10 @@ def dbscan_labels_cuda(
     launches; raises on any other input.  Launches on the current stream and
     does not synchronize.  ``phase_stamps``, an int64 CUDA tensor of
     ``len(PHASES) + 1`` elements, receives frame 0's ``%globaltimer`` (ns)
-    at the start of each launch and after each phase of the second."""
-    global LAUNCHES
+    at the start of each launch and after each phase of the second.
+    Counts the call under ``launch.dbscan``: one per call, whatever the
+    batch size, for its two launches (the mask pass, then the cluster
+    kernel)."""
     _check(point_planes, active)
     if active.device.type != "cuda":
         raise ValueError(f"dbscan_labels_cuda needs CUDA tensors, got {active.device}")
@@ -303,7 +302,7 @@ def dbscan_labels_cuda(
         )
     if err != 0:
         raise RuntimeError(f"DBSCAN kernel launch failed: cudaError_t {err}")
-    LAUNCHES += 1
+    timer.count("launch.dbscan")
     return out
 
 

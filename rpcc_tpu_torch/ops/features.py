@@ -23,6 +23,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from rpcc_tpu_torch.ops.const import device_const
 from rpcc_tpu_torch.ops.stream import fixed_order_cumsum
 
 NEAR_THRESHOLD = 0.2  # cpp_modules.cpp:11 (inert, see rpcc_tpu/ops/features.py)
@@ -188,7 +189,7 @@ def salience_levels_from_counts(
     class and clusters under 30 pixels -> the last level; otherwise the
     first level whose key-point threshold is met (the last is 0)."""
     num_levels = len(level_kp_num)
-    thresholds = torch.tensor(level_kp_num, dtype=torch.int32, device=kp_cnt.device)
+    thresholds = device_const(level_kp_num, torch.int32, kp_cnt.device)
     meets = (kp_cnt[..., None] >= thresholds).to(torch.int32)
     first = torch.argmax(meets, dim=-1).to(torch.int32)  # first met, or 0
     lvl = torch.where(counts < 30, num_levels - 1, first).to(torch.int32)

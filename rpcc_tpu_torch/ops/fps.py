@@ -24,9 +24,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
-# Launches of the CUDA kernel since the count was last reset (one per call
-# of :func:`furthest_point_sample_cuda`).
-LAUNCHES = 0
+from rpcc_tpu_torch.utils import timer
 
 
 def _planar_loop(xs, ys, zs, num_samples: int, valid: Optional[torch.Tensor]) -> torch.Tensor:
@@ -161,8 +159,7 @@ def furthest_point_sample_cuda(
     """The CUDA kernel on (B, N) or (N,) f32 CUDA tensors, masked by the
     int32 per-frame counts ``num_valid`` (read on the device) when given;
     raises on any other input.  Launches on the current stream and does not
-    synchronize."""
-    global LAUNCHES
+    synchronize.  Counts the launch under ``launch.fps``."""
     _check(xs, ys, zs, num_samples, num_valid)
     if xs.device.type != "cuda":
         raise ValueError(f"furthest_point_sample_cuda needs CUDA tensors, got {xs.device}")
@@ -188,7 +185,7 @@ def furthest_point_sample_cuda(
         )
     if err != 0:
         raise RuntimeError(f"FPS kernel launch failed: cudaError_t {err}")
-    LAUNCHES += 1
+    timer.count("launch.fps")
     return out[0] if squeeze else out
 
 

@@ -20,6 +20,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from rpcc_tpu_torch.ops import prng
+from rpcc_tpu_torch.ops.const import device_const
 from rpcc_tpu_torch.ops.ransac import fit_plane_weighted, smallest_eigvec_3x3
 from rpcc_tpu_torch.ops.stream import (
     StreamOrder,
@@ -151,7 +152,7 @@ def plane_models_stream(
     fnorm = torch.sqrt(torch.clamp(fa * fa + fb * fb + fc * fc, min=1e-24))
     cosang = torch.abs(fa * tx + fb * ty + fc * tz) / fnorm
     alpha = torch.arccos(torch.clamp(cosang, -1.0, 1.0))
-    thr = torch.tensor(math.pi * (angle_threshold_deg / 180.0), dtype=ri_s.dtype, device=ri_s.device)
+    thr = device_const(math.pi * (angle_threshold_deg / 180.0), ri_s.dtype, ri_s.device)
     viol = per_cluster_sums((alpha > thr).to(ri_s.dtype), order)
 
     use_plane = (viol == 0.0) & (counts >= MIN_PLANE_POINTS)

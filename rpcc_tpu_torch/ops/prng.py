@@ -22,6 +22,7 @@ from typing import Sequence, Tuple
 
 import torch
 
+from rpcc_tpu_torch.ops.const import device_const
 _MASK = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
 
@@ -38,7 +39,7 @@ def prng_key(seed, device) -> torch.Tensor:
         for s in vals if isinstance(vals, list) else [vals]:
             if not 0 <= s <= _MASK:
                 raise ValueError(f"seed {s} is not a uint32")
-        seeds = torch.tensor(vals, dtype=torch.int64, device=device)
+        seeds = device_const(vals, torch.int64, device)
     return torch.stack([torch.zeros_like(seeds), seeds], -1)
 
 

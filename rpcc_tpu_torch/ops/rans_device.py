@@ -65,7 +65,6 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-import threading
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -75,6 +74,7 @@ from rpcc_tpu_torch.ops.rans import (
     M, RansCode, cumulative, decode_streams_batch_ctx, encode_walk, joint_tables, wavefront_bit_context,
     zero_context, zigzag_magnitude_context,
 )
+from rpcc_tpu_torch.utils import timer
 
 RESID_LANES = 32  # = codec/rans_codec.py MAX_LANES: a container field
 ESC_CAP_DEV = 512  # per-frame escape capacity; past it the frame is coded on the host
@@ -86,12 +86,6 @@ MAX_CONTOUR_ROWS = 512  # csrc/rans.cu: contour lanes a block codes (walked 128 
 # csrc/rans.cu: a contour histogram thread counts 4 * ceil(H * T / 2048) steps
 # (512 threads, 4 a round) in 16-bit fields, so ceil(H * T / 2048) <= 16383.
 MAX_CONTOUR_STEPS = 16383 * 2048
-
-# Launches of the CUDA kernel since the count was last reset (one per call
-# of :func:`encode_fields_cuda`, whatever fields it codes; the codec's pool
-# threads launch concurrently, so the count rises under a lock).
-LAUNCHES = 0
-_LAUNCHES_LOCK = threading.Lock()
 # Spans timed by ``phase_stamps`` (csrc/rans.cu) in two blocks: frame 0's
 # residual stream (stamps 0-4) and frame 0's contour (stamps 5-9).
 PHASES = ("histogram", "normalize", "walk", "pack")
@@ -483,8 +477,9 @@ def _encode_launch(dev, ptr, res_shape, cnt_shape, phase_stamps) -> None:
     none) and the contour field of ``cnt_shape`` ((B, H, W, T), B None for
     none), its inputs, pieces and scratch at the addresses ``ptr(name)``
     gives ("q", "stream_len", "contour", :func:`_encode_outputs`' and
-    :func:`_encode_scratch`'s names).  Counts the launch."""
-    global LAUNCHES
+    :func:`_encode_scratch`'s names).  Counts the launch under
+    ``launch.rans_encode`` (one per call of :func:`encode_fields_cuda`,
+    whatever fields it codes)."""
     (br, width, lanes, t_res), (bc, H, W, t_cnt) = res_shape, cnt_shape
     res, cnt = br is not None, bc is not None
     fn = _kernel()
@@ -499,8 +494,7 @@ def _encode_launch(dev, ptr, res_shape, cnt_shape, phase_stamps) -> None:
         )
     if err != 0:
         raise RuntimeError(f"rANS kernel launch failed: cudaError_t {err}")
-    with _LAUNCHES_LOCK:
-        LAUNCHES += 1
+    timer.count("launch.rans_encode")
 
 
 def encode_fields_cuda(
@@ -661,10 +655,6 @@ def encode_contours_host(packed: np.ndarray, H: int, W: int, device) -> ContourP
 MODE_ZIGZAG, MODE_WAVEFRONT, MODE_ORDER0 = 0, 1, 2
 _DECODE_CTX = {MODE_ZIGZAG: zigzag_magnitude_context, MODE_WAVEFRONT: wavefront_bit_context, MODE_ORDER0: zero_context}
 _DECODE_TABLES = {MODE_ZIGZAG: NUM_CTX, MODE_WAVEFRONT: 4, MODE_ORDER0: 1}  # contexts C of the (B, C, A) freqs
-# Launches of the decode kernel since the count was last reset (one per call
-# of :func:`decode_fields_cuda` or :func:`decode_streams_cuda`, whatever
-# groups it decodes; rises under the encode's lock).
-DECODE_LAUNCHES = 0
 # Spans timed by ``phase_stamps`` (csrc/rans_decode.cu) in two blocks: the
 # residual group's frame 0 (stamps 0-3), the contour group's frame 0 (4-7).
 DECODE_PHASES = ("tables", "walk", "flush")
@@ -770,8 +760,9 @@ def _decode_launch(dev, ptr, shape_r, shape_c, mode: int, phase_stamps) -> None:
     with ``mode``'s contexts and the contour group of ``shape_c`` ((B, H,
     T), or None), each group's five inputs and its symbols at the addresses
     ``ptr(name)`` gives ("r_words" .. "r_freqs", "r_out"; "c_" the same).
-    Counts the launch."""
-    global DECODE_LAUNCHES
+    Counts the launch under ``launch.rans_decode`` (one per call of
+    :func:`decode_fields_cuda` or :func:`decode_streams_cuda`, whatever
+    groups it decodes)."""
     br, L, tr, C, A = shape_r or (0, 1, 1, 1, 1)
     bc, H, tc = shape_c or (0, 1, 1)
     names = [n for n, _ in _LANE_FIELDS] + ["out"]
@@ -782,8 +773,7 @@ def _decode_launch(dev, ptr, shape_r, shape_c, mode: int, phase_stamps) -> None:
                  None if phase_stamps is None else phase_stamps.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"rANS decode kernel launch failed: cudaError_t {err}")
-    with _LAUNCHES_LOCK:
-        DECODE_LAUNCHES += 1
+    timer.count("launch.rans_decode")
 
 
 def _decode_outputs(shape_r, shape_c):

@@ -22,6 +22,7 @@ from typing import Tuple
 import torch
 
 from rpcc_tpu_torch.ops import prng
+from rpcc_tpu_torch.ops.const import device_const
 from rpcc_tpu_torch.ops.stream import fixed_order_sum
 
 
@@ -71,7 +72,7 @@ def smallest_eigvec_3x3(a: torch.Tensor) -> torch.Tensor:
     v = torch.gather(c, -2, best[..., None, None].expand(*best.shape, 1, 3))[..., 0, :]
     nrm = torch.sqrt(torch.maximum(norms[..., 0], torch.maximum(norms[..., 1], norms[..., 2])))
     # Degenerate (isotropic) covariance: any direction is an eigenvector.
-    z = torch.tensor([0.0, 0.0, 1.0], dtype=a.dtype, device=a.device)
+    z = device_const([0.0, 0.0, 1.0], a.dtype, a.device)
     return torch.where(
         (nrm > 1e-20)[..., None], v / torch.clamp(nrm, min=1e-30)[..., None], z
     )

@@ -18,6 +18,7 @@ from typing import NamedTuple, Sequence, Tuple
 
 import torch
 
+from rpcc_tpu_torch.ops.const import device_const
 _IOTA_BITS = 18  # position field width; covers range images up to 2^18 px
 
 
@@ -180,7 +181,7 @@ def rays_from_perm(order: StreamOrder, lidar) -> Tuple[torch.Tensor, torch.Tenso
     W, H = lidar.width, lidar.height
     row = (order.perm // W).to(torch.float32)
     col = (order.perm % W).to(torch.float32)
-    f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=row.device)  # noqa: E731
+    f32 = lambda v: device_const(v, torch.float32, row.device)  # noqa: E731
     vfov = lidar.vertical_max - lidar.vertical_min
     alt = f32(vfov) * row / f32(H - 1) + f32(lidar.vertical_min)
     az = f32(lidar.horizontal_fov) * col / f32(W)

@@ -27,6 +27,13 @@ threads:
   4. finish   (caller)     entropy coding and framing on the pool (decode:
                            back-projection to points).
 
+Each stage runs in a span (``utils/timer.py``) named ``engine.<stage>``
+with its batch's number in the run, and the stages' waits in child spans:
+``engine.slot_wait`` (a ring slot's last upload), ``engine.device_wait``
+(the read of the batch's lengths, which waits for the graph) and
+``engine.copy_wait`` (the D2H copies).  The frames whose i16 stream comes
+back beside their device containers count under ``engine.stream_downloads``.
+
 Every device tensor read on a stream other than the one it was made on is
 marked with ``record_stream`` and stays referenced until the event of the
 copy that reads it, so the caching allocator never hands its memory to the
@@ -69,21 +76,24 @@ from rpcc_tpu_torch.models.pipeline import resolve_device
 from rpcc_tpu_torch.ops.projection_host import build_transform_map, build_transform_planes, project_for_encoder
 from rpcc_tpu_torch.ops.rans_device import ESC_CAP_DEV, RESID_LANES, contour_T, resid_T
 from rpcc_tpu_torch.parallel.aggregate import all_reduce_totals, batch_report, batch_totals
+from rpcc_tpu_torch.utils import timer
 
 RING_SLOTS = 3  # pinned upload buffers in flight
 
 
-def _timed_stage(fn, stats: dict, key: str, count: bool = False):
-    """Accumulate a pipeline stage's wall + thread-CPU seconds into stats."""
+def _timed_stage(fn, stats: Optional[dict], key: str, count: bool = False):
+    """``fn(batch, *a)``: the stage ``fn(*a)`` in the span ``engine.<key>``
+    of batch ``batch``; with ``stats``, its wall and thread-CPU seconds
+    (from the span's stamps) accumulate there."""
 
-    def wrapped(*a):
-        t0 = time.perf_counter()
-        c0 = time.thread_time()
-        r = fn(*a)
-        stats[key + "_s"] = stats.get(key + "_s", 0.0) + time.perf_counter() - t0
-        stats[key + "_cpu_s"] = stats.get(key + "_cpu_s", 0.0) + time.thread_time() - c0
-        if count:
-            stats["batches"] = stats.get("batches", 0) + 1
+    def wrapped(batch: int, *a):
+        with timer.span("engine." + key, batch, stamp=stats is not None) as sp:
+            r = fn(*a)
+        if stats is not None:
+            stats[key + "_s"] = stats.get(key + "_s", 0.0) + sp.wall_ns / 1e9
+            stats[key + "_cpu_s"] = stats.get(key + "_cpu_s", 0.0) + sp.cpu_ns / 1e9
+            if count:
+                stats["batches"] = stats.get("batches", 0) + 1
         return r
 
     return wrapped
@@ -181,7 +191,6 @@ class BatchEngine:
         self.decoder = Decoder(lidar, cfg).to(self.device)
         self.entropy = BasicCompressor(method_name=cfg.basic_compressor, contour_shape=(self.H, self.W),
                                        device=self.device)
-        self.stream_downloads = 0  # frames whose i16 stream came back beside their device containers
         self._cuda = self.device.type == "cuda"
         if self._cuda:
             self._copy = torch.cuda.Stream(self.device)
@@ -272,10 +281,11 @@ class BatchEngine:
         with self._ring_lock:
             slot = self._ring[self._ring_next]
             self._ring_next = (self._ring_next + 1) % len(self._ring)
-        slot.free.wait()
-        slot.free.clear()
-        if slot.h2d is not None:
-            slot.h2d.synchronize()
+        with timer.span("engine.slot_wait"):
+            slot.free.wait()
+            slot.free.clear()
+            if slot.h2d is not None:
+                slot.h2d.synchronize()
         delta = slot.delta.numpy()
 
         def one(i: int) -> None:
@@ -332,7 +342,9 @@ class BatchEngine:
             rows = [out.stream_len, out.seq_len]
             if self.encoder.device_entropy:
                 rows += [out.de_res_nw, out.de_cnt_nw, out.de_res_nesc]
-            lens = torch.stack([r.to(torch.int64) for r in rows]).cpu().numpy()
+            lens = torch.stack([r.to(torch.int64) for r in rows])
+            with timer.span("engine.device_wait"):
+                lens = lens.cpu().numpy()
             m_seq = max(int(lens[1].max()), 1)
             host = {
                 "sequence": self._download(out.sequence.view(torch.int16)[:, :m_seq]),
@@ -350,7 +362,7 @@ class BatchEngine:
                         "cnt_counts", "cnt_states", "cnt_freqs")},
                 )
                 stream_rows = np.flatnonzero((de_lens[2] > ESC_CAP_DEV) | (lens[0] <= rans_codec.BZD_TRY_MAX_SYMBOLS))
-                self.stream_downloads += int(stream_rows.size)
+                timer.count("engine.stream_downloads", int(stream_rows.size))
                 if stream_rows.size:
                     m = max(int(lens[0][stream_rows].max()), 1)
                     sel = out.stream[:, :m].index_select(0, torch.from_numpy(stream_rows).to(out.stream.device))
@@ -366,7 +378,8 @@ class BatchEngine:
         batched through the native coder, the rest on the pool), frame;
         with device entropy, assemble the big fields' containers instead."""
         if st.copied is not None:
-            st.copied.synchronize()
+            with timer.span("engine.copy_wait"):
+                st.copied.synchronize()
         h = {k: None if v is None else v.numpy() for k, v in st.host.items()}
         if st.de_lens is not None:
             return EncodedBatch(self._pool_map("entropy", lambda i: self._device_entropy_frame(st, h, i), st.live),
@@ -452,53 +465,58 @@ class BatchEngine:
 
         Yields one finished result per input, in order: the stacker runs
         ``prepare`` on input k, the uploader ``dispatch`` on k-1, the
-        downloader ``stage`` on k-2 and the caller ``finish`` on k-3.
-        ``stats`` (optional dict) accumulates ``<stage>_s`` wall and
-        ``<stage>_cpu_s`` thread-CPU seconds per stage, ``batches``, and
-        ``pool_<site>_cpu_s`` for the pool workers over the run."""
-        pool0 = None
-        if stats is not None:
-            prepare = _timed_stage(prepare, stats, "prepare")
-            dispatch = _timed_stage(dispatch, stats, "dispatch")
-            stage = _timed_stage(stage, stats, "stage")
-            finish = _timed_stage(finish, stats, "finish", count=True)
-            pool0 = self.pool_cpu_snapshot()
+        downloader ``stage`` on k-2 and the caller ``finish`` on k-3,
+        each in its span ``engine.<stage>`` of batch k (the input's number
+        in this run).  ``stats`` (optional dict) accumulates, from those
+        spans' stamps, ``<stage>_s`` wall and ``<stage>_cpu_s`` thread-CPU
+        seconds per stage, ``batches``, and ``pool_<site>_cpu_s`` for the
+        pool workers over the run."""
+        prepare = _timed_stage(prepare, stats, "prepare")
+        dispatch = _timed_stage(dispatch, stats, "dispatch")
+        stage = _timed_stage(stage, stats, "stage")
+        finish = _timed_stage(finish, stats, "finish", count=True)
+        pool0 = None if stats is None else self.pool_cpu_snapshot()
 
+        # (batch number, future) of each stage's batches in flight
         prepared: deque = deque()
         dispatched: deque = deque()
         staged: deque = deque()
 
         def to_dispatch():
-            fut = prepared.popleft()
-            dispatched.append(self._uploader.submit(lambda f=fut: dispatch(f.result())))
+            k, fut = prepared.popleft()
+            dispatched.append((k, self._uploader.submit(lambda f=fut, k=k: dispatch(k, f.result()))))
 
         def to_stage():
-            fut = dispatched.popleft()
-            staged.append(self._downloader.submit(lambda f=fut: stage(f.result())))
+            k, fut = dispatched.popleft()
+            staged.append((k, self._downloader.submit(lambda f=fut, k=k: stage(k, f.result()))))
+
+        def to_finish():
+            k, fut = staged.popleft()
+            return finish(k, fut.result())
 
         try:
-            for item in inputs:
-                prepared.append(self._stacker.submit(prepare, item))
+            for k, item in enumerate(inputs):
+                prepared.append((k, self._stacker.submit(prepare, k, item)))
                 if len(prepared) >= 2:
                     to_dispatch()
                 if len(dispatched) >= 2:
                     to_stage()
                 if len(staged) >= 2:
-                    yield finish(staged.popleft().result())
+                    yield to_finish()
             while prepared:
                 to_dispatch()
             while dispatched:
                 to_stage()
             while staged:
-                yield finish(staged.popleft().result())
+                yield to_finish()
         finally:
             # Let queued stages finish before returning, so no batch is
             # left touching a ring slot or a stream behind the caller, and
             # hand back the ring slots of batches that were never dispatched.
             for q in (prepared, dispatched, staged):
-                for fut in q:
+                for _, fut in q:
                     futures.wait([fut])
-            for fut in prepared:
+            for _, fut in prepared:
                 if fut.exception() is None and isinstance(fut.result(), _Prepared):
                     fut.result().slot.free.set()
             if pool0 is not None:

@@ -1,1 +1,1 @@
-"""Helpers around the codec: profiling, stage timers and traces, sizes, headless renderers."""
+"""Helpers around the codec: profiling, spans and counters, sizes, headless renderers."""

@@ -28,6 +28,7 @@ from rpcc_tpu_torch.config import CodecConfig
 from rpcc_tpu_torch.data import lidar_config
 from rpcc_tpu_torch.data.synth import synth_cloud_for
 from rpcc_tpu_torch.ops import rans_device
+from rpcc_tpu_torch.utils import timer
 
 torch.set_num_threads(1)
 
@@ -317,9 +318,9 @@ def test_cuda_staged_wrappers_equal_the_kernel_on_uploaded_tensors(cuda_device, 
     kernels launched on tensors uploaded one at a time, one launch each."""
     lengths = [L * T, 0, 1, L * T // 2 + 3]
     arrays = [_walk(n, n + L) for n in lengths]
-    before = rans_device.LAUNCHES
+    before = timer.counters()
     got = rans_device.encode_streams_host(arrays, L, T, cuda_device)
-    assert rans_device.LAUNCHES == before + 1
+    assert timer.counters_since(before).get("launch.rans_encode", 0) == 1
     q, n = rans_device.upload_streams(arrays, cuda_device)
     want = rans_device.encode_streams_cuda(q, n, L, T)
     for name, a, b in zip(want._fields, got, want):
@@ -333,8 +334,8 @@ def test_cuda_staged_wrappers_equal_the_kernel_on_uploaded_tensors(cuda_device, 
     words, counts, states = (np.asarray(x) for x in (got.words.view(np.uint16), got.counts, got.states))
     lanes = (words.reshape(len(arrays), L, T), counts, states.astype(np.uint32),
              np.stack([np.clip(m - np.arange(L) * T, 0, T) for m in lengths]).astype(np.int32), got.freqs)
-    before = rans_device.DECODE_LAUNCHES
+    before = timer.counters()
     sym, _ = rans_device.decode_fields_host(lanes, None, rans_device.MODE_ZIGZAG, cuda_device)
-    assert rans_device.DECODE_LAUNCHES == before + 1
+    assert timer.counters_since(before).get("launch.rans_decode", 0) == 1
     plain = rans_device.decode_streams_cuda(*rans_device.upload_decode_lanes(*lanes, cuda_device), rans_device.MODE_ZIGZAG)
     assert np.array_equal(sym, plain.cpu().numpy())

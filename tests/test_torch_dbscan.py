@@ -23,6 +23,7 @@ from rpcc_tpu.ops.dbscan import _dbscan_range_image_jnp
 from rpcc_tpu.ops.dbscan_pallas import dbscan_labels_pallas
 from rpcc_tpu.ops.projection import build_transform_planes, project_points_host_u16
 from rpcc_tpu_torch.ops import dbscan, prng, segment
+from rpcc_tpu_torch.utils import timer
 
 torch.set_num_threads(1)
 
@@ -245,9 +246,9 @@ def test_segment_dbscan_matches_reference(seed):
 
 def test_cpu_dispatch_never_counts_a_launch():
     pc, active, eps = scene_basic()
-    before = dbscan.LAUNCHES
+    before = timer.counters()
     dbscan.dbscan_labels(T(_planes(pc)), T(active), eps)
-    assert dbscan.LAUNCHES == before
+    assert timer.counters_since(before).get("launch.dbscan", 0) == 0
 
 
 def test_wrapper_rejects_bad_inputs():
@@ -309,9 +310,9 @@ def cuda_device():
 def test_cuda_kernel_matches_plain(cuda_device, name):
     pc, active, eps = {**SCENES, **TWO_ROW}[name]()
     planes, act = T(_planes(pc)).to(cuda_device), T(active).to(cuda_device)
-    before = dbscan.LAUNCHES
+    before = timer.counters()
     got = dbscan.dbscan_labels(planes, act, eps)
-    assert dbscan.LAUNCHES == before + 1
+    assert timer.counters_since(before).get("launch.dbscan", 0) == 1
     ref = dbscan.dbscan_labels_planar(planes, act, eps)
     torch.cuda.synchronize(cuda_device)
     assert torch.equal(got, ref)
@@ -327,9 +328,9 @@ def test_cuda_kernel_batched_matches_plain_and_single(cuda_device):
     active = np.stack([s[1] for s in scenes] + [np.zeros_like(scenes[0][1])])
     planes = T(np.ascontiguousarray(np.transpose(pc, (0, 3, 1, 2)))).to(cuda_device)
     act = T(active).to(cuda_device)
-    before = dbscan.LAUNCHES
+    before = timer.counters()
     got = dbscan.dbscan_labels(planes, act, 1.2)
-    assert dbscan.LAUNCHES == before + 1
+    assert timer.counters_since(before).get("launch.dbscan", 0) == 1
     ref = dbscan.dbscan_labels_planar(planes, act, 1.2)
     single = torch.stack([dbscan.dbscan_labels(planes[b].contiguous(), act[b], 1.2) for b in range(3)])
     torch.cuda.synchronize(cuda_device)
@@ -359,9 +360,9 @@ def test_cuda_batch8_both_cluster_sizes(cuda_device, cluster, monkeypatch):
     planes = T(np.ascontiguousarray(np.stack([np.transpose(s[0], (2, 0, 1)) for s in scenes]))).to(cuda_device)
     act = T(np.stack([s[1] for s in scenes])).to(cuda_device)
     monkeypatch.setattr(dbscan, "launch_plan", lambda b, h, w, _: dbscan.plan_for(h, w, cluster))
-    before = dbscan.LAUNCHES
+    before = timer.counters()
     got = dbscan.dbscan_labels(planes, act, 1.2)
-    assert dbscan.LAUNCHES == before + 1
+    assert timer.counters_since(before).get("launch.dbscan", 0) == 1
     ref = dbscan.dbscan_labels_planar(planes, act, 1.2)
     single = torch.stack([dbscan.dbscan_labels(planes[b].contiguous(), act[b], 1.2) for b in range(8)])
     torch.cuda.synchronize(cuda_device)

@@ -10,6 +10,7 @@ import torch
 from rpcc_tpu.ops.fps import furthest_point_sample_planar as jax_fps
 from rpcc_tpu.ops.fps_pallas import furthest_point_sample_pallas
 from rpcc_tpu_torch.ops import fps
+from rpcc_tpu_torch.utils import timer
 
 torch.set_num_threads(1)
 
@@ -67,9 +68,9 @@ def test_ties_pick_lowest_index():
 
 def test_cpu_dispatch_never_counts_a_launch():
     xs, ys, zs = (torch.from_numpy(a) for a in _batch_inputs())
-    before = fps.LAUNCHES
+    before = timer.counters()
     fps.furthest_point_sample(xs, ys, zs, 4)
-    assert fps.LAUNCHES == before
+    assert timer.counters_since(before).get("launch.fps", 0) == 0
 
 
 def test_wrapper_rejects_bad_inputs():
@@ -127,9 +128,9 @@ def test_cuda_kernel_matches_plain(cuda_device, shape):
     if N == 400000:
         pts[:, :, -1000:] = 300.0  # far points among the ones each CTA streams from device memory
     xs, ys, zs = (torch.from_numpy(p).to(cuda_device) for p in pts)
-    before = fps.LAUNCHES
+    before = timer.counters()
     got = fps.furthest_point_sample(xs, ys, zs, K)
-    assert fps.LAUNCHES == before + 1
+    assert timer.counters_since(before).get("launch.fps", 0) == 1
     ref = fps.furthest_point_sample_planar(xs, ys, zs, K)
     torch.cuda.synchronize(cuda_device)
     assert torch.equal(got, ref)
@@ -180,9 +181,9 @@ def test_cuda_masked_kernel_matches_plain(cuda_device, shape, counts):
         pts[:, :, 350000:351000] = 900.0  # farther still, but past the count: never picked
     xs, ys, zs = (torch.from_numpy(p).to(cuda_device) for p in pts)
     cnt = torch.tensor(counts, dtype=torch.int32, device=cuda_device)
-    before = fps.LAUNCHES
+    before = timer.counters()
     got = fps.furthest_point_sample(xs, ys, zs, K, num_valid=cnt)
-    assert fps.LAUNCHES == before + 1
+    assert timer.counters_since(before).get("launch.fps", 0) == 1
     ref = fps.furthest_point_sample_planar_masked(xs, ys, zs, cnt, K)
     single = torch.stack([fps.furthest_point_sample_cuda(xs[b], ys[b], zs[b], K, cnt[b : b + 1]) for b in range(B)])
     torch.cuda.synchronize(cuda_device)

@@ -39,6 +39,7 @@ from rpcc_tpu_torch.models.encoder import Encoder, make_batch_encoder, make_enco
 from rpcc_tpu_torch.models.pipeline import RPCCCodec
 from rpcc_tpu_torch.ops.projection_host import build_transform_map
 from rpcc_tpu_torch.ops.stream import stream_sort
+from rpcc_tpu_torch.utils import timer
 
 torch.set_num_threads(1)
 
@@ -198,19 +199,18 @@ def test_cuda_points_encode_matches_cpu(cuda_device, mode):
     """On the card: one FPS (or DBSCAN) wrapper call and one rANS launch
     per encode, repeat encodes identical, and the card's blob decodes on
     the CPU within the bound with its bpp within 0.5% of the CPU encode's."""
-    from rpcc_tpu_torch.ops import dbscan, fps, rans_device
-
     lidar, over = MODES[mode]
     cfg = CodecConfig(cluster_num=16, **over)
     pc = scene(lidar, 10)
     encode = make_encoder(lidar, cfg, device=cuda_device)
     encode(pc, SEED, cfg.step)
     torch.cuda.synchronize()
-    fps.LAUNCHES = dbscan.LAUNCHES = rans_device.LAUNCHES = 0
+    before = timer.counters()
     out = encode(pc, SEED, cfg.step)
     torch.cuda.synchronize()
     seg = "dbscan" if cfg.segment_method == "DBSCAN" else "fps"
-    launches = {"fps": fps.LAUNCHES, "dbscan": dbscan.LAUNCHES, "rans": rans_device.LAUNCHES}
+    n = timer.counters_since(before)
+    launches = {k: n.get("launch." + c, 0) for k, c in (("fps", "fps"), ("dbscan", "dbscan"), ("rans", "rans_encode"))}
     assert launches == {"fps": 0, "dbscan": 0, "rans": 1, seg: 1}
     _assert_outputs_equal(out, encode(pc, SEED, cfg.step))
 

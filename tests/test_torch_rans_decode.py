@@ -22,6 +22,7 @@ from rpcc_tpu.codec import rans_codec as ref_codec
 from rpcc_tpu.ops import rans as ref_rans
 from rpcc_tpu_torch.codec import rans_codec, rans_native
 from rpcc_tpu_torch.ops import rans, rans_device
+from rpcc_tpu_torch.utils import timer
 
 torch.set_num_threads(1)
 
@@ -574,10 +575,10 @@ def _card_case(case: str):
                                   "garbage_zigzag", "garbage_order0", "garbage_wavefront"])
 def test_cuda_decode_kernel_equals_plain(cuda_device, case):
     words, counts, states, lives, freqs, mode = _card_case(case)
-    before = rans_device.DECODE_LAUNCHES
+    before = timer.counters()
     got = rans_device.decode_streams_device(words, counts, states, lives, freqs, mode, cuda_device)
     torch.cuda.synchronize(cuda_device)
-    assert rans_device.DECODE_LAUNCHES == before + 1
+    assert timer.counters_since(before).get("launch.rans_decode", 0) == 1
     want = rans_device.decode_streams_device(words, counts, states, lives, freqs, mode, "cpu")
     assert torch.equal(got.cpu(), want)
     if not case.startswith("garbage"):
@@ -611,12 +612,12 @@ def test_cuda_default_backend_decodes_the_containers(cuda_device):
     h_blobs, h_want = _host_residual_blobs()
     d_blobs, d_want = _device_residual_blobs()
     c_blobs, c_want = _host_contour_blobs(32, 2250)
-    before = rans_device.DECODE_LAUNCHES
+    before = timer.counters()
     blobs = h_blobs + d_blobs + [_order0_blob(np.arange(900, dtype=np.int16) % 5)]
     assert rans_codec.decompress_delta_batch(blobs, cuda_device)[:8] == h_want + d_want
     assert rans_codec.decompress_contour_batch(c_blobs, cuda_device) == c_want
     lanes = {b[1] for b in h_blobs + d_blobs if b[0] == rans_codec.MAGIC_CTX}
-    assert rans_device.DECODE_LAUNCHES == before + len(lanes) + 2
+    assert timer.counters_since(before).get("launch.rans_decode", 0) == len(lanes) + 2
 
 
 def _counted_lanes(mode: int, B: int, L: int, T: int, counts, seed: int):
@@ -673,9 +674,9 @@ def test_cuda_fields_launch_equals_plain(cuda_device, case):
     with no word; the skewed and uniform tables; contours of H 1, 33, 64
     and 512."""
     res, cnt, mode, coded = _fields_case(case)
-    before = rans_device.DECODE_LAUNCHES
+    before = timer.counters()
     host = rans_device.decode_fields_host(res, cnt, mode, cuda_device)
-    assert rans_device.DECODE_LAUNCHES == before + 1
+    assert timer.counters_since(before).get("launch.rans_decode", 0) == 1
     for g, lanes, m in ((host[0], res, mode), (host[1], cnt, rans_device.MODE_WAVEFRONT)):
         if lanes is None:
             assert g is None

@@ -38,6 +38,7 @@ from rpcc_tpu_torch.cli import common as cli_common
 from rpcc_tpu_torch.codec import rans_codec, rans_native
 from rpcc_tpu_torch.config import CodecConfig, LidarConfig, load_codec_config
 from rpcc_tpu_torch.ops import rans, rans_device
+from rpcc_tpu_torch.utils import timer
 
 torch.set_num_threads(1)
 
@@ -605,10 +606,10 @@ _CHUNK_EDGES = [431, 432, 433, 3 * 560 + 47, 3 * 560 + 48, 3 * 560 + 49]
 )
 def test_cuda_kernel_equals_plain(cuda_device, B, H, W, lens, esc):
     q, n, contour = _card_inputs(cuda_device, B, H, W, lens, esc)
-    before = rans_device.LAUNCHES
+    before = timer.counters()
     res, cnt = rans_device.encode_fields_cuda(q, n, contour)
     torch.cuda.synchronize(cuda_device)
-    assert rans_device.LAUNCHES == before + 1
+    assert timer.counters_since(before).get("launch.rans_encode", 0) == 1
     ref_res = rans_device.encode_residual_field_plain(q, n)
     ref_cnt = rans_device.encode_contour_field_plain(contour)
     for name, a, b in zip(RES_NAMES, res, ref_res):

@@ -27,6 +27,7 @@ from rpcc_tpu.codec import rans_codec as ref_codec
 from rpcc_tpu.ops import rans as ref_rans
 from rpcc_tpu_torch.codec import rans_codec
 from rpcc_tpu_torch.ops import rans, rans_device
+from rpcc_tpu_torch.utils import timer
 
 torch.set_num_threads(1)
 
@@ -441,10 +442,10 @@ def test_cuda_kernel_equals_plain_at_host_geometry(cuda_device, lanes):
     spiky = _walk(n_max, 4, np.int32)
     spiky[:: max(n_max // 600, 1)] += rng.integers(3000, 9000, spiky[:: max(n_max // 600, 1)].size, dtype=np.int32)
     q, n = rans_device.upload_streams(frames + [wide, spiky], cuda_device)
-    before = rans_device.LAUNCHES
+    before = timer.counters()
     got = rans_device.encode_streams_cuda(q, n, lanes, T)
     torch.cuda.synchronize(cuda_device)
-    assert rans_device.LAUNCHES == before + 1
+    assert timer.counters_since(before).get("launch.rans_encode", 0) == 1
     want = rans_device.encode_streams_plain(q, n, lanes, T)
     for name, a, b in zip(want._fields, got, want):
         assert a.shape == b.shape and torch.equal(a, b), name
@@ -471,11 +472,11 @@ def test_cuda_default_backend_bytes_equal_the_native_backends(cuda_device, monke
     packed = [np.packbits(np.random.default_rng(s).random(64 * 2000) < 0.05) for s in range(4)]
     want = ([rans_codec.compress(a) for a in arrays], rans_codec._compress_delta_batch_np(mixed),
             rans_codec.compress_contour_batch(packed, 64, 2000))
-    before = rans_device.LAUNCHES
+    before = timer.counters()
     assert [rans_codec.compress(a, device=cuda_device) for a in arrays] == want[0]
     assert rans_codec.compress_delta_batch(mixed, device=cuda_device) == want[1]
     assert rans_codec.compress_contour_batch(packed, 64, 2000, cuda_device) == want[2]
-    assert rans_device.LAUNCHES == before + len(arrays) + 2
+    assert timer.counters_since(before).get("launch.rans_encode", 0) == len(arrays) + 2
     tall = np.packbits(np.zeros(rans_device.MAX_CONTOUR_ROWS + 1, np.uint8))
     with pytest.raises(ValueError, match="contour rows"):
         rans_codec.compress_contour(tall, rans_device.MAX_CONTOUR_ROWS + 1, 1, cuda_device)
@@ -491,11 +492,11 @@ def test_cuda_concurrent_encodes_count_every_launch(cuda_device, monkeypatch):
 
     arrays = [_walk(n, n) for n in range(3000, 3000 + 64 * 37, 37)]
     want = [rans_codec.compress(a) for a in arrays]
-    before, interval = rans_device.LAUNCHES, sys.getswitchinterval()
+    before, interval = timer.counters(), sys.getswitchinterval()
     sys.setswitchinterval(1e-6)
     try:
         with ThreadPoolExecutor(4 * (os.cpu_count() or 1)) as pool:
             got = list(pool.map(lambda a: rans_codec.compress(a, device=cuda_device), arrays, timeout=300))
     finally:
         sys.setswitchinterval(interval)
-    assert got == want and rans_device.LAUNCHES == before + len(arrays)
+    assert got == want and timer.counters_since(before).get("launch.rans_encode", 0) == len(arrays)

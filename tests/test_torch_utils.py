@@ -1,11 +1,9 @@
-"""The port's host utilities (``rpcc_tpu_torch/utils``): the stage timer,
-the trace context, the size helpers and config loader (against
-``rpcc_tpu``'s), and the headless renderers."""
+"""The port's host utilities (``rpcc_tpu_torch/utils``): the size helpers
+and config loader (against ``rpcc_tpu``'s), and the headless renderers
+(the spans and counters of ``utils/timer.py``: ``test_torch_tracing.py``)."""
 
 import dataclasses
-import json
 import os
-import time
 
 import numpy as np
 import pytest
@@ -13,34 +11,9 @@ import torch
 
 from rpcc_tpu.utils import helpers as ref_helpers
 from rpcc_tpu_torch.config import DEFAULT_CODEC_YAML
-from rpcc_tpu_torch.utils import helpers, timer
+from rpcc_tpu_torch.utils import helpers
 
 torch.set_num_threads(1)
-
-
-def test_stage_timer_accumulates_and_reports():
-    t = timer.StageTimer()
-    time.sleep(0.01)
-    assert t.mark("load") >= 0.01
-    with t.stage("encode"):
-        time.sleep(0.005)
-    with t.stage("encode"):
-        pass
-    t.mark("load")
-    assert list(t.durations) == ["load", "encode"] and t.durations["encode"] >= 0.005
-    lines = t.report("  ").splitlines()
-    assert lines[0].startswith("  load: ") and lines[1].startswith("  encode: ")
-    assert lines[-1] == f"  total: {sum(t.durations.values()):.6f}s"
-
-
-def test_device_trace_writes_a_chrome_trace(tmp_path):
-    with timer.device_trace(str(tmp_path / "trace")):
-        (torch.arange(1000.0) * 2).sum()
-    with open(tmp_path / "trace" / timer.TRACE_FILE) as f:
-        trace = json.load(f)
-    assert any("mul" in e.get("name", "") for e in trace["traceEvents"])
-    with timer.device_trace(None):  # records nothing
-        pass
 
 
 def test_helpers_equal_reference(tmp_path):
