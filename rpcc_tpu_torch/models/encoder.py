@@ -23,6 +23,28 @@ in the span ``graph`` (``utils/timer.py``), its parts in ``graph.segment``,
 entropy): nothing in it waits for the device, so they time the host's
 issue of its launches.
 
+On a card the graph's ~2,200 small launches cost far more to issue from
+Python than to run, so :meth:`Encoder.forward` keeps one CUDA graph per
+input key (device, B, H, W, ``q``'s dtype and the step; an unbatched call
+is the B = 1 batch) and replays it:
+
+1. the first call of a key runs the graph eagerly (``graph.eager``), so a
+   one-shot compress or a ragged last batch pays nothing more;
+2. the second allocates static inputs (``q``, the f32 ``delta``, the
+   int64 seeds), captures the graph over them on a side stream
+   (``graph.captures``; the parts' spans as in an eager call) and replays
+   it as a later call does;
+3. every later call copies its inputs into the static ones, replays the
+   graph on the current stream and returns clones of its static outputs,
+   made on that stream, so the caller keeps them while the next replay
+   runs (``graph.replays``, in the span ``graph.replay``).
+
+The captured graph reads device memory only: the graph's fixed constants
+are kept on the card (``ops/const.py``) and the inputs reach it through
+the static tensors.  The hand-written kernels run as its nodes; the
+``launch.*`` counters count them at each replay, not at the capture.  The
+CPU path stays eager.
+
 Raw (N, 3) clouds (the reference's ``from_ri=False`` entry) are projected
 on the module's device (``ops/projection.py``) and run through the same
 graph as f32 range images with delta 1: :meth:`Encoder.encode_points`,
@@ -32,7 +54,8 @@ graph as f32 range images with delta 1: :meth:`Encoder.encode_points`,
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional, Sequence, Union
+import threading
+from typing import Dict, NamedTuple, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -101,6 +124,50 @@ class EncoderOutput(NamedTuple):
     de_cnt_freqs: Optional[torch.Tensor] = None  # (B, 4, 2) int32
 
 
+_SEEN = object()  # a key whose eager call has run
+
+
+class _Captured:
+    """One key's CUDA graph of :meth:`Encoder._graph` over static inputs,
+    its static outputs, the counts its capture held back and the event
+    after the last replay's clones."""
+
+    def __init__(self, enc: "Encoder", q: torch.Tensor, step):
+        B = q.shape[0]
+        dev = q.device
+        self.q = torch.empty(q.shape, dtype=q.dtype, device=dev)
+        self.delta = torch.empty((B,), dtype=torch.float32, device=dev)
+        self.seed = torch.empty((B,), dtype=torch.int64, device=dev)
+        self.graph = torch.cuda.CUDAGraph()
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        # thread_local: the engine's other threads copy and synchronise
+        # while this one captures.
+        with timer.holding_counts() as held, torch.cuda.graph(self.graph, stream=side,
+                                                              capture_error_mode="thread_local"):
+            self.out = enc._graph(self.q, self.delta, self.seed, step)
+        self.held = held
+        self.done = torch.cuda.Event()
+        timer.count("graph.captures")
+
+    def replay(self, q: torch.Tensor, delta: torch.Tensor, seed) -> EncoderOutput:
+        """The graph on the caller's inputs, on the current stream, after
+        the last replay's clones (on whatever stream they ran)."""
+        with timer.span("graph.replay"):
+            stream = torch.cuda.current_stream(q.device)
+            stream.wait_event(self.done)
+            self.q.copy_(q)
+            self.delta.copy_(delta)
+            self.seed.copy_(prng.seed_words(seed, q.device))
+            self.graph.replay()
+            out = EncoderOutput(*(None if t is None else t.clone() for t in self.out))
+            self.done.record(stream)
+        for name, n in self.held.items():
+            timer.count(name, n)
+        timer.count("graph.replays")
+        return out
+
+
 class Encoder(nn.Module):
     """Batched encoder over a (3, H, W) ray table (e.g. the JAX package's
     ``build_transform_planes`` output); ``.to(device)`` moves the table."""
@@ -119,10 +186,21 @@ class Encoder(nn.Module):
         if not lidar.even_dist:
             v_angles = torch.tensor([a * math.pi / 180.0 for a in lidar.vertical_angles_deg], dtype=torch.float32)
         self.register_buffer("v_angles", v_angles)
+        # CUDA graphs by input key: _SEEN after the key's eager call, then
+        # its _Captured.
+        self._captures: Dict[tuple, object] = {}
+        self._captures_lock = threading.Lock()
 
     @classmethod
     def for_lidar(cls, lidar: LidarConfig, cfg: CodecConfig) -> "Encoder":
         return cls(lidar, cfg, build_transform_planes(lidar))
+
+    def _apply(self, fn, *args, **kwargs):
+        # A captured graph reads the buffers where they were: moving them
+        # drops the graphs.
+        with self._captures_lock:
+            self._captures.clear()
+        return super()._apply(fn, *args, **kwargs)
 
     @torch.no_grad()
     def forward(
@@ -134,10 +212,28 @@ class Encoder(nn.Module):
         the step of each salience level.  A single (H, W) grid with a 0-d
         delta and an int seed gives unbatched outputs."""
         with timer.span("graph"):
-            if q.ndim == 2:
-                out = self._graph(q[None], delta.reshape(1), [seed], step)
-                return EncoderOutput(*(None if f is None else f[0] for f in out))
-            return self._graph(q, delta, seed, step)
+            single = q.ndim == 2
+            if single:
+                q, delta, seed = q[None], delta.reshape(1), [seed]
+            if q.device.type == "cuda":
+                out = self._on_card(q, delta, seed, step)
+            else:
+                out = self._graph(q, delta, seed, step)
+            return EncoderOutput(*(None if f is None else f[0] for f in out)) if single else out
+
+    def _on_card(self, q: torch.Tensor, delta: torch.Tensor, seed, step) -> EncoderOutput:
+        """The batched graph on a card: eager at a key's first call, then
+        captured and replayed (the module docstring)."""
+        key = (q.device, *q.shape, q.dtype, np.shape(step), tuple(np.ravel(step).tolist()))
+        with self._captures_lock:
+            cap = self._captures.get(key)
+            if cap is not None:
+                if cap is _SEEN:
+                    cap = self._captures[key] = _Captured(self, q, step)
+                return cap.replay(q, delta, seed)
+            self._captures[key] = _SEEN
+        timer.count("graph.eager")
+        return self._graph(q, delta, seed, step)
 
     def _graph(self, q: torch.Tensor, delta: torch.Tensor, seed, step) -> EncoderOutput:
         """The batched graph of :meth:`forward`."""

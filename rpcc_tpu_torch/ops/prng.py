@@ -22,24 +22,32 @@ from typing import Sequence, Tuple
 
 import torch
 
-from rpcc_tpu_torch.ops.const import device_const
+from rpcc_tpu_torch.ops.const import upload
+
 _MASK = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
 
 
+def seed_words(seed, device) -> torch.Tensor:
+    """Seeds as int64 words on ``device``: an int gives a 0-d tensor, a
+    sequence or (B,) tensor of seeds a (B,) one.  Python seeds are
+    range-checked on the host and go up without a wait (``const.upload``);
+    a tensor is taken as it is (checking a device tensor would wait for the
+    device)."""
+    if isinstance(seed, torch.Tensor):
+        return seed.to(device=device, dtype=torch.int64)
+    vals = [int(s) for s in seed] if isinstance(seed, (list, tuple, range)) else int(seed)
+    for s in vals if isinstance(vals, list) else [vals]:
+        if not 0 <= s <= _MASK:
+            raise ValueError(f"seed {s} is not a uint32")
+    return upload(vals, torch.int64, device)
+
+
 def prng_key(seed, device) -> torch.Tensor:
     """``jax.random.PRNGKey(np.uint32(seed))``: the words ``[0, seed]``.
-    A sequence or (B,) tensor of seeds gives (B, 2) keys.  Python seeds
-    are range-checked on the host; a tensor is taken as it is (checking
-    a device tensor would wait for the device)."""
-    if isinstance(seed, torch.Tensor):
-        seeds = seed.to(device=device, dtype=torch.int64)
-    else:
-        vals = [int(s) for s in seed] if isinstance(seed, (list, tuple, range)) else int(seed)
-        for s in vals if isinstance(vals, list) else [vals]:
-            if not 0 <= s <= _MASK:
-                raise ValueError(f"seed {s} is not a uint32")
-        seeds = device_const(vals, torch.int64, device)
+    A sequence or (B,) tensor of seeds gives (B, 2) keys
+    (:func:`seed_words`)."""
+    seeds = seed_words(seed, device)
     return torch.stack([torch.zeros_like(seeds), seeds], -1)
 
 

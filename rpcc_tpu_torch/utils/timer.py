@@ -15,9 +15,11 @@ callers that keep their own totals (the engine's ``stats``, the codec's
 timing dicts) from the same stamps.
 
 :func:`count` adds to a process-wide counter that is always on (kernel
-launches, the engine's stream downloads); :func:`counters` reads them
-all, and :func:`counters_since` the differences since an earlier read.
-Nothing resets a counter: callers read differences.
+launches, the engine's stream downloads, the encoder's eager calls,
+captures and replays); :func:`counters` reads them all, and
+:func:`counters_since` the differences since an earlier read.  Nothing
+resets a counter: callers read differences.  :func:`holding_counts` holds
+one thread's counts back, for a CUDA graph's capture.
 """
 
 from __future__ import annotations
@@ -149,9 +151,28 @@ def recording() -> Iterator[Recording]:
 
 
 def count(name: str, n: int = 1) -> None:
-    """Add ``n`` to the counter ``name``."""
+    """Add ``n`` to the counter ``name`` (inside :func:`holding_counts` on
+    this thread, to the held counts instead)."""
+    held = getattr(_local, "held", None)
+    if held is not None:
+        held[name] = held.get(name, 0) + n
+        return
     with _counts_lock:
         _counts[name] = _counts.get(name, 0) + n
+
+
+@contextlib.contextmanager
+def holding_counts() -> Iterator[Dict[str, int]]:
+    """Hold back this thread's counts for the body: they go into the yielded
+    dict, not the process's counters.  A CUDA graph's capture runs nothing,
+    so its launches are held and counted at each replay."""
+    held: Dict[str, int] = {}
+    outer = getattr(_local, "held", None)
+    _local.held = held
+    try:
+        yield held
+    finally:
+        _local.held = outer
 
 
 def counters() -> Dict[str, int]:

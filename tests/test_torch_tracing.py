@@ -155,6 +155,25 @@ def test_counters_add_up_across_threads_and_read_by_difference():
     assert timer.counters()["test.tracing.hits"] == before.get("test.tracing.hits", 0) + 32_005
 
 
+def test_held_counts_stay_on_their_thread_until_added():
+    """``holding_counts`` keeps one thread's counts out of the counters
+    (a CUDA graph's capture) while other threads' counts still land."""
+    before = timer.counters()
+    with timer.holding_counts() as held:
+        timer.count("test.tracing.held", 3)
+        other = threading.Thread(target=lambda: timer.count("test.tracing.held", 2))
+        other.start()
+        other.join(timeout=60)
+        with timer.holding_counts() as inner:
+            timer.count("test.tracing.held")
+        timer.count("test.tracing.held", 4)
+    assert not other.is_alive()
+    assert held == {"test.tracing.held": 7} and inner == {"test.tracing.held": 1}
+    assert timer.counters_since(before) == {"test.tracing.held": 2}
+    timer.count("test.tracing.held", 5)
+    assert timer.counters_since(before) == {"test.tracing.held": 7}
+
+
 def test_spans_share_the_profilers_clock():
     """A lone operator between two sleeps lies inside its span, within
     0.5 ms of both ends; over a traced CPU encode, every operator that
@@ -200,8 +219,10 @@ def cuda_device():
 def test_cuda_encoder_graph_never_synchronises(cuda_device, mode):
     """``Encoder.forward`` on the card under ``set_sync_debug_mode("error")``,
     batched (the engine's device seeds, device entropy) and single-frame (an
-    int seed, the codec's path): nothing in the graph waits for the device,
-    so the ``graph`` spans time the host's issue alone."""
+    int seed, the codec's path): neither a key's eager call nor its replays
+    wait for the device, so the ``graph`` spans time the host's issue alone.
+    The eager call and the capture (which drains the device before it
+    captures) span the graph's parts; a replay spans ``graph.replay``."""
     from rpcc_tpu_torch.data import VELODYNE_32E_CSV, lidar_config
     from rpcc_tpu_torch.models.encoder import Encoder
     from rpcc_tpu_torch.ops.projection_host import project_for_encoder
@@ -216,20 +237,34 @@ def test_cuda_encoder_graph_never_synchronises(cuda_device, mode):
     q = torch.from_numpy(np.stack(q).astype(np.int32)).to(cuda_device)
     d = torch.tensor(d, dtype=torch.float32).to(cuda_device)
     seeds = torch.tensor([7, 8], dtype=torch.int64).to(cuda_device)
-    batched = Encoder.for_lidar(lidar, cfg).to(cuda_device)
-    single = Encoder.for_lidar(lidar, cfg.replace(device_entropy=False)).to(cuda_device)
-    runs = ((batched, (q, d, seeds, step)), (single, (q[0], d[0], 7, step)))
-    want = [enc(*args) for enc, args in runs]  # warm-up: kernels built and loaded
+    calls = ((q, d, seeds, step), (q[0], d[0], 7, step))
+
+    def encoders():
+        return (Encoder.for_lidar(lidar, cfg).to(cuda_device),
+                Encoder.for_lidar(lidar, cfg.replace(device_entropy=False)).to(cuda_device))
+
+    want = [enc(*args) for enc, args in zip(encoders(), calls)]  # warm-up: kernels built and loaded
     torch.cuda.synchronize(cuda_device)
-    with timer.recording() as rec:
+    runs = list(zip(encoders(), calls))
+
+    def unsynchronised():
         torch.cuda.set_sync_debug_mode("error")
         try:
-            got = [enc(*args) for enc, args in runs]
+            return [enc(*args) for enc, args in runs]
         finally:
             torch.cuda.set_sync_debug_mode(0)
+
+    with timer.recording() as rec:
+        got = unsynchronised()  # each key's eager call
+        got += [enc(*args) for enc, args in runs]  # its capture, and a replay
+        torch.cuda.synchronize(cuda_device)
+        got += unsynchronised() + unsynchronised()  # replays
     torch.cuda.synchronize(cuda_device)
-    for g, w in zip(got, want):
+    for g, w in zip(got, want * 4):
         assert torch.equal(g.stream, w.stream) and torch.equal(g.contour_packed, w.contour_packed)
     graphs = rec.named("graph")
-    assert len(graphs) == 2 and all(s.wall_ns > 0 for s in graphs)
-    assert {s.name for s in rec.spans if s.parent == graphs[0].id} >= {"graph.segment", "graph.entropy"}
+    assert len(graphs) == 8 and all(s.wall_ns > 0 for s in graphs)
+    kids = [{s.name for s in rec.spans if s.parent == g.id} for g in graphs]
+    assert kids[0] >= {"graph.segment", "graph.entropy"} and kids[2] >= {"graph.segment", "graph.entropy"}
+    assert kids[1] >= {"graph.segment"} and kids[3] >= {"graph.segment"}
+    assert all(k == {"graph.replay"} for k in kids[4:])
