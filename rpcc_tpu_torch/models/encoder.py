@@ -18,10 +18,12 @@ graph): no loop over frames and no host sync inside; a frame's outputs do
 not depend on the other frames of its batch.  A single (H, W) frame is the
 B = 1 case, returned without the batch dimension.  The graph's issue runs
 in the span ``graph`` (``utils/timer.py``), its parts in ``graph.segment``,
-``graph.features`` (non-uniform), ``graph.sort``, ``graph.models``,
-``graph.quantize``, ``graph.contour`` and ``graph.entropy`` (device
-entropy): nothing in it waits for the device, so they time the host's
-issue of its launches.
+``graph.features`` (non-uniform), ``graph.sort``, ``graph.models`` (with
+plane models its ``graph.models.hypotheses``, ``graph.models.refit`` and
+``graph.models.angle``), ``graph.quantize``, ``graph.contour`` and
+``graph.entropy`` (device entropy): nothing in it waits for the device,
+so they time the host's issue of its launches.  Whoever downloads the
+model table counts its rows (:func:`count_model_rows`).
 
 On a card the graph's ~2,200 small launches cost far more to issue from
 Python than to run, so :meth:`Encoder.forward` keeps one CUDA graph per
@@ -55,7 +57,7 @@ from __future__ import annotations
 
 import math
 import threading
-from typing import Dict, NamedTuple, Optional, Sequence, Union
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -94,6 +96,20 @@ def num_model_rows(cfg: CodecConfig) -> int:
             f"codec's 4095-id limit"
         )
     return rows
+
+
+def count_model_rows(model_param: np.ndarray) -> Tuple[int, int]:
+    """``(rows, plane_rows)`` of downloaded (..., M, 4) model tables: the
+    cluster rows (ids 2 and up) that are not empty (a nonzero entry), and
+    of those the ones that carry a plane (``a + b + c != 0``, the
+    decoder's test), added to the counters ``models.rows`` and
+    ``models.plane_rows`` (``utils/timer.py``)."""
+    rows = np.asarray(model_param, np.float32)[..., 2:, :]
+    n_rows = int((rows != 0).any(-1).sum())
+    n_planes = int((rows[..., 0] + rows[..., 1] + rows[..., 2] != 0).sum())
+    timer.count("models.rows", n_rows)
+    timer.count("models.plane_rows", n_planes)
+    return n_rows, n_planes
 
 
 class EncoderOutput(NamedTuple):

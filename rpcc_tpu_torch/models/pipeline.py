@@ -26,7 +26,7 @@ from rpcc_tpu_torch.codec.bitstream import pack_bitstream, unpack_bitstream
 from rpcc_tpu_torch.codec.entropy import BasicCompressor
 from rpcc_tpu_torch.config import CodecConfig, LidarConfig
 from rpcc_tpu_torch.models.decoder import Decoder
-from rpcc_tpu_torch.models.encoder import Encoder, EncoderOutput, num_model_rows
+from rpcc_tpu_torch.models.encoder import Encoder, EncoderOutput, count_model_rows, num_model_rows
 from rpcc_tpu_torch.ops.projection_host import build_transform_map, project_for_encoder
 from rpcc_tpu_torch.utils import timer
 
@@ -91,7 +91,8 @@ class RPCCCodec:
         return self.encoder(q_t, d_t, seed, self._step_arg)
 
     def fields_from_device(self, out: EncoderOutput) -> Dict[str, np.ndarray]:
-        """Trim fixed-shape encoder outputs into bitstream field arrays."""
+        """Trim fixed-shape encoder outputs into bitstream field arrays (the
+        model table's rows counted, ``models.rows`` / ``models.plane_rows``)."""
         stream_len = int(out.stream_len)
         seq_len = int(out.seq_len)
         fields = {
@@ -100,6 +101,7 @@ class RPCCCodec:
             "idx_sequence": out.sequence[:seq_len].cpu().numpy(),
             "plane_param": out.model_param.cpu().numpy().astype(np.float32),
         }
+        count_model_rows(fields["plane_param"])
         if out.salience is not None:
             fields["salience_level"] = out.salience.cpu().numpy().astype(np.uint8)
         return fields

@@ -135,6 +135,17 @@ def per_cluster_sums_multi(values_s: torch.Tensor, order: StreamOrder) -> torch.
     return csum.gather(-1, ends.expand(rows)) - csum.gather(-1, starts.expand(rows))
 
 
+def per_cluster_sums_f64(values_s: torch.Tensor, order: StreamOrder) -> torch.Tensor:
+    """:func:`per_cluster_sums_multi` scanned and differenced in float64,
+    rounded once to ``values_s``' dtype.  A cluster's f32 sum as a
+    difference of two f32 prefixes carries the rounding of everything
+    before it in the stream: at 64x2000 the prefixes of x, y, z and their
+    squares reach 10^5-10^6, which moves a plane's normal by up to 3e-3
+    and its d by up to 5 cm.  In float64 the prefixes are exact to ~1e-9,
+    and the sums to f32's own rounding of each cluster's total."""
+    return per_cluster_sums_multi(values_s.to(torch.float64), order).to(values_s.dtype)
+
+
 def expand_per_cluster(values: torch.Tensor, order: StreamOrder) -> torch.Tensor:
     """(..., M) per-cluster values -> (..., HW) per stream slot: a plain
     gather, so every slot holds its cluster's value bit for bit."""

@@ -71,7 +71,7 @@ from rpcc_tpu_torch.codec.entropy import BasicCompressor
 from rpcc_tpu_torch.codec.native import native_lib
 from rpcc_tpu_torch.config import CodecConfig, LidarConfig
 from rpcc_tpu_torch.models.decoder import Decoder
-from rpcc_tpu_torch.models.encoder import Encoder, EncoderOutput, num_model_rows
+from rpcc_tpu_torch.models.encoder import Encoder, EncoderOutput, count_model_rows, num_model_rows
 from rpcc_tpu_torch.models.pipeline import resolve_device
 from rpcc_tpu_torch.ops.projection_host import build_transform_map, build_transform_planes, project_for_encoder
 from rpcc_tpu_torch.ops.rans_device import ESC_CAP_DEV, RESID_LANES, contour_T, resid_T
@@ -84,7 +84,9 @@ RING_SLOTS = 3  # pinned upload buffers in flight
 def _timed_stage(fn, stats: Optional[dict], key: str, count: bool = False):
     """``fn(batch, *a)``: the stage ``fn(*a)`` in the span ``engine.<key>``
     of batch ``batch``; with ``stats``, its wall and thread-CPU seconds
-    (from the span's stamps) accumulate there."""
+    (from the span's stamps) accumulate there, and so do the result's
+    ``counts`` where it has them (an :class:`EncodedBatch`'s model rows).
+    Each stage runs on one thread, so its keys have one writer."""
 
     def wrapped(batch: int, *a):
         with timer.span("engine." + key, batch, stamp=stats is not None) as sp:
@@ -94,6 +96,8 @@ def _timed_stage(fn, stats: Optional[dict], key: str, count: bool = False):
             stats[key + "_cpu_s"] = stats.get(key + "_cpu_s", 0.0) + sp.cpu_ns / 1e9
             if count:
                 stats["batches"] = stats.get("batches", 0) + 1
+            for k, v in getattr(r, "counts", {}).items():
+                stats[k] = stats.get(k, 0) + v
         return r
 
     return wrapped
@@ -143,11 +147,13 @@ class _Staged(NamedTuple):
 class EncodedBatch(list):
     """One ``(.rpcc payload, fields)`` per frame of a batch, and each frame's
     live residual count (its point count) in ``stream_len``: with device
-    entropy the fields hold no residual stream to count."""
+    entropy the fields hold no residual stream to count.  ``counts``: the
+    batch's ``model_rows`` and ``plane_rows`` (:func:`count_model_rows`)."""
 
-    def __init__(self, items, stream_len: np.ndarray):
+    def __init__(self, items, stream_len: np.ndarray, counts: Optional[Dict[str, int]] = None):
         super().__init__(items)
         self.stream_len = stream_len
+        self.counts = counts or {}
 
 
 class _DecodePrepared(NamedTuple):
@@ -381,9 +387,10 @@ class BatchEngine:
             with timer.span("engine.copy_wait"):
                 st.copied.synchronize()
         h = {k: None if v is None else v.numpy() for k, v in st.host.items()}
+        rows = dict(zip(("model_rows", "plane_rows"), count_model_rows(h["models"][: st.live])))
         if st.de_lens is not None:
             return EncodedBatch(self._pool_map("entropy", lambda i: self._device_entropy_frame(st, h, i), st.live),
-                                st.stream_len[: st.live])
+                                st.stream_len[: st.live], rows)
         seq = h["sequence"].view(np.uint16)
         dicts = []
         for i in range(st.live):
@@ -400,7 +407,7 @@ class BatchEngine:
             dicts, pool_map=lambda fn, n: self._pool_map("entropy", fn, n)
         )
         return EncodedBatch([(pack_bitstream(c, uniform=self.cfg.uniform), f) for c, f in zip(compressed, dicts)],
-                            st.stream_len[: st.live])
+                            st.stream_len[: st.live], rows)
 
     def _device_entropy_frame(self, st: _Staged, h: Dict[str, np.ndarray], i: int) -> Tuple[bytes, Dict[str, np.ndarray]]:
         """One frame's payload from its device-coded pieces (the reference's
@@ -469,8 +476,9 @@ class BatchEngine:
         each in its span ``engine.<stage>`` of batch k (the input's number
         in this run).  ``stats`` (optional dict) accumulates, from those
         spans' stamps, ``<stage>_s`` wall and ``<stage>_cpu_s`` thread-CPU
-        seconds per stage, ``batches``, and ``pool_<site>_cpu_s`` for the
-        pool workers over the run."""
+        seconds per stage, ``batches``, ``pool_<site>_cpu_s`` for the pool
+        workers over the run, and on encode the model tables' ``model_rows``
+        and ``plane_rows``."""
         prepare = _timed_stage(prepare, stats, "prepare")
         dispatch = _timed_stage(dispatch, stats, "dispatch")
         stage = _timed_stage(stage, stats, "stage")

@@ -2,9 +2,10 @@
 eagerly, the second captures and replays, every later one replays.
 
 On the card (``python -m pytest -m cuda tests/test_torch_encoder_graph.py``),
-in both benchmark configurations (the 64E default, the 32E channel table
-with DBSCAN and non-uniform steps), every ``EncoderOutput`` field of a call
-equals ``Encoder._graph`` run eagerly on the same inputs:
+in the benchmark's configurations (the 64E default, the 64E with plane
+models, the 32E channel table with DBSCAN and non-uniform steps), every
+``EncoderOutput`` field of a call equals ``Encoder._graph`` run eagerly on
+the same inputs:
 
   (a) at B = 8, two frame and seed sets replayed through one capture, each
       against its own eager result (a seed or grid baked into the graph
@@ -17,7 +18,9 @@ equals ``Encoder._graph`` run eagerly on the same inputs:
       being staged would show);
   (e) over n calls of one key ``graph.eager``, ``graph.captures`` and
       ``graph.replays`` count 1, 1 and n - 1, and each replay counts the
-      launches of an eager call (at the 64E one FPS and one rANS encode).
+      launches of an eager call (at the 64E one FPS and one rANS encode);
+  (f) with plane models, the engine's ``stats`` and the ``models.*``
+      counters, and the codec's counters, count the tables downloaded.
 
 On the CPU the path stays eager and never captures.
 
@@ -33,6 +36,7 @@ from rpcc_tpu_torch.config import CodecConfig, LidarConfig
 from rpcc_tpu_torch.data import VELODYNE_32E_CSV, lidar_config
 from rpcc_tpu_torch.data.synth import synth_cloud_for
 from rpcc_tpu_torch.models.encoder import Encoder
+from rpcc_tpu_torch.models.pipeline import RPCCCodec
 from rpcc_tpu_torch.ops import prng
 from rpcc_tpu_torch.ops.projection_host import project_for_encoder
 from rpcc_tpu_torch.parallel.engine import BatchEngine
@@ -46,6 +50,8 @@ GRAPH_COUNTERS = ("graph.eager", "graph.captures", "graph.replays")
 def _config(mode):
     if mode == "default":
         return lidar_config("Velodyne64E"), CodecConfig()
+    if mode == "plane":
+        return lidar_config("Velodyne64E"), CodecConfig(modeling_method="plane")
     lidar = lidar_config("Velodyne32E", VELODYNE_32E_CSV)
     return lidar, CodecConfig(segment_method="DBSCAN", compress_framework="non-uniform")
 
@@ -95,7 +101,7 @@ def cuda_device():
     return torch.device("cuda:0")
 
 
-MODES = ["default", "dbscan_nonuniform"]
+MODES = ["default", "plane", "dbscan_nonuniform"]
 
 
 @pytest.mark.cuda
@@ -180,7 +186,40 @@ def test_counters_over_one_key(cuda_device, mode):
     moved = timer.counters_since(before)
     assert [moved.get(k, 0) for k in GRAPH_COUNTERS] == [1, 1, n - 1]
     assert all(c == launches[0] for c in launches[1:])
-    if mode == "default":
-        assert launches[0] == {"launch.fps": 1, "launch.rans_encode": 1}
-    else:
+    if mode == "dbscan_nonuniform":
         assert launches[0] == {"launch.dbscan": 1, "launch.rans_encode": 1}
+    else:
+        assert launches[0] == {"launch.fps": 1, "launch.rans_encode": 1}
+
+
+def _rows(tables):
+    t = np.asarray(tables)[..., 2:, :]
+    return int((t != 0).any(-1).sum()), int((t[..., 0] + t[..., 1] + t[..., 2] != 0).sum())
+
+
+@pytest.mark.cuda
+def test_plane_rows_counted_from_the_downloaded_tables(cuda_device):
+    """(f): the engine's ``model_rows`` / ``plane_rows`` over a pipeline of
+    three B = 8 batches (an eager call, a capture, a replay), the codec's
+    over three B = 1 compresses, each equal to the rows of the tables."""
+    lidar, cfg = _config("plane")
+    clouds = [synth_cloud_for(lidar, s) for s in range(24)]
+    eng = BatchEngine(lidar, cfg, cuda_device, batch_size=8)
+    stats: dict = {}
+    before = timer.counters()
+    try:
+        res = list(eng.encode_pipeline([(clouds[i:i + 8], list(range(i, i + 8))) for i in range(0, 24, 8)], stats=stats))
+    finally:
+        eng.close()
+    moved = timer.counters_since(before)
+    rows, planes = _rows([f["plane_param"] for batch in res for _, f in batch])
+    assert 0 < planes <= rows
+    assert (stats["model_rows"], stats["plane_rows"]) == (rows, planes)
+    assert (moved["models.rows"], moved["models.plane_rows"]) == (rows, planes)
+    assert [moved.get(k, 0) for k in GRAPH_COUNTERS] == [1, 1, 2]
+    codec = RPCCCodec(lidar, cfg, cuda_device)
+    before = timer.counters()
+    tables = [codec.compress(clouds[k], seed=k)[1]["plane_param"] for k in (0, 1, 2)]
+    moved = timer.counters_since(before)
+    assert (moved["models.rows"], moved["models.plane_rows"]) == _rows(tables)
+    assert [moved.get(k, 0) for k in GRAPH_COUNTERS] == [1, 1, 2]
