@@ -81,6 +81,21 @@ _CODE_DTYPE = {0: np.int16, 1: np.uint16, 2: np.int32}
 # "full": compare bzip2 with the rANS containers at any size.
 _ADAPTIVE_FULL = os.environ.get("RPCC_RANS_ADAPTIVE", "") == "full"
 
+# bzip2's block size bounds a block's length and is named by the stream
+# header's fourth byte, and nothing else: an input that fits one block at the
+# smallest size (100,000 - 19 bytes after bzip2's first run-length pass,
+# which writes a run of 4 bytes as 5) codes to the same bytes at size 1 as at
+# size 9 but for that digit, and size 1 allocates a ninth of size 9's tables.
+_BZ_ONE_BLOCK_BYTES = (100000 - 19) * 4 // 5
+
+
+def _bzip2(data: bytes) -> bytes:
+    """``bz2.compress(data)`` (block size 9), byte for byte."""
+    if len(data) > _BZ_ONE_BLOCK_BYTES:
+        return bz2.compress(data)
+    out = bz2.compress(data, 1)
+    return out[:3] + b"9" + out[4:]
+
 
 def _coding_device(device):
     """The device a call codes on: None (the native host coder) for
@@ -137,7 +152,7 @@ def compress_seq_u16(data: np.ndarray) -> bytes:
     data = np.ascontiguousarray(data, np.uint16)
     if data.size == 0 or int(data.max(initial=0)) <= 255:
         return bytes([MAGIC_ZL8]) + zlib.compress(data.astype(np.uint8).tobytes(), 6)
-    return bytes([MAGIC_BZ]) + bz2.compress(data.tobytes())
+    return bytes([MAGIC_BZ]) + _bzip2(data.tobytes())
 
 
 def _pick(data: np.ndarray, delta: bytes) -> bytes:
@@ -146,7 +161,7 @@ def _pick(data: np.ndarray, delta: bytes) -> bytes:
     it, plain bzip2 and (u16) the sequence coder."""
     if data.nbytes > BIG_FIELD_BYTES:
         return delta
-    candidates = [delta, bytes([MAGIC_BZ]) + bz2.compress(data.tobytes())]
+    candidates = [delta, bytes([MAGIC_BZ]) + _bzip2(data.tobytes())]
     if data.dtype == np.uint16:
         candidates.append(compress_seq_u16(data))
     return min(candidates, key=len)
@@ -160,7 +175,7 @@ def compress(data, lanes=None, device=None) -> bytes:
     if isinstance(data, np.ndarray) and data.dtype in (np.int16, np.uint16, np.int32):
         return _pick(data, compress_delta_batch([data], lanes, device)[0])
     raw = data.tobytes() if isinstance(data, np.ndarray) else bytes(data)
-    return bytes([MAGIC_BZ]) + bz2.compress(raw)
+    return bytes([MAGIC_BZ]) + _bzip2(raw)
 
 
 def compress_batch(arrays: Sequence[np.ndarray], device=None) -> List[bytes]:
@@ -276,7 +291,7 @@ def compress_contour_batch(packed_list: Sequence[np.ndarray], H: int, W: int, de
     for i, p in enumerate(pb):
         blob = build_bits_container(T, H, W, freqs[i], states[i], counts[i], words[i, : n_words[i]])
         if _ADAPTIVE_FULL or H * W <= CONTOUR_BZ_TRY_MAX_PIXELS:
-            blob = min(blob, bytes([MAGIC_BZ]) + bz2.compress(p.tobytes()), key=len)
+            blob = min(blob, bytes([MAGIC_BZ]) + _bzip2(p.tobytes()), key=len)
         out.append(blob)
     return out
 
@@ -467,7 +482,7 @@ def _compress_bzd(sym, escapes, q0: int, n: int, dtype) -> bytes:
             struct.pack("<BBIi", MAGIC_BZD, _dtype_code(dtype), n, q0),
             struct.pack("<I", escapes.shape[0]),
             escapes.astype("<u4").tobytes(),
-            bz2.compress(sym.astype("<u2").tobytes()),
+            _bzip2(sym.astype("<u2").tobytes()),
         ]
     )
 
@@ -516,7 +531,7 @@ def _route_wide_escape_frames(arrays, encode_rest):
         return None
     out: List[bytes] = [b""] * len(arrays)
     for i in wide:
-        out[i] = bytes([MAGIC_BZ]) + bz2.compress(np.asarray(arrays[i]).tobytes())
+        out[i] = bytes([MAGIC_BZ]) + _bzip2(np.asarray(arrays[i]).tobytes())
     rest = [i for i in range(len(arrays)) if i not in set(wide)]
     if rest:
         for i, blob in zip(rest, encode_rest([arrays[i] for i in rest])):
