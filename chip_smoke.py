@@ -13,7 +13,7 @@ blocks' phase split where it stamps both) and phase 6's main-path
 device-entropy engine run (20 frames at B = 8, their blobs' sha256), the
 rANS decode kernel's timings of phase 3f on that run's first batch (B = 1,
 8: the two field groups as two launches, and in one launch with its phase
-split where the checkout has it; each launch's device time under
+split, where the checkout has ``decode_fields_cuda``; each launch's device time under
 ``torch.profiler``, at full length and at T = 16), the rANS coder's calls
 on the card with the wrappers' host time (a 1,000-symbol field's encode and
 decode calls, a T = 16 decode call, the big fields' encode and decode calls
@@ -892,7 +892,7 @@ def rans_held(torch, np, q, n, c, what):
     from rpcc_tpu_torch.ops import rans_device as rd
 
     res, cnt = rd.encode_fields_cuda(q, n, c)
-    p_res, p_cnt = rd.encode_residual_field_plain(q, n), rd.encode_contour_field_plain(c)
+    p_res, p_cnt = rd.encode_streams_plain(q, n, rd.RESID_LANES, rd.resid_T(q.shape[1])), rd.encode_contour_field_plain(c)
     torch.cuda.synchronize()
     err = 0
     for name, a, b in list(zip(res._fields, res, p_res)) + list(zip(cnt._fields, cnt, p_cnt)):
@@ -985,7 +985,7 @@ def phase_rans(torch, np, dev, card, lidar, codec, frames):
         qb, nb, cb = (t[:B].contiguous() for t in (q8, n8, c8))
         run = lambda qb=qb, nb=nb, cb=cb: rd.encode_fields_cuda(qb, nb, cb)  # noqa: E731
         ms, b2b = median_ms(torch, run), median_ms(torch, run, BACK_TO_BACK)
-        plain_ms = median_ms(torch, lambda qb=qb, nb=nb, cb=cb: (rd.encode_residual_field_plain(qb, nb),
+        plain_ms = median_ms(torch, lambda qb=qb, nb=nb, cb=cb: (rd.encode_streams_plain(qb, nb, rd.RESID_LANES, T_res),
                                                                 rd.encode_contour_field_plain(cb)),
                              runs=PLAIN_RANS_RUNS)
         bound_ms, bound_by = rans_bound(B, hw, codec.H, codec.W)
@@ -1094,6 +1094,14 @@ def host_median_ms(fn, runs: int = HOST_RUNS) -> float:
     return statistics.median(times)
 
 
+def decode_group_cuda(rd, args, mode):
+    """One field group's CUDA tensors (words, counts, states, lives, freqs)
+    decoded with ``mode``'s contexts: one launch of ``rd.decode_fields_cuda``."""
+    if mode == rd.MODE_WAVEFRONT:
+        return rd.decode_fields_cuda(None, args)[1]
+    return rd.decode_fields_cuda(args, None, mode)[0]
+
+
 def decode_held(torch, np, dev, lanes, what):
     """One decode kernel launch on a field group's lanes held to the plain
     version on the card and to the native host decoder -> max |kernel - plain|."""
@@ -1101,7 +1109,7 @@ def decode_held(torch, np, dev, lanes, what):
     from rpcc_tpu_torch.ops import rans_device as rd
 
     args = upload_lanes(dev, lanes)
-    got = rd.decode_streams_cuda(*args, lanes.mode)
+    got = decode_group_cuda(rd, args, lanes.mode)
     plain = rd.decode_streams_plain(*args, lanes.mode)
     torch.cuda.synchronize()
     check(got.shape == plain.shape and got.dtype == plain.dtype, f"rans decode {what}: shape or type differs")
@@ -1373,7 +1381,7 @@ def phase_rans_decode(torch, np, dev, card, lidar, codec, frames, eng):
                    ns_step={}, floor_ms={})
         for field, lanes, args in (("residual", rl, args_r), ("contour", cl, args_c)):
             T = lanes.words.shape[2]
-            run = lambda a=args, m=lanes.mode: rd.decode_streams_cuda(*a, m)  # noqa: E731
+            run = lambda a=args, m=lanes.mode: decode_group_cuda(rd, a, m)  # noqa: E731
             row[field] = dict(
                 ms=median_ms(torch, run), b2b=median_ms(torch, run, BACK_TO_BACK),
                 plain_ms=median_ms(torch, lambda a=args, m=lanes.mode: rd.decode_streams_plain(*a, m),
@@ -1622,14 +1630,14 @@ def phase_rans_host(torch, np, dev, card, lidar, codec, frames, eng_blobs):
         L, T = rans_codec._geometry(max(a.size for a in sb))
         q, n = rd.upload_streams(sb, dev)
         cont = rd.upload_contours(np.stack(pb), H, W, dev)
-        got = rd.encode_streams_cuda(q, n, L, T)
+        got = rd.encode_fields_cuda(q, n, None, lanes=L, T=T)[0]
         want = rd.encode_streams_plain(q, n, L, T)
         got_c, want_c = rd.encode_fields_cuda(None, None, cont)[1], rd.encode_contour_field_plain(cont)
         torch.cuda.synchronize()
         err = max(int((a.long() - b.long()).abs().max()) for a, b in zip(list(got) + list(got_c), list(want) + list(want_c)))
         check(err == 0, f"the rANS kernel at the host geometry (B={B}, L={L}, T={T}) differs from the plain version")
-        res_ms = median_ms(torch, lambda: rd.encode_streams_cuda(q, n, L, T))
-        res_b2b = median_ms(torch, lambda: rd.encode_streams_cuda(q, n, L, T), BACK_TO_BACK)
+        res_ms = median_ms(torch, lambda: rd.encode_fields_cuda(q, n, None, lanes=L, T=T)[0])
+        res_b2b = median_ms(torch, lambda: rd.encode_fields_cuda(q, n, None, lanes=L, T=T)[0], BACK_TO_BACK)
         cnt_ms = median_ms(torch, lambda: rd.encode_fields_cuda(None, None, cont))
         both_ms = median_ms(torch, lambda: rd.encode_fields_cuda(q, n, cont, lanes=L, T=T))
         both_b2b = median_ms(torch, lambda: rd.encode_fields_cuda(q, n, cont, lanes=L, T=T), BACK_TO_BACK)
@@ -1645,7 +1653,7 @@ def phase_rans_host(torch, np, dev, card, lidar, codec, frames, eng_blobs):
         staged = rd.encode_streams_host(sb, L, T, dev)
         check(all(np.array_equal(a, b.cpu().numpy()) for a, b in zip(staged, got)),
               f"the staged encode wrapper's pieces differ from the kernel's on uploaded tensors (B={B})")
-        pieces_ms = host_median_ms(lambda: rans_codec._device_pieces(sb, L, T, dev), RATE_PASSES)
+        pieces_ms = host_median_ms(lambda: rd.encode_streams_host(sb, L, T, dev), RATE_PASSES)
         native_res = host_median_ms(lambda: rans_native.delta_encode_frames(sb, L, T, rd.ALPHABET, rd.NUM_CTX))
         native_cnt = host_median_ms(lambda: rans_native.contour_encode_frames(np.stack(pb), H, W, T_c))
         b_ms, b_by = host_rans_bound([a.size for a in sb], L, T, B, H, W)
@@ -1671,10 +1679,10 @@ def phase_rans_host(torch, np, dev, card, lidar, codec, frames, eng_blobs):
     L, T = rans_codec._geometry(1000)
     check(L == 16, f"a 1,000-symbol field takes {L} lanes")
     q, n = rd.upload_streams(small, dev)
-    got, want = rd.encode_streams_cuda(q, n, L, T), rd.encode_streams_plain(q, n, L, T)
+    got, want = rd.encode_fields_cuda(q, n, None, lanes=L, T=T)[0], rd.encode_streams_plain(q, n, L, T)
     torch.cuda.synchronize()
     check(all(torch.equal(a, b) for a, b in zip(got, want)), "the rANS kernel differs from the plain version at L = 16")
-    s_ms = median_ms(torch, lambda: rd.encode_streams_cuda(q, n, L, T))
+    s_ms = median_ms(torch, lambda: rd.encode_fields_cuda(q, n, None, lanes=L, T=T)[0])
     s_cpu, s_call = in_turns(lambda: rans_codec.compress_delta_batch(small, device=None),
                              lambda: rans_codec.compress_delta_batch(small, device=dev), HOST_RUNS)
     s_native = host_median_ms(lambda: rans_native.delta_encode_frames(small, L, T, rd.ALPHABET, rd.NUM_CTX))
@@ -1866,7 +1874,7 @@ def assemble_blobs(torch, engine, out, batched: bool = False):
     from rpcc_tpu_torch.parallel.engine import _Dispatched
 
     if not batched:
-        out = type(out)(*(None if x is None else x[None] for x in out))
+        out = out.map(lambda x: x[None])
     done = None
     if engine.device.type == "cuda":
         done = torch.cuda.Event()
@@ -1875,7 +1883,12 @@ def assemble_blobs(torch, engine, out, batched: bool = False):
 
 
 def outputs_equal(torch, a, b) -> bool:
-    return all((x is None) == (y is None) and (x is None or torch.equal(x, y)) for x, y in zip(a, b))
+    def same(x, y):
+        if isinstance(x, tuple):  # a piece tuple
+            return all(torch.equal(u, v) for u, v in zip(x, y))
+        return (x is None) == (y is None) and (x is None or torch.equal(x, y))
+
+    return all(same(x, y) for x, y in zip(a, b))
 
 
 def drive_points(torch, np, dev, card, tag, lid, cfg, clouds, seeds):
@@ -2050,7 +2063,7 @@ def phase_points(torch, np, dev, card, lidar, frames):
         blobs_b = assemble_blobs(torch, engine, out_b, batched=True)
         for b, (c, s) in enumerate(zip(batch_clouds, seeds8)):
             single = encode(c, s, cfg.step)
-            check(outputs_equal(torch, type(out_b)(*(None if x is None else x[b] for x in out_b)), single),
+            check(outputs_equal(torch, out_b.map(lambda x, b=b: x[b]), single),
                   f"B = 8 from-points frame {b} differs from its B = 1 encode")
             check(assemble_blobs(torch, engine, single)[0] == blobs_b[b], f"B = 8 from-points blob {b} differs")
     finally:
@@ -2617,7 +2630,7 @@ def engine_dropped_returns(torch, np, dev, lidar, street):
             # one rANS launch in the graph, one for each frame the host re-encodes on the card
             want = {"fps": 0, "dbscan": 0, "rans": 1 + downloads, seg: 1}
             check(e_launches == want, f"{tag} device-entropy engine launches {e_launches} for one batch, expected {want}")
-            n, n_esc = st.stream_len[:nb], st.de_lens[2]
+            n, n_esc = st.stream_len[:nb], st.residual.n_esc.numpy()
             small = (n <= BZD_TRY_MAX_SYMBOLS) & (n_esc <= ESC_CAP_DEV)
             check(bool(small.any()) and bool((n_esc > ESC_CAP_DEV).any()),
                   f"{tag}: stream lengths {n.tolist()} and escapes {n_esc.tolist()} miss the small-frame pick "
@@ -2970,10 +2983,9 @@ def decode_device_us(torch, fn, runs: int = TIMED_RUNS):
 def against_decode(torch, np, rd, dev, card, root: str, blobs) -> None:
     """``--against``: the rANS decode kernel of ``root``'s package on the
     device containers of phase 6's first batch at B = 1 and 8: the two field
-    groups as two launches (every checkout with the decode kernel), and in one launch
-    with both blocks' phase split where the checkout has that entry; each
-    launch's device time under the profiler, at full length and at T = 16
-    (the tables)."""
+    groups as two launches, and in one launch with both blocks' phase split
+    (``decode_fields_cuda``, in every checkout with the one-launch decode); each launch's device
+    time under the profiler, at full length and at T = 16 (the tables)."""
     from rpcc_tpu_torch.codec import rans_codec
     from rpcc_tpu_torch.codec.bitstream import unpack_bitstream
     from rpcc_tpu_torch.config import CodecConfig
@@ -2986,24 +2998,23 @@ def against_decode(torch, np, rd, dev, card, root: str, blobs) -> None:
         # the same lanes cut to 16 steps: the tables and the launch
         sr, sc = (rd.upload_decode_lanes(g.words[:, :, :16], g.counts, g.states, np.minimum(g.lives, 16), g.freqs, dev)
                   for g in (rl, cl))
-        two = lambda: (rd.decode_streams_cuda(*ar, rl.mode), rd.decode_streams_cuda(*ac, cl.mode))  # noqa: E731
-        two16 = lambda: (rd.decode_streams_cuda(*sr, rl.mode), rd.decode_streams_cuda(*sc, cl.mode))  # noqa: E731
+        two = lambda: (decode_group_cuda(rd, ar, rl.mode), decode_group_cuda(rd, ac, cl.mode))  # noqa: E731
+        two16 = lambda: (decode_group_cuda(rd, sr, rl.mode), decode_group_cuda(rd, sc, cl.mode))  # noqa: E731
         line = (f"two launches {median_ms(torch, two):.4f} ms one call, {median_ms(torch, two, BACK_TO_BACK):.4f} ms "
-                f"over {BACK_TO_BACK} back to back, each alone {median_ms(torch, lambda: rd.decode_streams_cuda(*ar, rl.mode)):.4f} + "
-                f"{median_ms(torch, lambda: rd.decode_streams_cuda(*ac, cl.mode)):.4f} ms; at T = 16 "
+                f"over {BACK_TO_BACK} back to back, each alone {median_ms(torch, lambda: decode_group_cuda(rd, ar, rl.mode)):.4f} + "
+                f"{median_ms(torch, lambda: decode_group_cuda(rd, ac, cl.mode)):.4f} ms; at T = 16 "
                 f"{median_ms(torch, two16):.4f} ms")
-        runs = {"residual": lambda: rd.decode_streams_cuda(*ar, rl.mode),
-                "contour": lambda: rd.decode_streams_cuda(*ac, cl.mode),
-                "residual_T16": lambda: rd.decode_streams_cuda(*sr, rl.mode),
-                "contour_T16": lambda: rd.decode_streams_cuda(*sc, cl.mode)}
-        if hasattr(rd, "decode_fields_cuda"):
-            one = lambda: rd.decode_fields_cuda(ar, ac, rl.mode)  # noqa: E731
-            line += (f"; one launch {median_ms(torch, one):.4f} ms one call, "
-                     f"{median_ms(torch, one, BACK_TO_BACK):.4f} ms over {BACK_TO_BACK} back to back, at T = 16 "
-                     f"{median_ms(torch, lambda: rd.decode_fields_cuda(sr, sc, rl.mode)):.4f} ms; phase split (us) "
-                     + json.dumps({b: {k: round(v, 3) for k, v in sp.items()}
-                                   for b, sp in decode_split(torch, rd, ar, ac, rl.mode).items()}))
-            runs.update(both=one, both_T16=lambda: rd.decode_fields_cuda(sr, sc, rl.mode))
+        runs = {"residual": lambda: decode_group_cuda(rd, ar, rl.mode),
+                "contour": lambda: decode_group_cuda(rd, ac, cl.mode),
+                "residual_T16": lambda: decode_group_cuda(rd, sr, rl.mode),
+                "contour_T16": lambda: decode_group_cuda(rd, sc, cl.mode)}
+        one = lambda: rd.decode_fields_cuda(ar, ac, rl.mode)  # noqa: E731
+        line += (f"; one launch {median_ms(torch, one):.4f} ms one call, "
+                 f"{median_ms(torch, one, BACK_TO_BACK):.4f} ms over {BACK_TO_BACK} back to back, at T = 16 "
+                 f"{median_ms(torch, lambda: rd.decode_fields_cuda(sr, sc, rl.mode)):.4f} ms; phase split (us) "
+                 + json.dumps({b: {k: round(v, 3) for k, v in sp.items()}
+                               for b, sp in decode_split(torch, rd, ar, ac, rl.mode).items()}))
+        runs.update(both=one, both_T16=lambda: rd.decode_fields_cuda(sr, sc, rl.mode))
         device = {k: decode_device_us(torch, fn) for k, fn in runs.items()}
         line += ("; device time a launch (us, torch.profiler, median of "
                  f"{TIMED_RUNS}): " + json.dumps({k: None if v is None else round(v, 3) for k, v in device.items()}))
@@ -3045,10 +3056,7 @@ def against_calls(np, dev, card, root: str, codec, lidar, frames) -> None:
     cl = rans_codec.contour_lanes([main1["contour_map"]])[0]
     short = [g._replace(words=np.ascontiguousarray(g.words[:, :, :16]), lives=np.minimum(g.lives, 16))[:5]
              for g in (rl, cl)]
-    if hasattr(rd, "decode_fields_host"):
-        t16 = lambda: rd.decode_fields_host(*short, rl.mode, dev)  # noqa: E731
-    else:
-        t16 = lambda: rd.fields_to_host(*rd.decode_fields_device(*short, rl.mode, dev))  # noqa: E731
+    t16 = lambda: rd.decode_fields_host(*short, rl.mode, dev)  # noqa: E731
     calls = {
         "small_encode": lambda: rans_codec.compress_delta_batch(small, **kw),
         "small_decode": lambda: rans_codec.decode_lanes(lanes_small, dev),
@@ -3141,7 +3149,7 @@ def phase_against(torch, np, dev, card, lidar, root: str) -> None:
         finally:
             engine.close()
         print(f"[phase 6] device-entropy engine (B=8) sha256 {[hashlib.sha256(b).hexdigest() for b in blobs]}")
-        if hasattr(rd, "decode_streams_cuda"):  # a checkout with the rANS decode kernel: phase 3f's shapes
+        if hasattr(rd, "decode_fields_cuda"):  # a checkout with the rANS decode kernel: phase 3f's shapes
             against_decode(torch, np, rd, dev, card, root, blobs[:8])
             against_calls(np, dev, card, root, codec, lidar, frames)
     cfg = CodecConfig(segment_method="DBSCAN", device_entropy=False)

@@ -15,7 +15,9 @@ gzip | deflate | rans``, selected by name, on bytes-like numpy buffers.
 
 ``rans`` codes on the coder's ``device``: the native host coder for None
 or a CPU device, the card's kernels for a CUDA device (its owner's: the
-codec's and the engine's).  The ``*_dict_batch`` methods code a batch of
+codec's and the engine's).  :meth:`BasicCompressor.compress_dict_pieces`
+codes a frame whose residual and contour the encoder graph coded on the
+device, from their pieces.  The ``*_dict_batch`` methods code a batch of
 frames' fields with the big fields (residual stream, contour plane)
 batched, one native call or kernel launch each (a decode: one launch for
 both); each frame's bytes equal :meth:`compress_dict` /
@@ -81,6 +83,22 @@ class BasicCompressor:
             lambda i: {k: big[k][i] if k in big else self.compress(v) for k, v in dicts[i].items()},
             len(dicts),
         )
+
+    def compress_dict_pieces(self, data_dict: Dict[str, object], residual, contour, i: int, n: int,
+                             stream=None) -> Dict[str, bytes]:
+        """:meth:`compress_dict` of a frame whose residual and contour the
+        encoder graph coded on the device (``rans`` only): their containers
+        from frame ``i`` of the batch's pieces, ``n`` residuals and, where
+        :func:`rans_codec.device_stream_rows` names the frame, its int16
+        ``stream`` (:func:`rans_codec.device_containers`); ``idx_sequence``
+        in the sequence coder's container, the rest of ``data_dict`` as
+        :meth:`compress_dict` codes it."""
+        resid, contour_blob = rans_codec.device_containers(residual, contour, i, n, *self.contour_shape, stream,
+                                                           self.device)
+        out = self.compress_dict({k: v for k, v in data_dict.items() if k != "idx_sequence"})
+        out.update(residual_quantized=resid, contour_map=contour_blob,
+                   idx_sequence=rans_codec.compress_seq_u16(data_dict["idx_sequence"]))
+        return out
 
     def decompress_dict_batch(
         self, dicts: Sequence[Dict[str, bytes]], pool_map: Optional[Callable] = None

@@ -36,6 +36,12 @@ reference's do, so a frame's container can depend on its neighbours;
 :func:`compress_batch` groups frames by their own lane geometry first,
 which makes each frame's bytes those of :func:`compress` alone.
 
+Every encoder's pieces (native, the card's, the encoder graph's) become
+'C' and 'N' containers through :func:`ctx_container` and
+:func:`bits_container`; the graph's (``cfg.device_entropy``) by the
+reference engine's rule, :func:`device_stream_rows` and
+:func:`device_containers`.
+
 Containers (little-endian):
   'C' residual: delta + zigzag + 4-context rANS over 32 interleaved lanes
       u8 magic u8 log2(lanes) u16 T u32 n i32 q0 | u32 n_esc [u32 esc...]
@@ -55,7 +61,7 @@ import bz2
 import os
 import struct
 import zlib
-from typing import List, NamedTuple, Sequence
+from typing import List, NamedTuple, Sequence, Tuple
 
 import numpy as np
 
@@ -277,23 +283,35 @@ def compress_contour_batch(packed_list: Sequence[np.ndarray], H: int, W: int, de
     on H and W only)."""
     if not len(packed_list):
         return []
-    T = -(-(W + H - 1) // T_BUCKET) * T_BUCKET
     pb = np.stack([np.asarray(p, np.uint8) for p in packed_list])
     dev = _coding_device(device)
     if dev is None:
-        words, n_words, counts, states, freqs = rans_native.contour_encode_frames(pb, H, W, T)
+        pieces = rans_native.contour_encode_frames(pb, H, W, _contour_T(H, W))
     else:
         from rpcc_tpu_torch.ops import rans_device
 
-        words, n_words, counts, states, freqs = rans_device.encode_contours_host(pb, H, W, dev)
-        words = words.view(np.uint16)
+        pieces = rans_device.encode_contours_host(pb, H, W, dev)
     out = []
     for i, p in enumerate(pb):
-        blob = build_bits_container(T, H, W, freqs[i], states[i], counts[i], words[i, : n_words[i]])
+        blob = bits_container(pieces, i, H, W)
         if _ADAPTIVE_FULL or H * W <= CONTOUR_BZ_TRY_MAX_PIXELS:
             blob = min(blob, bytes([MAGIC_BZ]) + _bzip2(p.tobytes()), key=len)
         out.append(blob)
     return out
+
+
+def _contour_T(H: int, W: int) -> int:
+    """Steps per lane of an H x W plane's 'N' container (its geometry's alone)."""
+    return -(-(W + H - 1) // T_BUCKET) * T_BUCKET
+
+
+def bits_container(pieces, i: int, H: int, W: int) -> bytes:
+    """Frame ``i``'s 'N' container of an H x W plane from a batch's encoder
+    pieces: numpy arrays in ``ContourPieces``' order (words, n_words,
+    counts, states, freqs), native or the card's."""
+    words, n_words, counts, states, freqs = pieces
+    return build_bits_container(_contour_T(H, W), H, W, freqs[i], states[i], counts[i],
+                                np.asarray(words[i, : n_words[i]]).view(np.uint16))
 
 
 def build_bits_container(T: int, H: int, W: int, freqs: np.ndarray, states: np.ndarray,
@@ -433,7 +451,9 @@ def decode_lanes(lanes: Lanes, device=None) -> np.ndarray:
                                             lanes.words.shape[2], lanes.mode, lives=lanes.lives)
     from rpcc_tpu_torch.ops import rans_device
 
-    return rans_device.decode_group_host(lanes[:5], lanes.mode, dev)
+    if lanes.mode == rans_native.MODE_WAVEFRONT:
+        return rans_device.decode_fields_host(None, lanes[:5], rans_native.MODE_ZIGZAG, dev)[1]
+    return rans_device.decode_fields_host(lanes[:5], None, lanes.mode, dev)[0]
 
 
 # --------------------------------------------------------- delta containers
@@ -449,6 +469,27 @@ def _symbolize(arr: np.ndarray):
     esc_mask = zz >= ESCAPE
     sym = np.where(esc_mask, ESCAPE, zz).astype(np.int32)
     return sym, zz[esc_mask], (int(q[0]) if n else 0), n
+
+
+def ctx_container(pieces, i: int, L: int, T: int, n: int, dtype, escapes=None) -> bytes:
+    """Frame ``i``'s 'C' container of an ``n``-symbol stream of ``dtype`` at
+    ``L`` lanes of ``T`` steps from a batch's encoder pieces: numpy arrays
+    in ``ResidualPieces``' order (words, n_words, counts, states, freqs,
+    escapes, n_esc, q0), native or the card's.  ``escapes``: the frame's
+    list in place of the pieces' (past the card's list, the host's)."""
+    words, n_words, counts, states, freqs, esc, n_esc, q0 = pieces
+    if escapes is None:
+        escapes = esc[i, : n_esc[i]]
+    return build_ctx_container(L, T, n, int(q0[i]), escapes, freqs[i], states[i], counts[i],
+                               np.asarray(words[i, : n_words[i]]).view(np.uint16), dtype)
+
+
+def _smaller_when_small(blob: bytes, n: int, candidate, any_size: bool = False) -> bytes:
+    """``blob``, or ``candidate()`` where shorter, for a stream of at most
+    BZD_TRY_MAX_SYMBOLS symbols (any with ``any_size``): the host's pick."""
+    if any_size or n <= BZD_TRY_MAX_SYMBOLS:
+        return min(blob, candidate(), key=len)
+    return blob
 
 
 def build_ctx_container(L: int, T: int, n: int, q0: int, escapes: np.ndarray, freqs: np.ndarray,
@@ -539,19 +580,16 @@ def _route_wide_escape_frames(arrays, encode_rest):
     return out
 
 
-def _device_pieces(arrays: Sequence[np.ndarray], L: int, T: int, device):
-    """Per frame (escapes, freqs, states, counts, words) of its 'C'
-    container from one launch of the encode kernel on the CUDA ``device``.
-    A frame past the kernel's escape list gets the host's (the words do not
-    depend on the list)."""
+def _device_ctx_containers(arrays: Sequence[np.ndarray], L: int, T: int, device) -> List[bytes]:
+    """Each frame's 'C' container from one launch of the encode kernel on
+    the CUDA ``device``.  A frame past the kernel's escape list takes the
+    host's list (the words do not depend on the list)."""
     from rpcc_tpu_torch.ops import rans_device
 
-    words, n_words, counts, states, freqs, escapes, n_esc, _ = rans_device.encode_streams_host(arrays, L, T, device)
-    return [
-        (escapes[i, : n_esc[i]] if n_esc[i] <= rans_device.ESC_CAP_DEV else _symbolize(a)[1], freqs[i], states[i],
-         counts[i], words[i, : n_words[i]].view(np.uint16))
-        for i, a in enumerate(arrays)
-    ]
+    pieces = rans_device.encode_streams_host(arrays, L, T, device)
+    return [ctx_container(pieces, i, L, T, a.size, a.dtype,
+                          None if pieces.n_esc[i] <= rans_device.ESC_CAP_DEV else _symbolize(a)[1])
+            for i, a in enumerate(arrays)]
 
 
 def _compress_delta_batch_np(arrays: Sequence[np.ndarray], lanes=None, device=None) -> List[bytes]:
@@ -576,20 +614,14 @@ def _compress_delta_batch_np(arrays: Sequence[np.ndarray], lanes=None, device=No
         words, counts, states, freqs = rans_native.encode_ctx_batch(
             sym3d, _zigzag_ctx_np(sym3d), ALPHABET, NUM_CTX, ns=ns
         )
-        pieces = [(per[i][1], freqs[i], states[i], counts[i], _lane_words(words[i], counts[i]))
-                  for i in range(len(arrays))]
+        blobs = [build_ctx_container(L, T, n, q0, escapes, freqs[i], states[i], counts[i],
+                                     _lane_words(words[i], counts[i]), a.dtype)
+                 for i, (a, (_, escapes, q0, n)) in enumerate(zip(arrays, per))]
     else:
-        pieces = _device_pieces(arrays, L, T, dev)
-    out = []
-    for i, (a, (escapes, freqs, states, counts, words)) in enumerate(zip(arrays, pieces)):
-        n = a.size
-        q0 = int(a.reshape(-1)[0]) if n else 0
-        blob = build_ctx_container(L, T, n, q0, escapes, freqs.astype(np.int64), states, counts, words, a.dtype)
-        if _ADAPTIVE_FULL or n <= BZD_TRY_MAX_SYMBOLS:
-            sym, escapes, _, _ = per[i] or _symbolize(a)
-            blob = min(blob, _compress_bzd(sym, escapes, q0, n, a.dtype), key=len)
-        out.append(blob)
-    return out
+        blobs = _device_ctx_containers(arrays, L, T, dev)
+    return [_smaller_when_small(blob, a.size, lambda a=a, p=p: _compress_bzd(*(p or _symbolize(a)), a.dtype),
+                                _ADAPTIVE_FULL)
+            for a, p, blob in zip(arrays, per, blobs)]
 
 
 def compress_delta(arr: np.ndarray, device=None) -> bytes:
@@ -627,18 +659,48 @@ def compress_delta_batch(arrays: Sequence[np.ndarray], lanes=None, device=None) 
     if big_ix:
         subs = [arrays[i] for i in big_ix]
         L, T = _geometry(max(a.size for a in subs), lanes)
-        words, n_words, counts, states, freqs, escapes, esc_counts, q0s = rans_native.delta_encode_frames(
-            subs, L, T, ALPHABET, NUM_CTX
-        )
+        pieces = rans_native.delta_encode_frames(subs, L, T, ALPHABET, NUM_CTX)
+        esc_counts = pieces[6]
         for k, i in enumerate(big_ix):
             if esc_counts[k] < 0:  # escape-capacity overflow
                 out[i] = _compress_delta_batch_np([arrays[i]], lanes)[0]
                 continue
-            out[i] = build_ctx_container(
-                L, T, subs[k].size, q0s[k], escapes[k, : esc_counts[k]], freqs[k], states[k],
-                counts[k], words[k, : n_words[k]], subs[k].dtype,
-            )
+            out[i] = ctx_container(pieces, k, L, T, subs[k].size, subs[k].dtype)
     return out
+
+
+# ------------------------------------------ containers from the encoder graph
+def device_stream_rows(stream_len: np.ndarray, n_esc: np.ndarray) -> np.ndarray:
+    """The frames of a batch the encoder graph coded (``n_esc`` escapes
+    each) whose int16 stream :func:`device_containers` needs as well: past
+    the kernel's escape list, or of at most BZD_TRY_MAX_SYMBOLS symbols."""
+    from rpcc_tpu_torch.ops.rans_device import ESC_CAP_DEV
+
+    return np.flatnonzero((n_esc > ESC_CAP_DEV) | (stream_len <= BZD_TRY_MAX_SYMBOLS))
+
+
+def device_containers(residual, contour, i: int, n: int, H: int, W: int, stream=None,
+                      device=None) -> Tuple[bytes, bytes]:
+    """Frame ``i``'s (residual, contour) containers from the pieces the
+    encoder graph coded for a batch of H x W grids (``ResidualPieces`` and
+    ``ContourPieces`` of numpy arrays; the reference engine's
+    ``_finish_device_entropy``): the 'C' as coded, at the grid's lane
+    geometry whatever the frame's ``n`` symbols; past the kernel's escape
+    list :func:`compress_delta_batch` of the frame's int16 ``stream`` on
+    ``device`` in its place; up to BZD_TRY_MAX_SYMBOLS symbols the smaller
+    of the two; the 'N' as coded.  ``stream``: for the frames
+    :func:`device_stream_rows` names."""
+    from rpcc_tpu_torch.ops.rans_device import ESC_CAP_DEV
+
+    def host() -> bytes:
+        return compress_delta_batch([stream], device=device)[0]
+
+    if int(residual.n_esc[i]) > ESC_CAP_DEV:
+        resid = host()
+    else:
+        L = residual.counts.shape[-1]
+        resid = _smaller_when_small(ctx_container(residual, i, L, _geometry(H * W, L)[1], n, np.int16), n, host)
+    return resid, bits_container(contour, i, H, W)
 
 
 def _parse_delta(blob: bytes):

@@ -130,30 +130,22 @@ class CodecConfig:
     # unseeded (o3d RANSAC) and therefore nondeterministic run-to-run
     # (SURVEY.md §5 pitfall 7); we are deterministic by construction.
     seed: int = 0
-    # Host->device transfer precision of the range image in the batch
-    # engine.  'f32' uploads exact depths (reconstruction error <= accuracy,
-    # bit-for-bit the single-frame path).  'u16' pre-snaps depths to a
-    # per-frame grid delta = max(step/16, depth_max/65535) and uploads u16 —
-    # half the upload bytes (the dominant wire cost on tunneled hosts) at
-    # the price of <= delta/2 extra reconstruction error (3.1% of the
-    # accuracy bound for typical frames).
-    # Host<->device transfer precision for the range-image uplink:
-    # 'f32' raw, 'u16' per-frame snap grid (half the bytes, <= delta/2
-    # error), 'i8' row-delta over the u16 grid + exception list (~30% fewer
-    # bytes again, bit-identical bitstream to 'u16'), 'm8' packed nonzero
-    # mask + compact nonzero deltas (~27% fewer bytes than 'i8', still
-    # bit-identical — zero pixels never ride the wire).  The default IS the
-    # benched flagship ('m8'): the documented bare-flag CLI must run the
-    # headline config.  Pass 'f32' for exact-depth uploads (no snap grid,
-    # reconstruction error bound excludes the <= delta/2 snap term).
+    # Host->device transfer precision of the range image.  'f32' uploads
+    # exact depths (no snap grid; reconstruction error <= accuracy).  'u16',
+    # 'i8' and 'm8' all give the u16 snap grid: depths pre-snapped to a
+    # per-frame grid delta = max(step/16, depth_max/65535) and uploaded as
+    # u16 words, at the price of <= delta/2 extra reconstruction error.  The
+    # JAX package's i8 / m8 wire codes (row deltas, nonzero masks) are not
+    # ported; their bitstreams equal the u16 grid's, so the three names give
+    # the same bytes.  The default 'm8' is the reference's.
     transfer_precision: str = "m8"  # 'f32' | 'u16' | 'i8' | 'm8'
     # Entropy-code the two big fields (residual stream, contour plane) ON
-    # DEVICE (ops/rans_device.py): the engine then downloads ~30 KB of
-    # compressed words per frame instead of the ~200 KB transfer view, and
-    # skips the host entropy encode.  Containers are decoded by the same
-    # host decoders ('rans' coder only; engine path).  Default on — part of
-    # the benched flagship config; ignored by non-rans coders and by the
-    # single-frame encoder (which entropy-codes on host either way).
+    # DEVICE, inside the encoder graph (ops/rans_device.py): the engine then
+    # downloads the containers' pieces (~30 KB of compressed words per
+    # frame) instead of the fields, and codec/rans_codec.py assembles the
+    # containers the host decoders read ('rans' coder only; engine path).
+    # Default on, as in the reference; ignored by non-rans coders and by the
+    # single-frame codec (which codes the downloaded fields either way).
     device_entropy: bool = True
 
     def __post_init__(self):

@@ -71,7 +71,7 @@ from rpcc_tpu_torch.ops.features import extract_features_with_segment, salience_
 from rpcc_tpu_torch.ops.modeling import plane_models_stream, point_model_table
 from rpcc_tpu_torch.ops.projection import project_points
 from rpcc_tpu_torch.ops.projection_host import build_transform_planes
-from rpcc_tpu_torch.ops.rans_device import encode_fields_device
+from rpcc_tpu_torch.ops.rans_device import ContourPieces, ResidualPieces, encode_fields_device
 from rpcc_tpu_torch.ops.rounding import round_half_away
 from rpcc_tpu_torch.ops.segment import segment_range_image, segment_range_image_dbscan
 from rpcc_tpu_torch.ops.stream import (
@@ -123,21 +123,15 @@ class EncoderOutput(NamedTuple):
     seq_len: torch.Tensor  # (B,) number of live run values
     salience: Optional[torch.Tensor] = None  # (B, M) u8 levels; non-uniform mode only
     # Device entropy coding (cfg.device_entropy with the rans coder): the
-    # pieces of the residual 'C' and contour 'N' containers
-    # (ops/rans_device.py), under the reference's names.
-    de_res_words: Optional[torch.Tensor] = None  # (B, 32 * T) int16 (u16 words)
-    de_res_nw: Optional[torch.Tensor] = None  # (B,) int32
-    de_res_counts: Optional[torch.Tensor] = None  # (B, 32) int32
-    de_res_states: Optional[torch.Tensor] = None  # (B, 32) int64 (u32 states)
-    de_res_freqs: Optional[torch.Tensor] = None  # (B, 4, 512) int32
-    de_res_escapes: Optional[torch.Tensor] = None  # (B, 512) int64 (u32 values)
-    de_res_nesc: Optional[torch.Tensor] = None  # (B,) int32
-    de_res_q0: Optional[torch.Tensor] = None  # (B,) int32
-    de_cnt_words: Optional[torch.Tensor] = None  # (B, H * Tc) int16
-    de_cnt_nw: Optional[torch.Tensor] = None  # (B,) int32
-    de_cnt_counts: Optional[torch.Tensor] = None  # (B, H) int32
-    de_cnt_states: Optional[torch.Tensor] = None  # (B, H) int64
-    de_cnt_freqs: Optional[torch.Tensor] = None  # (B, 4, 2) int32
+    # residual and contour containers' pieces as encode_fields_device gives
+    # them; codec/rans_codec.py makes the containers.
+    residual_pieces: Optional[ResidualPieces] = None
+    contour_pieces: Optional[ContourPieces] = None
+
+    def map(self, fn) -> "EncoderOutput":
+        """``fn`` of every tensor, the pieces' included (None stays None)."""
+        return self._make(None if f is None else f._make(fn(t) for t in f) if isinstance(f, tuple) else fn(f)
+                          for f in self)
 
 
 _SEEN = object()  # a key whose eager call has run
@@ -176,7 +170,7 @@ class _Captured:
             self.delta.copy_(delta)
             self.seed.copy_(prng.seed_words(seed, q.device))
             self.graph.replay()
-            out = EncoderOutput(*(None if t is None else t.clone() for t in self.out))
+            out = self.out.map(torch.clone)
             self.done.record(stream)
         for name, n in self.held.items():
             timer.count(name, n)
@@ -192,8 +186,7 @@ class Encoder(nn.Module):
         super().__init__()
         self.lidar, self.cfg = lidar, cfg
         self.num_models = num_model_rows(cfg)
-        # Device entropy coding: the knob, with the rans coder only.  The
-        # engine reads this to know which pieces the graph hands it.
+        # Device entropy coding: the knob, with the rans coder only.
         self.device_entropy = bool(cfg.device_entropy) and cfg.basic_compressor == "rans"
         self.register_buffer("tm_planes", torch.from_numpy(np.asarray(tm_planes, np.float32)))
         # The in-graph projection's channel table, built as the reference's
@@ -235,7 +228,7 @@ class Encoder(nn.Module):
                 out = self._on_card(q, delta, seed, step)
             else:
                 out = self._graph(q, delta, seed, step)
-            return EncoderOutput(*(None if f is None else f[0] for f in out)) if single else out
+            return out.map(lambda t: t[0]) if single else out
 
     def _on_card(self, q: torch.Tensor, delta: torch.Tensor, seed, step) -> EncoderOutput:
         """The batched graph on a card: eager at a key's first call, then
@@ -318,13 +311,11 @@ class Encoder(nn.Module):
         with timer.span("graph.contour"):
             code = extract_contour(seg)
             contour_packed = pack_bits_msb(code.contour, start_dim=1)
-        de = {}
+        res = cnt = None
         if self.device_entropy:
             with timer.span("graph.entropy"):
                 res, cnt = encode_fields_device(qs.contiguous(), order.stream_len.to(torch.int32),
                                                 code.contour.contiguous())
-            de = {f"de_res_{k}": v for k, v in zip(("words", "nw", "counts", "states", "freqs", "escapes", "nesc", "q0"), res)}
-            de.update({f"de_cnt_{k}": v for k, v in zip(("words", "nw", "counts", "states", "freqs"), cnt)})
         return EncoderOutput(
             range_image=ri,
             seg_idx=seg,
@@ -335,7 +326,8 @@ class Encoder(nn.Module):
             sequence=code.sequence.to(torch.uint16),
             seq_len=code.seq_len,
             salience=salience,
-            **de,
+            residual_pieces=res,
+            contour_pieces=cnt,
         )
 
     @torch.no_grad()

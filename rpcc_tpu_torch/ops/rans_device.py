@@ -1,20 +1,21 @@
-"""Device rANS coding of the two big bitstream fields: the encode's plain
-PyTorch version + the CUDA kernel's wrapper (port of
-``rpcc_tpu/ops/rans_device.py``), and the decode kernel's wrapper beside
-its plain version (``ops/rans.py``'s decoders).
+"""Device rANS coding: the encode and decode kernels' wrappers
+(``csrc/rans.cu``, ``csrc/rans_decode.cu``) beside their plain PyTorch
+versions (port of ``rpcc_tpu/ops/rans_device.py``; the decoders are
+``ops/rans.py``'s).  What this module gives back is a container's pieces:
+words, word counts, lane states, tables and escapes.  The containers
+themselves, and the choice between a device-coded and a host-coded one,
+are ``codec/rans_codec.py``'s.
 
-The engine's default path (``cfg.device_entropy`` with the ``rans`` coder)
-entropy-codes the residual stream and the contour plane on the device and
-downloads compressed words instead of the fields.  The pieces are those of
-the host coders' containers, so the host decoders read them unchanged:
+The encoder graph (``cfg.device_entropy`` with the ``rans`` coder) codes
+the residual stream and the contour plane of a batch in one launch of
+:func:`encode_fields_device`, as the pieces of these containers:
 
 * residual ('C'): delta + zigzag over the live stream (positions at or past
   ``stream_len`` are zero deltas), zigzag values >= ESCAPE become the ESCAPE
   symbol with the value on an escape list in stream order (the first
-  ESC_CAP_DEV of them, plus the total count; a frame past the cap is coded
-  on the host), 32 live-aware lanes of ``resid_T(HW)`` steps, a 4-context
-  model on the previous symbol of the lane, histograms over the live
-  positions only;
+  ESC_CAP_DEV of them, plus the total count), 32 live-aware lanes of
+  ``resid_T(HW)`` steps, a 4-context model on the previous symbol of the
+  lane, histograms over the live positions only;
 * contour ('N'): the (H, W) bits sheared into a diagonal wavefront (row r
   delayed r steps), H lanes of ``contour_T(H, W)`` steps, ctx = 2 * above
   + left.
@@ -40,24 +41,19 @@ of 2^31 or more (a residual delta of 2^30 or more, which a quantized range
 residual never reaches) is an escape here, where the reference's int32
 would wrap it negative.
 
-:func:`encode_fields_device` dispatches on the tensors' device: the plain
-versions for CPU tensors, one launch of the hand-written kernel
-(``csrc/rans.cu``) for CUDA tensors.  A CUDA tensor never falls back to the
-plain version: if the kernel cannot build or launch, the call raises.
-
-:func:`decode_fields_device` decodes host-assembled containers' lanes (a
-residual group with zigzag or order-0 contexts and a group of wavefront
-contour lanes, either absent) on a device: one launch of
-``csrc/rans_decode.cu`` for CUDA, the plain decoders of
-:mod:`rpcc_tpu_torch.ops.rans` for the CPU, with the same rule.
-
-The host-facing wrappers (:func:`encode_streams_host`,
-:func:`encode_contours_host`, :func:`decode_fields_host`) take numpy
-arrays and give numpy arrays back.  Each call packs its host arrays into
-one staging buffer (pinned for a CUDA device) that goes up in one copy into
-one device workspace holding its inputs, outputs and scratch as views
-(:class:`_Workspace`); the outputs come back in one copy.  On the CPU the
-same buffers run the plain versions.
+Its entry points: the plain versions (:func:`encode_streams_plain`,
+:func:`encode_contour_field_plain`, :func:`decode_streams_plain`); the
+kernels on CUDA tensors, one launch each (:func:`encode_fields_cuda`,
+:func:`decode_fields_cuda`); the encoder graph's
+:func:`encode_fields_device` (the kernel for CUDA tensors, which never fall
+back to the plain versions: if the kernel cannot build or launch, the call
+raises); the codec's host-array calls (:func:`encode_streams_host`,
+:func:`encode_contours_host`, :func:`decode_fields_host`: each packs its
+arrays into one staging buffer, pinned for a card, that goes up in one copy
+into one device workspace of inputs, outputs and scratch,
+:class:`_Workspace`, and its outputs come back in one copy; the plain
+versions on the CPU); and the ``upload_*`` helpers, which put host arrays
+on a device as the kernels take them.
 """
 
 from __future__ import annotations
@@ -179,13 +175,6 @@ def encode_streams_plain(q: torch.Tensor, stream_len: torch.Tensor, lanes: int, 
     key, freqs, lives = joint_tables(sym, ctx, ALPHABET, NUM_CTX, n[:, 0])
     words, n_words, counts, states = _walk_and_pack(key, freqs, lives)
     return ResidualPieces(words, n_words, counts, states, freqs, escapes, n_esc, q[:, 0].to(torch.int32))
-
-
-def encode_residual_field_plain(q: torch.Tensor, stream_len: torch.Tensor) -> ResidualPieces:
-    """Plain version over (B, HW) int quantized residual streams (zero past
-    ``stream_len``) and (B,) live lengths, at the engine's geometry (32
-    lanes of ``resid_T(HW)`` steps): the residual container's pieces."""
-    return encode_streams_plain(q.to(torch.int32), stream_len.to(torch.int32), RESID_LANES, resid_T(q.shape[1]))
 
 
 def encode_contour_field_plain(contour: torch.Tensor) -> ContourPieces:
@@ -522,12 +511,6 @@ def encode_fields_cuda(
     return _encode_pieces(ws, q is not None, contour is not None)
 
 
-def encode_streams_cuda(q: torch.Tensor, stream_len: torch.Tensor, lanes: int, T: int) -> ResidualPieces:
-    """The residual pieces of :func:`encode_streams_plain`'s inputs from one
-    launch of the CUDA kernel (:func:`encode_fields_cuda`)."""
-    return encode_fields_cuda(q, stream_len, None, lanes=lanes, T=T)[0]
-
-
 def encode_fields_device(
     q: Optional[torch.Tensor], stream_len: Optional[torch.Tensor], contour: Optional[torch.Tensor],
     lanes: int = RESID_LANES, T: Optional[int] = None,
@@ -549,16 +532,6 @@ def encode_fields_device(
         _check_contour(contour)
         cnt = encode_contour_field_plain(contour)
     return res, cnt
-
-
-def encode_residual_field_device(q: torch.Tensor, stream_len: torch.Tensor) -> ResidualPieces:
-    """The residual pieces alone at the engine's geometry (:func:`encode_fields_device`)."""
-    return encode_fields_device(q, stream_len, None)[0]
-
-
-def encode_contour_field_device(contour: torch.Tensor) -> ContourPieces:
-    """The contour pieces alone (:func:`encode_fields_device`)."""
-    return encode_fields_device(None, None, contour)[1]
 
 
 def _fill_streams(q: np.ndarray, lens: np.ndarray, arrays) -> None:
@@ -761,8 +734,8 @@ def _decode_launch(dev, ptr, shape_r, shape_c, mode: int, phase_stamps) -> None:
     T), or None), each group's five inputs and its symbols at the addresses
     ``ptr(name)`` gives ("r_words" .. "r_freqs", "r_out"; "c_" the same).
     Counts the launch under ``launch.rans_decode`` (one per call of
-    :func:`decode_fields_cuda` or :func:`decode_streams_cuda`, whatever
-    groups it decodes)."""
+    :func:`decode_fields_cuda` or :func:`decode_fields_host` on a card,
+    whatever groups it decodes)."""
     br, L, tr, C, A = shape_r or (0, 1, 1, 1, 1)
     bc, H, tc = shape_c or (0, 1, 1)
     names = [n for n, _ in _LANE_FIELDS] + ["out"]
@@ -809,20 +782,6 @@ def decode_fields_cuda(residual, contour, mode: int = MODE_ZIGZAG,
     _decode_launch(dev, lambda n: given[n].data_ptr() if n in given else ws.ptr(n), shape_r, shape_c, mode,
                    phase_stamps)
     return (ws.view("r_out") if residual is not None else None), (ws.view("c_out") if contour is not None else None)
-
-
-def decode_streams_cuda(words, counts, states, lives, freqs, mode: int,
-                        phase_stamps: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The CUDA decode kernel on one field group's contiguous CUDA tensors
-    of :func:`decode_streams_plain`'s types: one launch on the current
-    stream (no synchronize) -> (B, L*T) int32; raises on any other input.
-    The kernel reads each frequency as u16 (the wire's type) and equals the
-    plain version for frequencies in [0, 2^16).  ``phase_stamps`` as in
-    :func:`decode_fields_cuda`."""
-    group = (words, counts, states, lives, freqs)
-    if mode == MODE_WAVEFRONT:
-        return decode_fields_cuda(None, group, phase_stamps=phase_stamps)[1]
-    return decode_fields_cuda(group, None, mode, phase_stamps)[0]
 
 
 def upload_decode_lanes(words: np.ndarray, counts: np.ndarray, states: np.ndarray, lives: np.ndarray,
@@ -875,37 +834,13 @@ def _decode_staged(residual, contour, mode: int, device) -> _Workspace:
     return ws
 
 
-def decode_fields_device(residual, contour, mode: int, device) -> Tuple[Optional[torch.Tensor], ...]:
+def decode_fields_host(residual, contour, mode: int, device) -> Tuple[Optional[np.ndarray], ...]:
     """Host-assembled lanes of a residual group (decoded with ``mode``'s
     contexts) and of a contour group (numpy (words, counts, states, lives,
     freqs) each, as :func:`upload_decode_lanes` takes them; either None)
     uploaded to ``device`` in one copy and decoded there: one kernel launch
     for both on a CUDA device, the plain version of each on the CPU ->
-    ((B_r, L * T_r) int32 or None, (B_c, H * T_c) int32 or None) on
-    ``device``."""
-    ws = _decode_staged(residual, contour, mode, device)
-    return (ws.view("r_out") if residual is not None else None), (ws.view("c_out") if contour is not None else None)
-
-
-def decode_fields_host(residual, contour, mode: int, device) -> Tuple[Optional[np.ndarray], ...]:
-    """:func:`decode_fields_device`'s symbols as numpy arrays, downloaded in one copy."""
+    ((B_r, L * T_r) int32 or None, (B_c, H * T_c) int32 or None) numpy
+    symbols, downloaded in one copy."""
     host = _decode_staged(residual, contour, mode, device).download()
     return host.get("r_out"), host.get("c_out")
-
-
-def decode_streams_device(words: np.ndarray, counts: np.ndarray, states: np.ndarray, lives: np.ndarray,
-                          freqs: np.ndarray, mode: int, device) -> torch.Tensor:
-    """Host-assembled lanes of one field group decoded with ``mode``'s
-    contexts on ``device`` (:func:`decode_fields_device`) -> (B, L*T)
-    int32 symbols on ``device``."""
-    group = (words, counts, states, lives, freqs)
-    if mode == MODE_WAVEFRONT:
-        return decode_fields_device(None, group, MODE_ZIGZAG, device)[1]
-    return decode_fields_device(group, None, mode, device)[0]
-
-
-def decode_group_host(group, mode: int, device) -> np.ndarray:
-    """One field group's lanes decoded on ``device`` (:func:`decode_fields_host`) -> (B, L*T) int32."""
-    if mode == MODE_WAVEFRONT:
-        return decode_fields_host(None, group, MODE_ZIGZAG, device)[1]
-    return decode_fields_host(group, None, mode, device)[0]

@@ -8,13 +8,12 @@ Frames are host-projected onto the u16 snap grid (or, with
 pinned (B, H, W) buffers, uploaded as 2-byte (4-byte) words on a copy
 stream, widened and encoded on a compute stream, and their live prefixes come back on the copy
 stream while the host entropy-codes the batch before (its rANS
-containers through the engine's device: on a card, the kernels of
-``ops/rans_device.py``, one launch per batch call).  With
-``cfg.device_entropy`` (the default) and the ``rans`` coder, the encoder
-graph also codes the residual and contour containers in one kernel launch
-(``ops/rans_device.py``), and what comes back is their compressed words
-and small pieces, which the host assembles into the same containers the
-host decoders read.  The pipeline
+containers through the engine's device: on a card, one kernel launch per
+batch call).  With ``cfg.device_entropy`` (the default) and the ``rans``
+coder, the encoder graph also codes the residual and contour fields in one
+kernel launch, and what comes back is their containers' pieces, which the
+codec (``codec/rans_codec.py``, through ``BasicCompressor``) makes into
+the containers the host decoders read.  The pipeline
 (``encode_pipeline`` / ``decode_pipeline``) runs four stages on four
 threads:
 
@@ -74,7 +73,6 @@ from rpcc_tpu_torch.models.decoder import Decoder
 from rpcc_tpu_torch.models.encoder import Encoder, EncoderOutput, count_model_rows, num_model_rows
 from rpcc_tpu_torch.models.pipeline import resolve_device
 from rpcc_tpu_torch.ops.projection_host import build_transform_map, build_transform_planes, project_for_encoder
-from rpcc_tpu_torch.ops.rans_device import ESC_CAP_DEV, RESID_LANES, contour_T, resid_T
 from rpcc_tpu_torch.parallel.aggregate import all_reduce_totals, batch_report, batch_totals
 from rpcc_tpu_torch.utils import timer
 
@@ -137,10 +135,10 @@ class _Staged(NamedTuple):
     host: Dict[str, Optional[torch.Tensor]]  # live prefixes, host memory
     copied: Optional[torch.cuda.Event]  # the D2H copies' end on the copy stream
     out: EncoderOutput  # keeps the copies' sources referenced until ``copied``
-    # Device entropy: (3, B) residual words, contour words and escapes per
-    # frame, and the frames whose i16 stream prefix was downloaded (rows of
-    # host["stream"], in order).
-    de_lens: Optional[np.ndarray] = None
+    # Device entropy: the two piece tuples in host memory, and the frames
+    # whose i16 stream prefix was downloaded (rows of host["stream"], in order).
+    residual: Optional[tuple] = None
+    contour: Optional[tuple] = None
     stream_rows: Optional[np.ndarray] = None
 
 
@@ -334,20 +332,29 @@ class BatchEngine:
         """:meth:`encode_batch_device` on the uploader thread."""
         return self._uploader.submit(self.encode_batch_device, clouds, seeds)
 
+    def _download_pieces(self, pieces: tuple, read: Dict[str, np.ndarray]) -> tuple:
+        """A piece tuple in host memory: the fields already ``read`` (with
+        the batch's lengths) as they are, the words cut to the batch's
+        largest ``n_words``, the rest downloaded whole."""
+        m = max(int(read["n_words"].max()), 1)
+        return pieces._make(torch.from_numpy(read[f]) if f in read else self._download(t[:, :m] if f == "words" else t)
+                            for f, t in zip(pieces._fields, pieces))
+
     def stage_downloads(self, dispatched: _Dispatched) -> _Staged:
         """Pipeline stage 3: wait for the batch, read its (B,) lengths (the
         one host sync per batch) and queue the D2H copies of the exact live
         prefixes on the copy stream.  With device entropy those are the
-        compressed word prefixes and the containers' small pieces, and the
-        i16 stream prefix only of the frames the host codes too: past
-        ESC_CAP_DEV escapes, or small enough for the host's adaptive pick."""
+        containers' pieces (their word and escape counts read with the
+        lengths), and the i16 stream prefix only of the frames the codec
+        names (``rans_codec.device_stream_rows``)."""
         out, live, done = dispatched
+        res, cnt = out.residual_pieces, out.contour_pieces
         with self._on("_copy"):
             if done is not None:
                 self._copy.wait_event(done)
             rows = [out.stream_len, out.seq_len]
-            if self.encoder.device_entropy:
-                rows += [out.de_res_nw, out.de_cnt_nw, out.de_res_nesc]
+            if res is not None:
+                rows += [res.n_words, cnt.n_words, res.n_esc]
             lens = torch.stack([r.to(torch.int64) for r in rows])
             with timer.span("engine.device_wait"):
                 lens = lens.cpu().numpy()
@@ -357,17 +364,11 @@ class BatchEngine:
                 "models": self._download(out.model_param),
                 "salience": self._download(out.salience),
             }
-            de_lens = stream_rows = None
-            if self.encoder.device_entropy:
-                de_lens = lens[2:]
-                host.update(
-                    res_words=self._download(out.de_res_words[:, : max(int(de_lens[0].max()), 1)]),
-                    cnt_words=self._download(out.de_cnt_words[:, : max(int(de_lens[1].max()), 1)]),
-                    **{k: self._download(getattr(out, "de_" + k)) for k in (
-                        "res_counts", "res_states", "res_freqs", "res_escapes", "res_q0",
-                        "cnt_counts", "cnt_states", "cnt_freqs")},
-                )
-                stream_rows = np.flatnonzero((de_lens[2] > ESC_CAP_DEV) | (lens[0] <= rans_codec.BZD_TRY_MAX_SYMBOLS))
+            stream_rows = None
+            if res is not None:
+                res = self._download_pieces(res, {"n_words": lens[2], "n_esc": lens[4]})
+                cnt = self._download_pieces(cnt, {"n_words": lens[3]})
+                stream_rows = rans_codec.device_stream_rows(lens[0], lens[4])
                 timer.count("engine.stream_downloads", int(stream_rows.size))
                 if stream_rows.size:
                     m = max(int(lens[0][stream_rows].max()), 1)
@@ -377,74 +378,47 @@ class BatchEngine:
                 host["stream"] = self._download(out.stream[:, : max(int(lens[0].max()), 1)])
                 host["contour"] = self._download(out.contour_packed)
             copied = self._record()
-        return _Staged(live, lens[0], lens[1], host, copied, out, de_lens, stream_rows)
+        return _Staged(live, lens[0], lens[1], host, copied, out, res, cnt, stream_rows)
 
     def finish_staged(self, st: _Staged) -> EncodedBatch:
         """Pipeline stage 4: wait for the copies, entropy-code (big fields
         batched through the native coder, the rest on the pool), frame;
-        with device entropy, assemble the big fields' containers instead."""
+        with device entropy, the codec makes each frame's containers from
+        the pieces instead (one call a frame on the pool).  With device
+        entropy the fields hold only what the host sees: the sequence, the
+        model table and the salience levels."""
         if st.copied is not None:
             with timer.span("engine.copy_wait"):
                 st.copied.synchronize()
         h = {k: None if v is None else v.numpy() for k, v in st.host.items()}
         rows = dict(zip(("model_rows", "plane_rows"), count_model_rows(h["models"][: st.live])))
-        if st.de_lens is not None:
-            return EncodedBatch(self._pool_map("entropy", lambda i: self._device_entropy_frame(st, h, i), st.live),
-                                st.stream_len[: st.live], rows)
         seq = h["sequence"].view(np.uint16)
-        dicts = []
-        for i in range(st.live):
-            fields = {
-                "residual_quantized": h["stream"][i, : st.stream_len[i]].copy(),
-                "contour_map": h["contour"][i].copy(),
-                "idx_sequence": seq[i, : st.seq_len[i]].copy(),
-                "plane_param": h["models"][i].astype(np.float32),
-            }
+
+        def fields(i: int) -> Dict[str, np.ndarray]:
+            f = {"idx_sequence": seq[i, : st.seq_len[i]].copy(), "plane_param": h["models"][i].astype(np.float32)}
             if h["salience"] is not None:
-                fields["salience_level"] = h["salience"][i].copy()
-            dicts.append(fields)
+                f["salience_level"] = h["salience"][i].copy()
+            return f
+
+        if st.residual is not None:
+            res, cnt = (p._make(t.numpy() for t in p) for p in (st.residual, st.contour))
+
+            def one(i: int) -> Tuple[bytes, Dict[str, np.ndarray]]:
+                n, f = int(st.stream_len[i]), fields(i)
+                stream = None
+                if i in st.stream_rows:
+                    stream = h["stream"][int(np.searchsorted(st.stream_rows, i)), :n].copy()
+                compressed = self.entropy.compress_dict_pieces(f, res, cnt, i, n, stream)
+                return pack_bitstream(compressed, uniform=self.cfg.uniform), f
+
+            return EncodedBatch(self._pool_map("entropy", one, st.live), st.stream_len[: st.live], rows)
+        dicts = [{"residual_quantized": h["stream"][i, : st.stream_len[i]].copy(), "contour_map": h["contour"][i].copy(),
+                  **fields(i)} for i in range(st.live)]
         compressed = self.entropy.compress_dict_batch(
             dicts, pool_map=lambda fn, n: self._pool_map("entropy", fn, n)
         )
         return EncodedBatch([(pack_bitstream(c, uniform=self.cfg.uniform), f) for c, f in zip(compressed, dicts)],
                             st.stream_len[: st.live], rows)
-
-    def _device_entropy_frame(self, st: _Staged, h: Dict[str, np.ndarray], i: int) -> Tuple[bytes, Dict[str, np.ndarray]]:
-        """One frame's payload from its device-coded pieces (the reference's
-        ``_finish_device_entropy``): the residual container as coded, or the
-        host's when the frame overflowed the escape list, or the smaller of
-        the two for a frame of at most BZD_TRY_MAX_SYMBOLS residuals; the
-        contour container as coded.  The fields hold only what the host
-        sees: the sequence, the model table and the salience levels."""
-        n = int(st.stream_len[i])
-        res_nw, cnt_nw, n_esc = (int(v) for v in st.de_lens[:, i])
-        q16 = None
-        if i in st.stream_rows:
-            q16 = h["stream"][int(np.searchsorted(st.stream_rows, i)), :n].copy()
-        if n_esc > ESC_CAP_DEV:
-            resid = rans_codec.compress_delta_batch([q16], device=self.device)[0]
-        else:
-            resid = rans_codec.build_ctx_container(
-                RESID_LANES, resid_T(self.hw), n, int(h["res_q0"][i]), h["res_escapes"][i, :n_esc],
-                h["res_freqs"][i], h["res_states"][i], h["res_counts"][i],
-                h["res_words"][i, :res_nw].view(np.uint16), np.int16,
-            )
-            if n <= rans_codec.BZD_TRY_MAX_SYMBOLS:
-                resid = min(resid, rans_codec.compress_delta_batch([q16], device=self.device)[0], key=len)
-        contour = rans_codec.build_bits_container(
-            contour_T(self.H, self.W), self.H, self.W, h["cnt_freqs"][i], h["cnt_states"][i],
-            h["cnt_counts"][i], h["cnt_words"][i, :cnt_nw].view(np.uint16),
-        )
-        fields = {
-            "idx_sequence": h["sequence"].view(np.uint16)[i, : st.seq_len[i]].copy(),
-            "plane_param": h["models"][i].astype(np.float32),
-        }
-        if h["salience"] is not None:
-            fields["salience_level"] = h["salience"][i].copy()
-        compressed = self.entropy.compress_dict({k: v for k, v in fields.items() if k != "idx_sequence"})
-        compressed.update(residual_quantized=resid, contour_map=contour,
-                          idx_sequence=rans_codec.compress_seq_u16(fields["idx_sequence"]))
-        return pack_bitstream(compressed, uniform=self.cfg.uniform), fields
 
     def sharded_stats(self, results, blob_sizes: Sequence[int], errors: int = 0) -> Dict[str, float]:
         """Frames, points, bits, bpp and ratio over every rank of the

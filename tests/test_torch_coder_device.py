@@ -74,7 +74,7 @@ def _no_plain(monkeypatch) -> None:
     def refuse(*args, **kwargs):
         raise AssertionError("the CPU reached the card's path or its plain version")
 
-    for name in HOST_WRAPPERS + PLAIN + ("encode_fields_device", "decode_fields_device"):
+    for name in HOST_WRAPPERS + PLAIN + ("encode_fields_device",):
         monkeypatch.setattr(rans_device, name, refuse)
 
 
@@ -291,23 +291,19 @@ def test_staged_wrappers_give_the_same_pieces(L, T):
     want = rans_device.encode_streams_plain(*rans_device.upload_streams(arrays, "cpu"), L, T)
     for name, a, b in zip(want._fields, got, want):
         assert isinstance(a, np.ndarray) and np.array_equal(a, b.numpy()), name
-    lanes = rans_codec.delta_lanes([rans_codec.build_ctx_container(
-        L, T, n, int(a[0]) if n else 0, got.escapes[i, : got.n_esc[i]], got.freqs[i].astype(np.int64), got.states[i],
-        got.counts[i], got.words[i, : got.n_words[i]].view(np.uint16), np.int16) for i, (n, a) in enumerate(zip(lengths, arrays))])
+    lanes = rans_codec.delta_lanes([rans_codec.ctx_container(got, i, L, T, n, np.int16) for i, n in enumerate(lengths)])
     H, W = 4, T - 3
     packed = np.stack([np.packbits(np.random.default_rng(s).random(H * W) < 0.2) for s in range(2)])
     cnt = rans_device.encode_contours_host(packed, H, W, "cpu")
     cnt_want = rans_device.encode_contour_field_plain(rans_device.upload_contours(packed, H, W, "cpu"))
     for name, a, b in zip(cnt_want._fields, cnt, cnt_want):
         assert np.array_equal(a, b.numpy()), name
-    c_lanes = rans_codec.contour_lanes([rans_codec.build_bits_container(
-        rans_device.contour_T(H, W), H, W, cnt.freqs[i], cnt.states[i], cnt.counts[i],
-        cnt.words[i, : cnt.n_words[i]].view(np.uint16)) for i in range(2)])[0]
+    c_lanes = rans_codec.contour_lanes([rans_codec.bits_container(cnt, i, H, W) for i in range(2)])[0]
     sym_r, sym_c = rans_device.decode_fields_host(lanes[:5], c_lanes[:5], lanes.mode, "cpu")
     for sym, g in ((sym_r, lanes), (sym_c, c_lanes)):
         plain = rans_device.decode_streams_plain(*rans_device.upload_decode_lanes(*g[:5], "cpu"), g.mode)
         assert sym.dtype == np.int32 and np.array_equal(sym, plain.numpy())
-    assert np.array_equal(rans_device.decode_group_host(c_lanes[:5], c_lanes.mode, "cpu"), sym_c)
+    assert np.array_equal(rans_device.decode_fields_host(None, c_lanes[:5], rans_device.MODE_ZIGZAG, "cpu")[1], sym_c)
 
 
 @pytest.mark.cuda
@@ -322,7 +318,7 @@ def test_cuda_staged_wrappers_equal_the_kernel_on_uploaded_tensors(cuda_device, 
     got = rans_device.encode_streams_host(arrays, L, T, cuda_device)
     assert timer.counters_since(before).get("launch.rans_encode", 0) == 1
     q, n = rans_device.upload_streams(arrays, cuda_device)
-    want = rans_device.encode_streams_cuda(q, n, L, T)
+    want = rans_device.encode_fields_cuda(q, n, None, lanes=L, T=T)[0]
     for name, a, b in zip(want._fields, got, want):
         assert np.array_equal(a, b.cpu().numpy()), name
     H, W = 64, 2000
@@ -337,5 +333,5 @@ def test_cuda_staged_wrappers_equal_the_kernel_on_uploaded_tensors(cuda_device, 
     before = timer.counters()
     sym, _ = rans_device.decode_fields_host(lanes, None, rans_device.MODE_ZIGZAG, cuda_device)
     assert timer.counters_since(before).get("launch.rans_decode", 0) == 1
-    plain = rans_device.decode_streams_cuda(*rans_device.upload_decode_lanes(*lanes, cuda_device), rans_device.MODE_ZIGZAG)
+    plain = rans_device.decode_fields_cuda(rans_device.upload_decode_lanes(*lanes, cuda_device), None)[0]
     assert np.array_equal(sym, plain.cpu().numpy())

@@ -70,8 +70,10 @@ def _grids(lidar, cfg, seeds, device):
 def _assert_same(got, want):
     for name, g, w in zip(got._fields, got, want):
         assert (g is None) == (w is None), name
-        if g is not None:
-            assert g.shape == w.shape and g.dtype == w.dtype and torch.equal(g, w), name
+        pairs = zip(g, w) if isinstance(g, tuple) else [(g, w)]  # a piece tuple's tensors, or the field
+        for x, y in pairs:
+            if x is not None:
+                assert x.shape == y.shape and x.dtype == y.dtype and torch.equal(x, y), name
 
 
 def _eager(enc, q, delta, seeds):

@@ -84,6 +84,25 @@ def test_source_does_not_read_rpcc_rans_device(path):
     assert _reads_rans_device(ast.parse('os.environ.get("RPCC_RANS_DEVICE", "cpu")\nm._RANS_DEVICE'))
 
 
+# The rANS container format's constants and builders, which codec/rans_codec.py owns.
+CONTAINER_NAMES = ("ESC_CAP_DEV", "RESID_LANES", "resid_T", "contour_T", "BZD_TRY_MAX_SYMBOLS",
+                   "build_ctx_container", "build_bits_container", "compress_seq_u16")
+
+
+def test_engine_leaves_the_container_format_to_the_codec():
+    """The batch engine imports nothing of ops/rans_device.py and names
+    none of the containers' constants or builders: the codec owns them."""
+    path = os.path.join(ROOT, "rpcc_tpu_torch", "parallel", "engine.py")
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    imported = set(_imported_modules(tree)) | {f"{n.module}.{a.name}" for n in ast.walk(tree)
+                                               if isinstance(n, ast.ImportFrom) and n.module for a in n.names}
+    assert "rpcc_tpu_torch.ops.rans_device" not in imported
+    named = {getattr(n, "id", None) or getattr(n, "attr", None) for n in ast.walk(tree)}
+    named |= {a.name for n in ast.walk(tree) if isinstance(n, ast.ImportFrom) for a in n.names}
+    assert not named & set(CONTAINER_NAMES), sorted(named & set(CONTAINER_NAMES))
+
+
 _BLOCKED_RUN = r"""
 import importlib.abc, pkgutil, sys
 
@@ -120,7 +139,7 @@ assert err <= bound + 1e-5, err
 if not MODE and ANGLES is None:  # the engine's device entropy coding too
     from rpcc_tpu_torch.parallel.engine import BatchEngine
     engine = BatchEngine(small, cfg, "cpu", batch_size=2, workers=1)
-    assert cfg.device_entropy and engine.encoder.device_entropy
+    assert cfg.device_entropy and engine.encode_batch_device([pc], [0]).out.residual_pieces is not None
     blobs = [b for b, _ in engine.encode_frames([pc, pc], [0, 1])]
     engine.close()
     _, ri2, _ = codec.decompress(blobs[0])

@@ -221,26 +221,41 @@ def test_single_frame_decoders_equal_reference(kind):
 
 
 # ------------------------------------------------------------------ the wrapper on the CPU
+def _decode_group(lanes, mode: int, device) -> np.ndarray:
+    """One field group's lanes (words, counts, states, lives, freqs) decoded
+    with ``mode``'s contexts by ``decode_fields_host`` on ``device``."""
+    if mode == rans_device.MODE_WAVEFRONT:
+        return rans_device.decode_fields_host(None, lanes, rans_device.MODE_ZIGZAG, device)[1]
+    return rans_device.decode_fields_host(lanes, None, mode, device)[0]
+
+
+def _cuda_group(tensors, mode: int):
+    """One field group's CUDA tensors through ``decode_fields_cuda``."""
+    if mode == rans_device.MODE_WAVEFRONT:
+        return rans_device.decode_fields_cuda(None, tensors)[1]
+    return rans_device.decode_fields_cuda(tensors, None, mode)[0]
+
+
 @pytest.mark.parametrize("mode", list(MODES))
 def test_decode_streams_device_on_the_cpu_is_the_plain_version(mode):
     words, counts, states, freqs, lives, T = _mixed_T_batch(MODES[mode], 11)
-    got = rans_device.decode_streams_device(words, counts, states, lives, freqs, MODES[mode], "cpu")
-    assert got.device.type == "cpu" and got.dtype == torch.int32 and got.shape == (3, 8 * T)
+    got = _decode_group((words, counts, states, lives, freqs), MODES[mode], "cpu")
+    assert isinstance(got, np.ndarray) and got.dtype == np.int32 and got.shape == (3, 8 * T)
     ctx_fn = {"zigzag": rans.zigzag_magnitude_context, "wavefront": rans.wavefront_bit_context,
               "order0": rans.zero_context}[mode]
     want = rans.decode_streams_batch_ctx(_torch_code(words, counts, states), torch.from_numpy(freqs), T,
                                          ctx_fn=ctx_fn, lives=torch.from_numpy(lives))
-    assert torch.equal(got, want)
+    assert np.array_equal(got, want.numpy())
     native = rans_native.decode_ctx_batch(words, counts, states, freqs, T, MODES[mode], lives=lives)
-    assert np.array_equal(got.numpy(), native)
+    assert np.array_equal(got, native)
 
 
 def test_decode_wrapper_checks_inputs():
     words, counts, states, freqs, lives, T = _mixed_T_batch(rans_device.MODE_ZIGZAG, 12)
     t = [torch.from_numpy(np.ascontiguousarray(a)) for a in (words.view(np.int16), counts, states.astype(np.int64),
                                                               lives, freqs)]
-    assert torch.equal(rans_device.decode_streams_plain(*t, rans_device.MODE_ZIGZAG),
-                       rans_device.decode_streams_device(words, counts, states, lives, freqs, 0, "cpu"))
+    assert np.array_equal(rans_device.decode_streams_plain(*t, rans_device.MODE_ZIGZAG).numpy(),
+                          _decode_group((words, counts, states, lives, freqs), 0, "cpu"))
     bad = [
         (t[0].to(torch.int32), *t[1:]),  # words not int16
         (t[0], t[1], t[2].to(torch.int32), *t[3:]),  # states not int64
@@ -255,7 +270,7 @@ def test_decode_wrapper_checks_inputs():
     with pytest.raises(ValueError):
         rans_device.decode_streams_plain(*t, 7)
     with pytest.raises(ValueError):  # the CUDA wrapper takes CUDA tensors only
-        rans_device.decode_streams_cuda(*t, rans_device.MODE_ZIGZAG)
+        _cuda_group(t, rans_device.MODE_ZIGZAG)
 
 
 @pytest.mark.parametrize("L, A, mode, fits", [
@@ -288,12 +303,10 @@ def _device_residual_blobs():
     q[2, 50:60] = [900, -700, 5000, 0, 2, 9000, -9000, 3, 1, 0]
     n = np.array([hw, hw // 3, hw], np.int32)
     q[1, n[1]:] = 0
-    res = [p.numpy() for p in rans_device.encode_residual_field_plain(torch.from_numpy(q), torch.from_numpy(n))]
-    words, nw, counts, states, freqs, escapes, n_esc, q0 = res
     L, T = rans_device.RESID_LANES, rans_device.resid_T(hw)
-    blobs = [rans_codec.build_ctx_container(L, T, int(n[b]), int(q0[b]), escapes[b, :n_esc[b]], freqs[b].astype(np.int64),
-                                            states[b], counts[b].astype(np.uint16), words[b, :nw[b]].view(np.uint16),
-                                            np.int16) for b in range(3)]
+    res = rans_device.encode_streams_plain(torch.from_numpy(q), torch.from_numpy(n), L, T)
+    res = res._make(p.numpy() for p in res)
+    blobs = [rans_codec.ctx_container(res, b, L, T, int(n[b]), np.int16) for b in range(3)]
     return blobs, [q[b, :n[b]].astype(np.int16).tobytes() for b in range(3)]
 
 
@@ -498,26 +511,24 @@ def _fields_lanes(kind: str, B: int, seed: int, mode: int, H: int = 64, T: int =
 
 
 def _plain_of(lanes, mode):
-    return rans_device.decode_streams_device(*lanes, mode, "cpu")
+    return rans_device.decode_streams_plain(*rans_device.upload_decode_lanes(*lanes, "cpu"), mode)
 
 
 @pytest.mark.parametrize("case", ["zigzag_and_contour", "order0_and_contour", "residual_only", "contour_only"])
 def test_decode_fields_device_on_the_cpu_is_the_plain_version(case):
-    """decode_fields_device on the CPU: each group's plain version, B_r != B_c."""
+    """decode_fields_host on the CPU: each group's plain version, B_r != B_c."""
     mode = rans_device.MODE_ORDER0 if case.startswith("order0") else rans_device.MODE_ZIGZAG
     res = None if case == "contour_only" else _fields_lanes("residual", 3, 51, mode)
     cnt = None if case == "residual_only" else _fields_lanes("bits", 2, 52, rans_device.MODE_WAVEFRONT, H=40, T=96)
-    got_r, got_c = rans_device.decode_fields_device(res, cnt, mode, "cpu")
+    got_r, got_c = rans_device.decode_fields_host(res, cnt, mode, "cpu")
     for got, lanes, m in ((got_r, res, mode), (got_c, cnt, rans_device.MODE_WAVEFRONT)):
         if lanes is None:
             assert got is None
             continue
-        assert got.device.type == "cpu" and got.dtype == torch.int32
-        assert torch.equal(got, _plain_of(lanes, m))
-        assert np.array_equal(got.numpy(), rans_native.decode_ctx_batch(*lanes[:3], lanes[4], lanes[0].shape[2], m,
-                                                                          lives=lanes[3]))
-    host_r, host_c = rans_device.decode_fields_host(res, cnt, mode, "cpu")
-    assert all(h is None if g is None else np.array_equal(h, g.numpy()) for h, g in ((host_r, got_r), (host_c, got_c)))
+        assert isinstance(got, np.ndarray) and got.dtype == np.int32
+        assert np.array_equal(got, _plain_of(lanes, m).numpy())
+        assert np.array_equal(got, rans_native.decode_ctx_batch(*lanes[:3], lanes[4], lanes[0].shape[2], m,
+                                                                lives=lanes[3]))
 
 
 def test_decode_fields_wrapper_checks_inputs():
@@ -530,9 +541,9 @@ def test_decode_fields_wrapper_checks_inputs():
     with pytest.raises(ValueError):  # CPU tensors
         rans_device.decode_fields_cuda(res, None)
     with pytest.raises(ValueError):
-        rans_device.decode_fields_device(None, None, rans_device.MODE_ZIGZAG, "cpu")
+        rans_device.decode_fields_host(None, None, rans_device.MODE_ZIGZAG, "cpu")
     with pytest.raises(ValueError):
-        rans_device.decode_fields_device(None, None, rans_device.MODE_ZIGZAG, "meta")
+        rans_device.decode_fields_host(None, None, rans_device.MODE_ZIGZAG, "meta")
 
 
 # ------------------------------------------------------------------ the card
@@ -576,14 +587,14 @@ def _card_case(case: str):
 def test_cuda_decode_kernel_equals_plain(cuda_device, case):
     words, counts, states, lives, freqs, mode = _card_case(case)
     before = timer.counters()
-    got = rans_device.decode_streams_device(words, counts, states, lives, freqs, mode, cuda_device)
+    got = _decode_group((words, counts, states, lives, freqs), mode, cuda_device)
     torch.cuda.synchronize(cuda_device)
     assert timer.counters_since(before).get("launch.rans_decode", 0) == 1
-    want = rans_device.decode_streams_device(words, counts, states, lives, freqs, mode, "cpu")
-    assert torch.equal(got.cpu(), want)
+    want = _decode_group((words, counts, states, lives, freqs), mode, "cpu")
+    assert np.array_equal(got, want)
     if not case.startswith("garbage"):
-        assert np.array_equal(want.numpy(), rans_native.decode_ctx_batch(words, counts, states, freqs, words.shape[2],
-                                                                          mode, lives=lives))
+        assert np.array_equal(want, rans_native.decode_ctx_batch(words, counts, states, freqs, words.shape[2],
+                                                                 mode, lives=lives))
 
 
 @pytest.mark.cuda
@@ -593,17 +604,17 @@ def test_cuda_decode_wrapper_rejects_bad_input(cuda_device):
          for a in (words.view(np.int16), counts, states.astype(np.int64), lives, freqs)]
     wide = torch.zeros((1, 8, 2 * words.shape[2]), dtype=torch.int16, device=cuda_device)
     with pytest.raises(ValueError):  # strided words
-        rans_device.decode_streams_cuda(wide[:, :, ::2].expand(t[0].shape[0], -1, -1), *t[1:], mode)
+        _cuda_group((wide[:, :, ::2].expand(t[0].shape[0], -1, -1), *t[1:]), mode)
     z = lambda shape, dt: torch.zeros(shape, dtype=dt, device=cuda_device)  # noqa: E731
     with pytest.raises(ValueError):  # 33 residual lanes
-        rans_device.decode_streams_cuda(z((1, 33, 16), torch.int16), z((1, 33), torch.int32), z((1, 33), torch.int64),
-                                        z((1, 33), torch.int32), z((1, 4, 512), torch.int32), rans_device.MODE_ZIGZAG)
+        _cuda_group((z((1, 33, 16), torch.int16), z((1, 33), torch.int32), z((1, 33), torch.int64),
+                     z((1, 33), torch.int32), z((1, 4, 512), torch.int32)), rans_device.MODE_ZIGZAG)
     with pytest.raises(ValueError):  # 513 contour rows
-        rans_device.decode_streams_cuda(z((1, 513, 16), torch.int16), z((1, 513), torch.int32),
-                                        z((1, 513), torch.int64), z((1, 513), torch.int32), z((1, 4, 2), torch.int32),
-                                        rans_device.MODE_WAVEFRONT)
+        _cuda_group((z((1, 513, 16), torch.int16), z((1, 513), torch.int32),
+                     z((1, 513), torch.int64), z((1, 513), torch.int32), z((1, 4, 2), torch.int32)),
+                    rans_device.MODE_WAVEFRONT)
     with pytest.raises(ValueError):  # a tensor on the CPU
-        rans_device.decode_streams_cuda(t[0], t[1].cpu(), *t[2:], mode)
+        _cuda_group((t[0], t[1].cpu(), *t[2:]), mode)
 
 
 @pytest.mark.cuda

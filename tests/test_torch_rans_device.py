@@ -132,8 +132,8 @@ def test_residual_plain_equals_reference_and_native(case):
     hw = 16 * 256
     q, n = _residual_case(case, hw)
     ref = [np.asarray(r) for r in _REF_RES(jnp.asarray(q), jnp.int32(n))]
-    got = _as_np([p[0] for p in rans_device.encode_residual_field_device(
-        torch.from_numpy(q)[None], torch.tensor([n], dtype=torch.int32))])
+    got = _as_np([p[0] for p in rans_device.encode_fields_device(
+        torch.from_numpy(q)[None], torch.tensor([n], dtype=torch.int32), None)[0]])
     _assert_residual_equal(got, ref)
     if case == "many_escapes":
         assert int(ref[6]) > rans_device.ESC_CAP_DEV
@@ -169,7 +169,7 @@ def test_contour_plain_equals_reference_and_native(kind):
     H, W = 16, 256
     c = _contours(H, W)[kind]
     ref = [np.asarray(r) for r in _REF_CNT(jnp.asarray(c))]
-    got = _as_np([p[0] for p in rans_device.encode_contour_field_device(torch.from_numpy(c)[None])])
+    got = _as_np([p[0] for p in rans_device.encode_fields_device(None, None, torch.from_numpy(c)[None])[1]])
     for name, g, r in zip(RES_NAMES, got, ref):
         np.testing.assert_array_equal(g, r.astype(np.int64), err_msg=name)
     T = rans_device.contour_T(H, W)
@@ -228,7 +228,7 @@ def test_kernel_contour_limits_at_the_edge(H, W, fits):
 def test_plain_contour_has_no_kernel_limit():
     contour = torch.from_numpy(np.random.default_rng(3).integers(0, 2, (1, rans_device.MAX_CONTOUR_ROWS + 1, 2),
                                                                  dtype=np.int32))
-    got = rans_device.encode_contour_field_device(contour)
+    got = rans_device.encode_fields_device(None, None, contour)[1]
     ref = rans_device.encode_contour_field_plain(contour)
     for name, a, b in zip(RES_NAMES, got, ref):
         assert torch.equal(a, b), name
@@ -327,7 +327,9 @@ def test_twin_walk_equals_plain_encoders(monkeypatch, field, case):
     if field == "residual":
         q, n = _residual_case(case, 16 * 256)
         args = (torch.from_numpy(q)[None], torch.tensor([n], dtype=torch.int32))
-        encode = rans_device.encode_residual_field_plain
+
+        def encode(q, n):
+            return rans_device.encode_streams_plain(q, n, rans_device.RESID_LANES, rans_device.resid_T(q.shape[1]))
     else:
         args = (torch.from_numpy(_contours(16, 256)[case])[None],)
         encode = rans_device.encode_contour_field_plain
@@ -342,8 +344,8 @@ def test_twin_walk_equals_plain_encoders(monkeypatch, field, case):
 def test_containers_equal_reference_and_decode_in_both_packages():
     hw = 16 * 256
     q, n = _residual_case("few_escapes", hw)
-    res = [p[0].numpy() for p in rans_device.encode_residual_field_device(
-        torch.from_numpy(q)[None], torch.tensor([n], dtype=torch.int32))]
+    res = [p[0].numpy() for p in rans_device.encode_fields_device(
+        torch.from_numpy(q)[None], torch.tensor([n], dtype=torch.int32), None)[0]]
     words, nw, counts, states, freqs, escapes, n_esc, q0 = res
     L, T = rans_device.RESID_LANES, rans_device.resid_T(hw)
     args = (L, T, n, int(q0), escapes[:n_esc], freqs.astype(np.int64), states, counts.astype(np.uint16),
@@ -355,7 +357,8 @@ def test_containers_equal_reference_and_decode_in_both_packages():
 
     H, W = 16, 256
     c = _contours(H, W)["runs"]
-    words, nw, counts, states, freqs = [p[0].numpy() for p in rans_device.encode_contour_field_device(torch.from_numpy(c)[None])]
+    words, nw, counts, states, freqs = [p[0].numpy() for p in rans_device.encode_fields_device(
+        None, None, torch.from_numpy(c)[None])[1]]
     args = (rans_device.contour_T(H, W), H, W, freqs, states, counts.astype(np.uint16), words[:nw].view(np.uint16))
     blob = rans_codec.build_bits_container(*args)
     assert blob == ref_codec.build_bits_container(*args)
@@ -392,18 +395,13 @@ def test_containers_from_reference_engine_outputs_equal_its_blobs():
     n = torch.from_numpy(np.asarray(out.stream_len)[:live].astype(np.int32))
     H, W = GRID.height, GRID.width
     bits = np.unpackbits(np.asarray(out.contour_packed)[:live], axis=1)[:, : H * W].reshape(live, H, W)
-    res, cnt = rans_device.encode_fields_device(q, n, torch.from_numpy(bits.astype(np.int32)))
+    res, cnt = (p._make(t.numpy() for t in p)
+                for p in rans_device.encode_fields_device(q, n, torch.from_numpy(bits.astype(np.int32))))
     for i in range(live):
         assert int(n[i]) > rans_codec.BZD_TRY_MAX_SYMBOLS
         fields = ref_unpack(blobs[i], uniform=True)
-        r = [p[i].numpy() for p in res]
-        resid = rans_codec.build_ctx_container(
-            rans_device.RESID_LANES, rans_device.resid_T(H * W), int(n[i]), int(r[7]), r[5][: r[6]], r[4],
-            r[3], r[2], r[0][: r[1]].view(np.uint16), np.int16)
+        resid, contour = rans_codec.device_containers(res, cnt, i, int(n[i]), H, W)
         assert resid == fields["residual_quantized"]
-        c = [p[i].numpy() for p in cnt]
-        contour = rans_codec.build_bits_container(rans_device.contour_T(H, W), H, W, c[4], c[3], c[2],
-                                                  c[0][: c[1]].view(np.uint16))
         assert contour == fields["contour_map"]
 
 
@@ -438,7 +436,7 @@ def test_engine_device_entropy_fields_and_escape_overflow(engine_runs):
     st, res = engine_runs["staged"], engine_runs["dev"]
     assert set(res[0][1]) == {"idx_sequence", "plane_param"}
     np.testing.assert_array_equal(res.stream_len, st.stream_len[: len(res)])
-    n_esc = st.de_lens[2]
+    n_esc = st.residual.n_esc.numpy()
     assert n_esc[3] > rans_device.ESC_CAP_DEV and (n_esc[:3] <= rans_device.ESC_CAP_DEV).all()
     # Every frame here is small enough for the host's pick, so each one's
     # i16 prefix came back.
@@ -503,8 +501,8 @@ def test_engine_device_entropy_needs_the_rans_coder(engine_runs):
     clouds, seeds = engine_runs["clouds"][:2], engine_runs["seeds"][:2]
     engine = BatchEngine(lidar, cfg, "cpu", batch_size=2, workers=1)
     try:
-        assert not engine.encoder.device_entropy
-        assert engine.encode_batch_device(clouds, seeds).out.de_res_words is None
+        out = engine.encode_batch_device(clouds, seeds).out
+        assert out.residual_pieces is None and out.contour_pieces is None
         blobs = [b for b, _ in engine.encode_frames(clouds, seeds)]
     finally:
         engine.close()
@@ -610,7 +608,7 @@ def test_cuda_kernel_equals_plain(cuda_device, B, H, W, lens, esc):
     res, cnt = rans_device.encode_fields_cuda(q, n, contour)
     torch.cuda.synchronize(cuda_device)
     assert timer.counters_since(before).get("launch.rans_encode", 0) == 1
-    ref_res = rans_device.encode_residual_field_plain(q, n)
+    ref_res = rans_device.encode_streams_plain(q, n, rans_device.RESID_LANES, rans_device.resid_T(H * W))
     ref_cnt = rans_device.encode_contour_field_plain(contour)
     for name, a, b in zip(RES_NAMES, res, ref_res):
         assert torch.equal(a, b), name

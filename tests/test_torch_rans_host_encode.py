@@ -443,7 +443,7 @@ def test_cuda_kernel_equals_plain_at_host_geometry(cuda_device, lanes):
     spiky[:: max(n_max // 600, 1)] += rng.integers(3000, 9000, spiky[:: max(n_max // 600, 1)].size, dtype=np.int32)
     q, n = rans_device.upload_streams(frames + [wide, spiky], cuda_device)
     before = timer.counters()
-    got = rans_device.encode_streams_cuda(q, n, lanes, T)
+    got = rans_device.encode_fields_cuda(q, n, None, lanes=lanes, T=T)[0]
     torch.cuda.synchronize(cuda_device)
     assert timer.counters_since(before).get("launch.rans_encode", 0) == 1
     want = rans_device.encode_streams_plain(q, n, lanes, T)
@@ -457,9 +457,9 @@ def test_cuda_wrapper_rejects_bad_geometry(cuda_device):
     q, n = rans_device.upload_streams([_walk(1000, 0, np.int32)], cuda_device)
     for lanes, T in ((3, 512), (64, 16), (32, 24), (1, 992), (0, 16)):
         with pytest.raises(ValueError):
-            rans_device.encode_streams_cuda(q, n, lanes, T)
+            rans_device.encode_fields_cuda(q, n, None, lanes=lanes, T=T)
     with pytest.raises(ValueError):  # CPU tensors: never the plain version
-        rans_device.encode_streams_cuda(q.cpu(), n.cpu(), 32, 32)
+        rans_device.encode_fields_cuda(q.cpu(), n.cpu(), None, lanes=32, T=32)
 
 
 @pytest.mark.cuda
