@@ -55,6 +55,11 @@ Phases (each raises on failure, and the process then exits nonzero):
      and a 128x4000 frame past a cluster's on-chip capacity; the launch plan
      of each; both versions timed with CUDA events at 64x2000, and the
      kernel's per-phase split (``%globaltimer`` stamps of frame 0);
+  3h. the projection kernel (``csrc/raster.cu``, two launches) against the
+     host projection (``raster.cpp``) and its plain version on the card,
+     bit for bit, on a full 64E street sweep and its returns within 26 m,
+     u16 and f32; the kernel, the plain version, the host projection and
+     the cloud's pinned upload timed;
   4. the main path: ``RPCCCodec(Velodyne64E, CodecConfig(), "cuda")``
      compresses and decompresses four synthetic 64x2000 frames; error
      bound, exact zero pixels, one FPS launch per encode, its rANS
@@ -270,8 +275,8 @@ MASKED_TIMED = tuple(64000 + 500 * i for i in range(8))
 TIMED_RUNS = 21
 BACK_TO_BACK = 10  # calls per CUDA-event sample of a kernel's ``ms_10_back_to_back``
 # Kernel launches per wrapper call, whatever the batch: DBSCAN's mask pass
-# and cluster kernel are two.
-LAUNCHES_PER_CALL = {"fps": 1, "dbscan": 2}
+# and cluster kernel are two, the projection's scatter and snap passes two.
+LAUNCHES_PER_CALL = {"fps": 1, "dbscan": 2, "project": 2}
 KERNELS = ("fps", "dbscan", "rans", "rans_decode")
 # The card's published peaks (H100 SXM, at its full 700 W): f32 outside the
 # tensor cores, and device memory.
@@ -383,6 +388,13 @@ def rans_bound(B: int, hw: int, H: int, W: int):
     per = (4 * hw + 4 + 2 * 32 * resid_T(hw) + 12 * 32 + 4 * 4 * 512 + 8 * 512 + 12
            + 4 * H * W + 2 * H * contour_T(H, W) + 12 * H + 4 * 8 + 4)
     return bound(0.0, float(B * per))
+
+
+def projection_bound(N: int, hw: int):
+    """The projection: the cloud read once (12 B a point), the int32 grid
+    and delta written once; its ~70 f64 operations a point are far under
+    the bytes' time."""
+    return bound(0.0, 12.0 * N + 4.0 * hw + 4.0)
 
 
 # ------------------------------------------------------------------ scenes
@@ -522,15 +534,16 @@ def scene_narrow(np, seed: int, H: int, W: int):
 
 # ------------------------------------------------------------------ phases
 def phase_build():
-    from rpcc_tpu_torch.ops import dbscan, fps, rans_device
+    from rpcc_tpu_torch.ops import dbscan, fps, projection_device, rans_device
     from rpcc_tpu_torch.utils import chain_probe
 
     t = time.perf_counter()
-    builds = (fps._kernel, dbscan._kernel, rans_device._kernel, rans_device._decode_kernel, chain_probe._library)
+    builds = (fps._kernel, dbscan._kernel, rans_device._kernel, rans_device._decode_kernel, chain_probe._library,
+              projection_device._library)
     with ThreadPoolExecutor(max_workers=len(builds)) as pool:
         for f in [pool.submit(k) for k in builds]:
             f.result()
-    print(f"[phase 1] fps.cu, dbscan.cu, rans.cu, rans_decode.cu and chain_probe.cu built and loaded in "
+    print(f"[phase 1] fps.cu, dbscan.cu, rans.cu, rans_decode.cu, chain_probe.cu and raster.cu built and loaded in "
           f"{time.perf_counter() - t:.2f} s")
 
 
@@ -789,6 +802,49 @@ def check_frames(np, codec, results, bound, card, tag, phase):
     return bpps
 
 
+def phase_projection(torch, np, dev, card, lidar):
+    """3h: the projection kernel (``csrc/raster.cu``) == the host projection
+    == the plain version on the card, bit for bit, on a full street sweep
+    and its returns within 26 m, in u16 and f32; each timed: the kernel
+    (one call, 10 back to back), the plain version on the card, the host
+    projection it replaces, the cloud's pinned upload."""
+    from rpcc_tpu_torch.config import CodecConfig
+    from rpcc_tpu_torch.ops import projection_device as pd
+    from rpcc_tpu_torch.ops.projection_host import build_transform_map, project_for_encoder
+
+    full = scene_cloud(np, build_transform_map(lidar), 10)
+    out = {}
+    for tag, pc in (("full", full), ("dropped", drop_far(np, full))):
+        for cfg in (CodecConfig(), CodecConfig(transfer_precision="f32")):
+            ws = pd.Workspace(lidar, cfg, dev)
+            pts = ws.upload(pc)
+            q, d = project_for_encoder(pc, lidar, cfg)
+            for grid, delta in (pd.project_cuda(pts, ws), pd.project_plain(pts, lidar, cfg)):
+                got = grid.cpu().numpy()
+                check(np.array_equal(got.view(np.int32), q.view(np.int32)) if q.dtype == np.float32
+                      else np.array_equal(got, q.astype(np.int32)), f"projection {tag} {cfg.transfer_precision}: grid")
+                check(np.float32(delta.item()) == d, f"projection {tag} {cfg.transfer_precision}: delta")
+        cfg = CodecConfig()
+        ws = pd.Workspace(lidar, cfg, dev)
+        pts = ws.upload(pc)
+        ms = median_ms(torch, lambda: pd.project_cuda(pts, ws))
+        b2b = median_ms(torch, lambda: pd.project_cuda(pts, ws), per_sample=10)
+        plain = median_ms(torch, lambda: pd.project_plain(pts, lidar, cfg))
+        host = host_median_ms(lambda: project_for_encoder(pc, lidar, cfg))
+        upload = host_median_ms(lambda: (ws.upload(pc), torch.cuda.synchronize()))  # the same rows again
+        device_us = {k: decode_device_us(torch, lambda: pd.project_cuda(pts, ws), name=f"project_{k}_kernel")
+                     for k in ("scatter", "snap")}
+        b = projection_bound(pc.shape[0], lidar.height * lidar.width)
+        out[tag] = dict(shape=f"N={pc.shape[0]} H={lidar.height} W={lidar.width}", ms=ms, b2b=b2b, plain_ms=plain,
+                        host_ms=host, upload_ms=upload, device_us=device_us, bound=b)
+        print(f"[phase 3h] [{card}] projection kernel == host == plain (u16, f32) on the {tag} sweep "
+              f"({pc.shape[0]} points), median of {TIMED_RUNS}: kernel {ms:.4f} ms one call, {b2b:.4f} ms "
+              f"back to back, device time a launch (us, torch.profiler) {device_us}; plain on the card "
+              f"{plain:.4f} ms; host projection {host:.4f} ms; pinned upload {upload:.4f} ms; bound {b[0]:.6f} ms "
+              f"({b[1]})")
+    return out
+
+
 def phase_main(torch, np, dev, card, lidar):
     from rpcc_tpu_torch.config import CodecConfig
     from rpcc_tpu_torch.data.synth import synth_cloud_for
@@ -802,8 +858,11 @@ def phase_main(torch, np, dev, card, lidar):
     torch.cuda.synchronize()
 
     c0 = launch_counts()
+    p0 = counter("launch.project")
     results = encode_frames(codec, frames)
     n = launches_since(c0)
+    projects = counter("launch.project") - p0
+    check(projects == 2 * len(SEEDS), f"launch.project rose by {projects} over {2 * len(SEEDS)} encodes")
     launches, rans_enc, rans_dec = n["fps"], n["rans"], n["rans_decode"]
     want_enc = sum(2 * rans_encode_calls(np, r[3]) for r in results.values())
     want_dec = sum(1 + small_rans_fields(r[1]) for r in results.values())
@@ -840,7 +899,7 @@ def phase_main(torch, np, dev, card, lidar):
     check(x_err <= bound, f"cpu decode of the cuda blob: max_err {x_err} > {bound}")
     print(f"[phase 4] RPCCCodec(..., 'cpu') encode and decode: 0 rANS launches of either kernel")
     return codec, frames, dict(fps=launches / (2 * len(SEEDS)), rans=rans_enc / (2 * len(SEEDS)),
-                               rans_decode=rans_dec / len(SEEDS))
+                               rans_decode=rans_dec / len(SEEDS), project=projects / (2 * len(SEEDS)))
 
 
 def rans_inputs(torch, codec, clouds):
@@ -2962,11 +3021,11 @@ def phase_data_parallel(torch, np, card, lidar, codec, eng):
     return runs[2][2], dec_launches
 
 
-def decode_device_us(torch, fn, runs: int = TIMED_RUNS):
-    """Median device time (us) of the rANS decode kernel's launches in
-    ``runs`` calls of ``fn`` (one launch each), from ``torch.profiler``'s
-    kernel events: the wrapper's host time left out; None where the
-    profiler recorded no such event."""
+def decode_device_us(torch, fn, runs: int = TIMED_RUNS, name: str = "rans_decode"):
+    """Median device time (us) of the launches of the kernel ``name`` (the
+    rANS decode's) in ``runs`` calls of ``fn`` (one launch each), from
+    ``torch.profiler``'s kernel events: the wrapper's host time left out;
+    None where the profiler recorded no such event."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -2976,7 +3035,7 @@ def decode_device_us(torch, fn, runs: int = TIMED_RUNS):
             fn()
         torch.cuda.synchronize()
     us = [e.time_range.elapsed_us() for e in prof.events()
-          if str(e.device_type).endswith("CUDA") and "rans_decode" in e.name]
+          if str(e.device_type).endswith("CUDA") and name in e.name]
     return statistics.median(us) if us else None
 
 
@@ -3215,6 +3274,7 @@ def main() -> int:
     db_err, db_ms, db_b2b, db_plain_ms, db_bound, db_split = phase_dbscan(torch, np, dev, card, lidar)  # 3b
     db4 = phase_dbscan_batch(torch, np, dev, card, lidar, STREET_SEEDS)  # 3c
     db8 = phase_dbscan_batch(torch, np, dev, card, lidar, STREET_SEEDS_8)
+    proj = phase_projection(torch, np, dev, card, lidar)  # 3h
     codec, frames, codec_launches = phase_main(torch, np, dev, card, lidar)  # 4
     fps_per_encode = codec_launches["fps"]
     rans = phase_rans(torch, np, dev, card, lidar, codec, frames)  # 3e
@@ -3441,6 +3501,31 @@ def main() -> int:
                                            "host_coder": host["small"]["decode_cpu_call_ms"]},
             "t16_decode_call_ms": {"shape": host["small"]["t16_shape"], "card": host["small"]["t16_call_ms"],
                                    "native": host["small"]["t16_native_ms"]},
+        },
+        {
+            "name": "project",
+            "route": "cuda",
+            "source": "rpcc_tpu_torch/csrc/raster.cu",
+            "replaces": "none: rpcc_tpu_torch/csrc/host/raster.cpp on the host (the reference's jnp in rpcc_tpu/ops/projection.py)",
+            "launches_per_codec_encode": codec_launches["project"] * LAUNCHES_PER_CALL["project"],
+            "shape": proj["full"]["shape"],
+            "ms": proj["full"]["ms"],
+            "ms_10_back_to_back": proj["full"]["b2b"],
+            "plain_ms": proj["full"]["plain_ms"],
+            "bound_ms": proj["full"]["bound"][0],
+            "bound_by": proj["full"]["bound"][1],
+            "library_ms": None,
+            "device_us": proj["full"]["device_us"],
+            "host_projection_ms": proj["full"]["host_ms"],
+            "upload_ms": proj["full"]["upload_ms"],
+            "dropped_shape": proj["dropped"]["shape"],
+            "dropped_ms": proj["dropped"]["ms"],
+            "dropped_ms_10_back_to_back": proj["dropped"]["b2b"],
+            "dropped_plain_ms": proj["dropped"]["plain_ms"],
+            "dropped_bound_ms": proj["dropped"]["bound"][0],
+            "dropped_device_us": proj["dropped"]["device_us"],
+            "dropped_host_projection_ms": proj["dropped"]["host_ms"],
+            "dropped_upload_ms": proj["dropped"]["upload_ms"],
         },
     ]}))
     print(json.dumps({"ok": True, "device": {

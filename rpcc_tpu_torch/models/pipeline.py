@@ -5,12 +5,18 @@ The ``.rpcc`` byte layout (with the u8 ``salience_level`` field first in
 non-uniform mode), the field dtypes and the timing keys are the
 reference's, so blobs cross-decode between the two packages.
 
+On a card the codec uploads the raw cloud and projects it there
+(``ops/projection_device.py``, the kernel ``csrc/raster.cu``): the same
+grid and delta as the host projection, handed to the encoder as device
+tensors, with nothing downloaded and no wait before the graph.  On the CPU
+it projects on the host (``ops/projection_host.py``).
+
 ``compress`` runs in the span ``codec.compress`` (``utils/timer.py``), its
-steps in ``codec.project`` (the host projection), ``codec.upload``, the
-encoder's ``graph``, ``codec.device_wait`` (the synchronise after the
-graph), ``codec.gather_fields``, ``codec.entropy`` and ``codec.framing``,
-each with the frame's number in the codec's compresses; its timing dict
-comes from the same stamps.
+steps in ``codec.upload`` and ``codec.project`` (on the CPU in the other
+order), the encoder's ``graph``, ``codec.device_wait`` (the synchronise
+after the graph), ``codec.gather_fields``, ``codec.entropy`` and
+``codec.framing``, each with the frame's number in the codec's
+compresses; its timing dict comes from the same stamps.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ from rpcc_tpu_torch.codec.entropy import BasicCompressor
 from rpcc_tpu_torch.config import CodecConfig, LidarConfig
 from rpcc_tpu_torch.models.decoder import Decoder
 from rpcc_tpu_torch.models.encoder import Encoder, EncoderOutput, count_model_rows, num_model_rows
+from rpcc_tpu_torch.ops import projection_device
 from rpcc_tpu_torch.ops.projection_host import build_transform_map, project_for_encoder
 from rpcc_tpu_torch.utils import timer
 
@@ -66,6 +73,7 @@ class RPCCCodec:
         self.entropy = BasicCompressor(method_name=cfg.basic_compressor, contour_shape=(self.H, self.W),
                                        device=self.device)
         self._frames = itertools.count()  # the batch number of each compress's spans
+        self._projection = None  # the projection kernel's workspace, made at a card's first encode
 
     @property
     def _step_arg(self):
@@ -81,12 +89,21 @@ class RPCCCodec:
         return project_for_encoder(points, self.lidar, self.cfg)
 
     def encode_device(self, points: np.ndarray, seed: Optional[int] = None) -> EncoderOutput:
-        """Host-project, upload, run the encoder; returns device tensors."""
-        with timer.span("codec.project"):
-            q, d = self.project(points)
-        with timer.span("codec.upload"):
-            q_t = torch.from_numpy(q if q.dtype == np.float32 else q.astype(np.int32)).to(self.device)
-            d_t = torch.tensor(d, dtype=torch.float32, device=self.device)
+        """Project (on a card: upload the cloud, project it there; on the
+        CPU: on the host), run the encoder; returns device tensors."""
+        if self.device.type == "cuda":
+            if self._projection is None:
+                self._projection = projection_device.Workspace(self.lidar, self.cfg, self.device)
+            with timer.span("codec.upload"):
+                pts = self._projection.upload(points)
+            with timer.span("codec.project"):
+                q_t, d_t = projection_device.project_cuda(pts, self._projection)
+        else:
+            with timer.span("codec.project"):
+                q, d = self.project(points)
+            with timer.span("codec.upload"):
+                q_t = torch.from_numpy(q if q.dtype == np.float32 else q.astype(np.int32)).to(self.device)
+                d_t = torch.tensor(d, dtype=torch.float32, device=self.device)
         seed = self.cfg.seed if seed is None else seed
         return self.encoder(q_t, d_t, seed, self._step_arg)
 

@@ -48,6 +48,32 @@ def build_transform_planes(lidar: LidarConfig) -> np.ndarray:
     return np.transpose(build_transform_map(lidar), (2, 0, 1)).copy()
 
 
+def projection_constants(lidar: LidarConfig):
+    """``(hfov, vmin, vres, va)``: the f32 constants the projection bins
+    with (radians) and the f32 channel table, or None for evenly spaced
+    rows (``vres`` is then the row pitch, else 0)."""
+    H = lidar.height
+    if lidar.even_dist:
+        vres = np.float32((lidar.vertical_max - lidar.vertical_min) / (H - 1))
+        va = None
+    else:
+        vres = np.float32(0.0)
+        va = np.ascontiguousarray(np.radians(np.asarray(lidar.vertical_angles_deg, np.float64)).astype(np.float32))
+        if va.shape[0] != H:
+            raise ValueError(f"channel table has {va.shape[0]} entries for {H} rows")
+    return np.float32(lidar.horizontal_fov), np.float32(lidar.vertical_min), vres, va
+
+
+def cloud_rows(points: np.ndarray) -> np.ndarray:
+    """An (N, >=3) cloud as f32 rows of adjacent columns, x, y, z leading:
+    the cloud itself where it is one (an xyzi cloud keeps its stride of 4),
+    else a copy of its x, y, z."""
+    pts = np.asarray(points, np.float32)
+    if pts.ndim != 2 or pts.shape[1] < 3:
+        raise ValueError(f"points must be (N, >=3), got {pts.shape}")
+    return pts if pts.strides[1] == 4 else np.ascontiguousarray(pts[:, :3])
+
+
 def _native_proj_head(points: np.ndarray, lidar: LidarConfig):
     """``(pts, va, head)``: the cloud as f32 rows, the channel table (or
     None) and the leading ctypes argument tuple shared by the native
@@ -56,20 +82,9 @@ def _native_proj_head(points: np.ndarray, lidar: LidarConfig):
     the call.  c_float wrappers are required: untyped ctypes calls promote
     python floats to double and corrupt the ABI."""
     H, W = lidar.height, lidar.width
-    pts = np.asarray(points, np.float32)
-    if pts.ndim != 2 or pts.shape[1] < 3:
-        raise ValueError(f"points must be (N, >=3), got {pts.shape}")
-    if pts.strides[1] != 4:
-        pts = np.ascontiguousarray(pts[:, :3], np.float32)
-    if lidar.even_dist:
-        vres = np.float32((lidar.vertical_max - lidar.vertical_min) / (H - 1))
-        va, va_ptr = None, None
-    else:
-        vres = np.float32(0.0)
-        va = np.ascontiguousarray(np.radians(np.asarray(lidar.vertical_angles_deg, np.float64)).astype(np.float32))
-        if va.shape[0] != H:
-            raise ValueError(f"channel table has {va.shape[0]} entries for {H} rows")
-        va_ptr = va.ctypes.data_as(ct.c_void_p)
+    pts = cloud_rows(points)
+    hfov, vmin, vres, va = projection_constants(lidar)
+    va_ptr = None if va is None else va.ctypes.data_as(ct.c_void_p)
     head = (
         pts.ctypes.data_as(ct.c_void_p),
         ct.c_int64(pts.shape[0]),
@@ -77,8 +92,8 @@ def _native_proj_head(points: np.ndarray, lidar: LidarConfig):
         ct.c_int32(H),
         ct.c_int32(W),
         ct.c_int32(1 if lidar.even_dist else 0),
-        ct.c_float(np.float32(lidar.horizontal_fov)),
-        ct.c_float(np.float32(lidar.vertical_min)),
+        ct.c_float(hfov),
+        ct.c_float(vmin),
         ct.c_float(vres),
         va_ptr,
         ct.c_int32(0 if va is None else va.shape[0]),
